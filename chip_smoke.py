@@ -1,0 +1,387 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port: build, check and drive it on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (exit code 1, no result line):
+
+1. Build every CUDA source of ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all started together).
+2. Hold each kernel against its plain PyTorch version on the card, at the
+   shapes the main path gives it and at one larger shape, and time kernel,
+   plain version and (where one exists) a library call with CUDA events.
+3. Drive the main path — ``build_trainer(data, model, llcg_plan(cfg)).run()``
+   on the paper's ``reddit`` setting for 3 rounds — in two configurations:
+   A (arch SBSBS, server correction through the BCSR SpMM kernel) and
+   B (fused GAT, every aggregation through the edge-softmax kernel).
+   Launch counts are reset just before each run and read just after; each
+   config must launch its kernel.  The History must be finite, its byte
+   accounting exact, and its losses must agree with the same run on the CPU
+   (plain versions).
+
+Prints the card (``nvidia-smi`` name and power limit) and one JSON line of
+per-kernel numbers, then ``{"ok": true, "device": {...}}`` as the last line.
+Exits non-zero without a result when no GPU is visible or when the
+``src/repro_torch`` package is not beside this script.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
+# float32 rate outside the tensor cores.  Both kernels compute in f32.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+ROUNDS = 3
+# kernel vs plain version on the card: both f32, summed in another order
+SPMM_TOL = 1e-4          # × max(1, max|plain|): sums of ≤ max-degree terms
+ESM_TOL = 1e-5           # absolute: weights ≤ 1 on unit-scale values
+# the card's run vs the CPU run of the same plan: f32 in another order,
+# compounded over 3 rounds of Adam steps
+TRAJ_RTOL = 1e-3
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int = 20) -> float:
+    """Device time per launch: ``iters`` launches captured in one CUDA graph
+    and replayed, so the host's launch cost drops out of the timing."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                                        # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return _time_ms(graph.replay, iters=5, warmup=1) / iters
+
+
+def _bound(nbytes: float, ops: float) -> tuple:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------
+def _spmm_case(graph, d: int, label: str, seed: int) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ops import bcsr_device_operands
+    from repro_torch.kernels.ref import spmm_bcsr_ref
+    from repro_torch.kernels.spmm import spmm_bcsr
+
+    cols, vals, n_pad = bcsr_device_operands(graph, "cuda",
+                                             normalization="none")
+    n = graph.num_nodes
+    h = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, d)).astype(np.float32)).cuda()
+    hp = torch.nn.functional.pad(h, (0, 0, 0, n_pad - n))
+    out = spmm_bcsr(cols, vals, h)
+    torch.cuda.synchronize()
+    # the plain version gathers a (tiles, 128, D) copy of H: run it over
+    # chunks of row blocks so the large shape stays within memory
+    step = max(1, (1 << 28) // (vals.shape[1] * 128 * d))
+
+    def plain():
+        return torch.cat([spmm_bcsr_ref(cols[i:i + step], vals[i:i + step],
+                                        hp)
+                          for i in range(0, cols.shape[0], step)])
+
+    ref = plain()
+    err = float((out - ref).abs().max())
+    tol = SPMM_TOL * max(1.0, float(ref.abs().max()))
+    _check(math.isfinite(err) and err <= tol,
+           f"spmm_bcsr {label} D={d}: max |kernel - plain| {err} > {tol}")
+    _, dst = graph.to_edges()
+    a = torch.sparse_csr_tensor(                  # the library yardstick
+        torch.from_numpy(graph.indptr.astype(np.int64)),
+        torch.from_numpy(dst.astype(np.int64)),
+        torch.ones(dst.shape[0]), size=(n, n),
+        check_invariants=True).cuda()
+    lib_err = float((torch.sparse.mm(a, h) - ref[:n]).abs().max())
+    _check(lib_err <= tol, f"library yardstick disagrees: {lib_err}")
+    nnz = int((vals != 0).sum())
+    nbytes = 4 * (cols.numel() + vals.numel() + h.numel() + out.numel())
+    bound_ms, bound_by = _bound(nbytes, 2.0 * nnz * d)
+    return {"label": label, "shape": f"{tuple(cols.shape)} tiles, "
+            f"h {tuple(h.shape)}", "max_abs_err": err, "tol": tol,
+            "ms": _time_ms(lambda: spmm_bcsr(cols, vals, h)),
+            "device_ms": _graph_ms(lambda: spmm_bcsr(cols, vals, h)),
+            "plain_ms": _time_ms(plain, iters=3, warmup=1),
+            "library_ms": _time_ms(lambda: torch.sparse.mm(a, h)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _esm_case(n: int, f: int, d: int, label: str, seed: int) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels.edge_softmax import edge_softmax
+    from repro_torch.kernels.ref import edge_softmax_ref
+
+    rng = np.random.default_rng(seed)
+    scores = torch.from_numpy(rng.standard_normal((n, f)).astype(
+        np.float32)).cuda()
+    mask = torch.from_numpy((rng.random((n, f)) < 0.7).astype(
+        np.float32)).cuda()
+    mask[: max(1, n // 64)] = 0.0                 # fully masked rows
+    vals = torch.from_numpy(rng.standard_normal((n, f, d)).astype(
+        np.float32)).cuda()
+    out = edge_softmax(scores, mask, vals)
+    ref = edge_softmax_ref(scores, mask, vals)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    _check(math.isfinite(err) and err <= ESM_TOL,
+           f"edge_softmax {label} ({n},{f},{d}): max |kernel - plain| "
+           f"{err} > {ESM_TOL}")
+    _check(float(out[: max(1, n // 64)].abs().max()) == 0.0,
+           "edge_softmax: a fully masked row is not 0")
+    nbytes = 4 * (2 * n * f + n * f * d + n * d)
+    bound_ms, bound_by = _bound(nbytes, n * f * (2.0 * d + 5))
+    return {"label": label, "shape": f"({n}, {f}, {d})", "max_abs_err": err,
+            "tol": ESM_TOL,
+            "ms": _time_ms(lambda: edge_softmax(scores, mask, vals)),
+            "device_ms": _graph_ms(lambda: edge_softmax(scores, mask, vals)),
+            "plain_ms": _time_ms(lambda: edge_softmax_ref(scores, mask,
+                                                          vals)),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# --------------------------------------------------------------------------
+# phase 3: the main path
+# --------------------------------------------------------------------------
+def _configs():
+    from repro_torch.configs.gnn_datasets import make_paper_setting
+    from repro_torch.models.gnn.model import build_model
+
+    data, model_a, cfg = make_paper_setting("reddit")
+    cfg = dataclasses.replace(cfg, server_agg_layout="bcsr_kernel",
+                              rounds=ROUNDS)
+    model_b = build_model("GAT", data.feature_dim, data.num_classes,
+                          hidden_dim=64, fused_gat=True)
+    return data, cfg, {"A": model_a, "B": model_b}
+
+
+def _device_busy_share(run) -> str:
+    """Summed device time of the kernels over the wall time of ``run()``,
+    from ``torch.profiler``, with the five kernels that take the most
+    device time; "not measured" if it records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    except (RuntimeError, AttributeError) as e:    # tracing unavailable
+        return f"not measured ({e})"
+    device_us = sum(e.self_device_time_total for e in kernels)
+    if device_us <= 0:
+        return "not measured"
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    top_s = "; ".join(f"{e.key[:60]} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.3f} ms" for e in top)
+    return (f"{device_us / 1e6 / wall:.4f} ({device_us / 1e3:.3f} ms device "
+            f"in {wall * 1e3:.3f} ms wall; top: {top_s})")
+
+
+def _drive(name: str, data, model, cfg, kernels) -> dict:
+    import torch
+    from repro_torch.core.plan import (RoundSampler, build_trainer,
+                                       llcg_plan, lower_plan)
+
+    plan = llcg_plan(cfg)
+    one_round = dataclasses.replace(
+        plan, schedule=dataclasses.replace(plan.schedule, rounds=1))
+    # warm-up: loads the built library and compiles Triton specializations
+    build_trainer(data, model, one_round).run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build_trainer(data, model, one_round).run()
+    wall1 = time.perf_counter() - t0
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    hist = build_trainer(data, model, plan).run()     # device "cuda"
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    busy = _device_busy_share(lambda: build_trainer(data, model, plan).run())
+    # the host layer alone: one round's sampling and its copy to the card
+    sampler = RoundSampler(data, model, plan, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for desc in lower_plan(plan):
+        sampler.sample(desc)
+    torch.cuda.synchronize()
+    sample_ms = (time.perf_counter() - t0) / ROUNDS * 1e3
+    for r in range(len(hist.rounds)):
+        print(f"config {name} round {hist.rounds[r]}: steps_cum "
+              f"{hist.steps_cum[r]} bytes_cum {hist.bytes_cum[r]} "
+              f"train_loss {hist.train_loss[r]} val_f1 {hist.val_score[r]} "
+              f"local_loss {hist.meta['local_loss'][r]} corr_loss "
+              f"{hist.meta['corr_loss'][r]}")
+    per_round = (wall - wall1) / (ROUNDS - 1)
+    print(f"config {name}: {per_round * 1e3:.3f} ms per round (run() wall "
+          f"{wall:.4f} s for {ROUNDS} rounds, {wall1:.4f} s for 1), of which "
+          f"host sampling + copy {sample_ms:.3f} ms; launches {counts}; "
+          f"device busy {busy} of a profiled run")
+
+    # what comes out: finite, exact accounting, and the CPU run's numbers
+    vals = hist.train_loss + hist.meta["local_loss"] + hist.meta["corr_loss"]
+    _check(all(math.isfinite(v) for v in vals), f"config {name}: non-finite "
+           "loss")
+    _check(all(0.0 <= s <= 1.0 for s in hist.val_score),
+           f"config {name}: F1 out of range")
+    pb = hist.meta["param_bytes"]
+    P = cfg.num_machines
+    _check(hist.bytes_cum == [2.0 * P * pb * r for r in hist.rounds],
+           f"config {name}: byte accounting {hist.bytes_cum}")
+    cpu = build_trainer(data, model, plan, device="cpu").run()
+    for a, b in zip(vals, cpu.train_loss + cpu.meta["local_loss"]
+                    + cpu.meta["corr_loss"]):
+        _check(abs(a - b) <= TRAJ_RTOL * max(1.0, abs(b)),
+               f"config {name}: GPU loss {a} vs CPU {b}")
+    one_node = 1.0 / len(data.val_nodes)
+    for a, b in zip(hist.val_score, cpu.val_score):
+        _check(abs(a - b) <= one_node + 1e-6,
+               f"config {name}: GPU F1 {a} vs CPU {b}")
+    _check(hist.steps_cum == cpu.steps_cum
+           and hist.bytes_cum == cpu.bytes_cum,
+           f"config {name}: accounting differs from the CPU run")
+    return counts
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is missing: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.graph.datasets import sbm_graph
+    from repro_torch.kernels import build
+    from repro_torch.kernels.edge_softmax import edge_softmax
+    from repro_torch.kernels.spmm import spmm_bcsr
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "--id=0"],
+                         capture_output=True, text=True, check=True)
+    card = smi.stdout.strip()
+
+    try:
+        t0 = time.perf_counter()
+        libs = build.build(build.sources())
+        print(f"built {[p.name for p in libs]} in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        data, cfg, models = _configs()
+        from repro_torch.core.plan import RoundSampler, llcg_plan
+        smp = RoundSampler(data, models["A"], llcg_plan(cfg), "cpu")
+        n_loc = cfg.num_machines * smp.n_max
+        n_full, f_full = smp.full_table.shape
+
+        spmm_cases = [_spmm_case(data.graph, d, "slice", s)
+                      for s, d in enumerate((32, 64))]
+        big = sbm_graph(num_nodes=16384, avg_degree=25, seed=1)
+        spmm_cases += [_spmm_case(big.graph, d, "large", 10 + s)
+                       for s, d in enumerate((64, 128))]
+        esm_cases = [_esm_case(n_loc, smp.fanout, 64, "slice local", 20),
+                     _esm_case(n_loc, smp.fanout, 8, "slice local", 21),
+                     _esm_case(n_full, f_full, 64, "slice full", 22),
+                     _esm_case(n_full, f_full, 8, "slice full", 23),
+                     _esm_case(65536, 10, 64, "large", 24),
+                     _esm_case(65536, big.graph.max_degree(), 64, "large",
+                               25)]
+        for c in spmm_cases:
+            print(f"spmm_bcsr {json.dumps(c)}")
+        for c in esm_cases:
+            print(f"edge_softmax {json.dumps(c)}")
+
+        counts = {}
+        counts.update(_drive("A", data, models["A"], cfg, (spmm_bcsr,
+                                                            edge_softmax)))
+        _check(counts["spmm_bcsr"] > 0, "config A launched no SpMM kernel")
+        counts_b = _drive("B", data, models["B"], cfg, (spmm_bcsr,
+                                                        edge_softmax))
+        _check(counts_b["edge_softmax"] > 0,
+               "config B launched no edge-softmax kernel")
+        counts["edge_softmax"] = counts_b["edge_softmax"]
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        return 1
+
+    def row(name, route, source, replaces, case):
+        return {"name": name, "route": route, "source": source,
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+                "device_ms": case["device_ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"],
+                "library_ms": case["library_ms"]}
+
+    kernels = [
+        row("spmm_bcsr", "cuda", "src/repro_torch/kernels/csrc/spmm_bcsr.cu",
+            "src/repro/kernels/spmm.py:127", spmm_cases[1]),
+        row("edge_softmax", "triton",
+            "src/repro_torch/kernels/edge_softmax.py",
+            "src/repro/kernels/edge_softmax.py:49", esm_cases[0]),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

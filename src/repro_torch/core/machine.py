@@ -1,0 +1,105 @@
+"""Per-machine loss / round-body / evaluation functions.
+
+:func:`make_loss_fn` is the single loss definition; :func:`make_local_round`
+is the K-step local phase of every machine.  The JAX package ``vmap``s one
+machine's ``lax.scan`` over the machine axis; the port writes both axes
+out: the P machines' parameters are stacked on a leading axis and every
+step runs one forward over all P graphs, so one ``backward`` of the SUM of
+the P per-machine losses yields each machine's own gradients (machine p's
+loss depends only on machine p's parameters), and the optimizer — which is
+elementwise — updates the stack at once.  The K steps are a Python loop.
+"""
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+from repro_torch.models.gnn.model import (GNNModel, cross_entropy_on_batch,
+                                          f1_micro)
+from repro_torch.optim.optimizers import (Optimizer, apply_updates,
+                                          masked_update)
+from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
+
+
+def make_loss_fn(model: GNNModel) -> Callable:
+    """Masked mini-batch cross-entropy, one value per stacked graph.
+
+    ``loss_fn(params, feats, table, mask, batch, labels, bmask, agg=None)``
+    takes B stacked graphs (params leaves ``(B, …)``, ``feats (B, N, d)``,
+    ``batch (B, Bs)``, …) and returns the ``(B,)`` losses
+    ``Σ nll·bmask / clip(Σ bmask, 1)`` — the JAX package's loss per graph.
+    """
+
+    def loss_fn(params, feats, table, mask, batch, labels, bmask, agg=None):
+        logits = model.apply_stacked(params, feats, table, mask, agg=agg)
+        rows = torch.arange(logits.shape[0], device=logits.device)[:, None]
+        idx = batch.long()
+        logp = torch.log_softmax(logits[rows, idx], dim=-1)   # (B, Bs, C)
+        nll = -logp.gather(-1, labels[rows, idx].long()[..., None])[..., 0]
+        return (nll * bmask).sum(-1) / bmask.sum(-1).clamp_min(1.0)
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn: Callable, params, *args, **kw):
+    """``(losses, grads)``: the ``(B,)`` losses and the gradient of their
+    sum with respect to every leaf of ``params``."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    losses = loss_fn(tree_unflatten(params, leaves), *args, **kw)
+    grads = torch.autograd.grad(losses.sum(), leaves)
+    return losses.detach(), tree_unflatten(params, list(grads))
+
+
+def make_local_round(model: GNNModel, optimizer: Optimizer,
+                     reset_opt: bool = True) -> Callable:
+    """Every machine's local phase (Alg. 1/2 lines 3-9).
+
+    Returns ``round(params, opt_state, feats, labels, tables, masks,
+    batches, bmasks, svalid) -> (params, opt_state, losses)``: ``params``
+    are the incoming server parameters (unstacked), the data carry leading
+    ``(P, K, …)`` axes (``tables (P, K, N, F)``, ``batches (P, K, B)``),
+    and the results are the P machines' parameters stacked ``(P, …)``,
+    their optimizer state and the ``(K, P)`` step losses.  With
+    ``reset_opt`` the optimizer is freshly initialized from the incoming
+    parameters — line 3 of the paper's algorithms — and ``opt_state`` is
+    ignored; otherwise it is the machines' stacked state, threaded on.
+
+    ``svalid`` (K host numbers) is the K-bucketing validity flag: steps
+    with ``svalid == 0`` are padding and run as true no-ops
+    (:func:`repro_torch.optim.optimizers.masked_update`); their losses are
+    zeroed.
+    """
+    loss_fn = make_loss_fn(model)
+
+    def local_round(params, opt_state, feats, labels, tables, masks,
+                    batches, bmasks, svalid: Sequence[float]):
+        P = feats.shape[0]
+        with torch.no_grad():
+            p = tree_map(lambda x: x[None].repeat(P, *([1] * x.dim())),
+                         params)
+        o = optimizer.init(p) if reset_opt else opt_state
+        losses = []
+        for k, valid in enumerate(svalid):
+            loss, grads = value_and_grad(
+                loss_fn, p, feats, tables[:, k], masks[:, k], batches[:, k],
+                labels, bmasks[:, k])
+            upd, o = masked_update(optimizer, grads, o, p, valid)
+            p = apply_updates(p, upd)
+            losses.append(loss * valid)
+        return p, o, torch.stack(losses)
+
+    return local_round
+
+
+def make_eval_fn(model: GNNModel) -> Callable:
+    """Full-graph, full-neighbor evaluation (the paper's 'global validation
+    score' — computed on the server with the complete graph)."""
+
+    def evaluate(params, feats, table, mask, labels, nodes):
+        with torch.no_grad():
+            logits = model.apply(params, feats, table, mask)
+            return (cross_entropy_on_batch(logits, labels, nodes),
+                    f1_micro(logits, labels, nodes))
+
+    return evaluate

@@ -1,0 +1,876 @@
+"""Composable TrainPlan API: strategies as declarative round-phase plans.
+
+The port of the JAX package's ``core/plan.py``.  A :class:`TrainPlan` is a
+tuple of :class:`RoundPhase` specs (``local_steps`` | ``averaging`` |
+``correction`` | ``halo_exchange``) over grouped sub-configs, and ONE
+entry point — :func:`build_trainer` — lowers it onto the round engine
+(:mod:`repro_torch.core.engine`) and runs it on a device (``"cuda"`` unless
+the caller passes another)::
+
+    data, model, cfg = make_paper_setting("reddit")
+    hist = build_trainer(data, model, llcg_plan(cfg)).run()
+
+The canned plans :func:`psgd_pa_plan`, :func:`llcg_plan` and
+:func:`single_machine_plan` are one-line compositions.  Each scheduled
+round is lowered independently: the phases active at round ``r``
+(scheduled length ``k``) pick the engine program, the optimizer-state
+threading, the host sampling path and the byte/step accounting.
+
+:class:`RoundSampler` owns the partition, the shard loaders, the shared
+host RNG, the padded per-machine views and the server's full-neighbor
+eval/correction tables; its RNG draw order is the JAX package's, so both
+packages train on identical samples from the same seeds.
+
+Not ported yet, and refused with the ROADMAP item that brings them:
+``halo_exchange`` phases and GGS options (Queue 1 item 7), compressed
+averaging (item 6), checkpointing (item 9), device-placed sampling and
+prefetch (item 10), the device-per-machine backend (item 12) and the
+``csr`` aggregation layout (item 5).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import (
+    EngineConfig, EngineState, History, RoundInputs, RoundProgram,
+    run_schedule,
+)
+from repro_torch.core.machine import make_eval_fn
+from repro_torch.core.schedules import KBucketing, local_epoch_schedule
+from repro_torch.data.graph_loader import make_shard_loaders, sample_round
+from repro_torch.graph.csr import build_neighbor_table
+from repro_torch.graph.datasets import SyntheticDataset
+from repro_torch.graph.partition import PARTITION_METHODS, partition_graph
+from repro_torch.graph.sampling import (
+    _all_nodes_plan, sample_minibatch, sample_minibatch_batched,
+    sample_neighbors, sample_neighbors_batched,
+)
+from repro_torch.models.gnn.agg import (
+    LAYOUTS as AGG_LAYOUTS, build_agg_operands, choose_layout,
+)
+from repro_torch.models.gnn.model import GNNModel
+from repro_torch.optim.optimizers import OPTIMIZERS, make_optimizer
+from repro_torch.utils.pytree import tree_bytes
+
+
+#: Round-phase kinds — the paper's composable primitives.
+PHASE_KINDS = ("local_steps", "averaging", "correction", "halo_exchange")
+#: K-bucketing grids (:class:`repro_torch.core.schedules.KBucketing`).
+BUCKET_MODES = ("geometric", "fit")
+#: Engine backends :func:`build_trainer` lowers onto.
+BACKENDS = ("vmap",)
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(msg)
+
+
+def _not_ported(what: str, item: str) -> str:
+    return f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
+
+
+def averaging_payload_bytes(params, compression: str = "none") -> int:
+    """One machine's averaging payload on the wire.  Only the uncompressed
+    codec is ported: the payload is the parameters themselves."""
+    _check(compression == "none",
+           _not_ported(f"compression {compression!r}",
+                       "6, compressed averaging"))
+    return tree_bytes(params)
+
+
+# --------------------------------------------------------------------------
+# Grouped sub-configs
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LocalSpec:
+    """The K-local-steps phase: per-machine optimizer + step budget."""
+
+    local_k: int = 4                 # K
+    batch_size: int = 32             # B_L
+    lr: float = 1e-2                 # η
+    optimizer: str = "adam"          # paper uses ADAM (App. A.2)
+    agg_layout: str = "padded"       # "padded" | "auto" (sampled tables)
+
+    def __post_init__(self):
+        _check(self.local_k >= 1, "local_k must be ≥ 1")
+        _check(self.batch_size >= 1, "batch_size must be ≥ 1")
+        _check(self.lr > 0, "lr must be > 0")
+        _check(self.optimizer in OPTIMIZERS,
+               f"unknown optimizer {self.optimizer!r}; "
+               f"choose one of {OPTIMIZERS}")
+        _check(self.agg_layout in ("padded", "auto"),
+               f"LocalSpec.agg_layout {self.agg_layout!r} is not available: "
+               "local rounds train on sampled neighbor tables, which the "
+               "full-graph layouts cannot represent; put 'bcsr_kernel' on "
+               "ServerSpec.agg_layout for the full-neighbor correction")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerSpec:
+    """The server-correction phase (Eq. 2 / Alg. 2 lines 13-18)."""
+
+    correction_steps: int = 1        # S
+    server_batch_size: int = 64      # B_S
+    server_lr: Optional[float] = None  # γ (None → local lr η)
+    correction_sampling: bool = False  # App. A "sampling at correction"
+    max_cut_minibatch: bool = False    # App. A.3 ablation
+    agg_layout: str = "padded"       # aggregation layout of the correction
+
+    def __post_init__(self):
+        _check(self.correction_steps >= 0, "correction_steps must be ≥ 0")
+        _check(self.server_batch_size >= 1, "server_batch_size must be ≥ 1")
+        _check(self.server_lr is None or self.server_lr > 0,
+               "server_lr must be > 0 (or None for the local lr)")
+        _check(self.agg_layout in AGG_LAYOUTS,
+               f"unknown agg_layout {self.agg_layout!r}; "
+               f"choose one of {AGG_LAYOUTS}")
+        _check(self.agg_layout != "csr",
+               _not_ported("the 'csr' aggregation layout",
+                           "5, the csr layout"))
+        _check(not (self.correction_sampling
+                    and self.agg_layout == "bcsr_kernel"),
+               "correction_sampling draws per-step subsampled tables, which "
+               "the 'bcsr_kernel' layout cannot represent (it encodes the "
+               "full edge set) — use agg_layout='padded' or 'auto'")
+
+
+@dataclasses.dataclass(frozen=True)
+class CommSpec:
+    """Topology + communication semantics."""
+
+    num_machines: int = 8
+    partition_method: str = "bfs"
+    host_halo: bool = False          # GGS option (not ported)
+    compression: str = "none"        # averaging codec
+    halo_compression: str = "none"   # halo feature codec (not ported)
+
+    def __post_init__(self):
+        _check(self.num_machines >= 1, "num_machines must be ≥ 1")
+        _check(self.partition_method in PARTITION_METHODS,
+               f"unknown partition_method {self.partition_method!r}; "
+               f"choose one of {PARTITION_METHODS}")
+        _check(self.compression == "none",
+               _not_ported(f"compression {self.compression!r}",
+                           "6, compressed averaging"))
+        _check(self.halo_compression == "none" and not self.host_halo,
+               _not_ported("halo exchange (host_halo / halo_compression)",
+                           "7, graph/halo.py and the halo modes"))
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerSpec:
+    """Neighbor sampling (Eq. 4), drawn on the host."""
+
+    fanout: Optional[int] = 10       # None = full neighbors
+    fanout_ratio: Optional[float] = None
+    full_graph: bool = False         # centralized reference: sample the
+                                     # UNpartitioned graph (requires P=1)
+    placement: str = "host"          # only "host" is ported
+    overlap: Optional[bool] = None   # prefetch; only off is ported
+
+    def __post_init__(self):
+        _check(self.fanout is None or self.fanout >= 1,
+               "fanout must be ≥ 1 or None (full neighbors)")
+        _check(self.fanout_ratio is None or 0.0 < self.fanout_ratio <= 1.0,
+               "fanout_ratio must be in (0, 1]")
+        _check(self.placement == "host" and not self.overlap,
+               _not_ported("device-placed sampling and prefetch overlap",
+                           "10, the device sampler"))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleSpec:
+    """How many rounds, and how K grows (Section 3.1)."""
+
+    rounds: int = 20
+    rho: float = 1.0                 # ρ (>1 → exponential LLCG schedule)
+    k_schedule: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        _check(self.rounds >= 1, "rounds must be ≥ 1")
+        _check(self.rho >= 1.0, "ρ must be ≥ 1 (ρ=1 is the fixed schedule)")
+        if self.k_schedule is not None:
+            _check(len(self.k_schedule) == self.rounds,
+                   "k_schedule length must equal rounds")
+            _check(all(k >= 1 for k in self.k_schedule),
+                   "k_schedule entries must be ≥ 1")
+
+    def resolve(self, base_k: int) -> List[int]:
+        if self.k_schedule is not None:
+            return list(self.k_schedule)
+        if self.rho > 1.0:
+            return local_epoch_schedule(base_k, self.rho, self.rounds)
+        return [base_k] * self.rounds
+
+
+@dataclasses.dataclass(frozen=True)
+class CompileSpec:
+    """Sampling-stream and K-bucketing knobs (no effect on the math).
+
+    The JAX package's ``cache_dir`` (its persistent compilation cache) has
+    no counterpart in the eager port.
+    """
+
+    rng_compat: bool = False         # replay the pre-vectorization RNG
+    k_bucketing: bool = False        # pad K to buckets (masked tail steps)
+    bucket_growth: int = 2
+    bucket_mode: str = "geometric"
+
+    def __post_init__(self):
+        _check(self.bucket_growth >= 2, "bucket_growth must be ≥ 2")
+        _check(self.bucket_mode in BUCKET_MODES,
+               f"unknown bucket_mode {self.bucket_mode!r}; "
+               f"choose one of {BUCKET_MODES}")
+
+    def bucketing_for(self, schedule: List[int],
+                      base_k: int) -> Optional[KBucketing]:
+        if not self.k_bucketing:
+            return None
+        if self.bucket_mode == "fit":
+            return KBucketing.fit(schedule, min_len=base_k,
+                                  growth=self.bucket_growth)
+        return KBucketing(min_len=base_k, growth=self.bucket_growth)
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointSpec:
+    """Full-state checkpointing — not ported yet; a plan carrying one is
+    refused (ROADMAP Queue 1 item 9)."""
+
+    dir: str
+    every: int = 1
+    keep: int = 3
+    async_: bool = True
+    queue_size: int = 2
+
+
+# --------------------------------------------------------------------------
+# RoundPhase — one composable primitive + its per-round activity gates
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class RoundPhase:
+    """One primitive of the round, active on a declarative subset of rounds.
+
+    A phase runs at round r (1-based, scheduled length k) iff ALL gates
+    pass: ``r % every == 0``, ``r ≤ first`` (when set), ``r > after``, and
+    ``when(r, k)`` (when set).
+    """
+
+    kind: str
+    every: int = 1
+    first: Optional[int] = None
+    after: int = 0
+    when: Optional[Callable[[int, int], bool]] = None
+    reset_opt: bool = True           # local_steps only: Alg. 2 line 3
+
+    def __post_init__(self):
+        _check(self.kind in PHASE_KINDS,
+               f"unknown phase kind {self.kind!r}; "
+               f"choose one of {PHASE_KINDS}")
+        _check(self.every >= 1, "every must be ≥ 1")
+        _check(self.first is None or self.first >= 0, "first must be ≥ 0")
+        _check(self.after >= 0, "after must be ≥ 0")
+        _check(self.kind == "local_steps" or self.reset_opt,
+               f"reset_opt=False applies only to local_steps phases "
+               f"(got kind={self.kind!r})")
+
+    def active(self, r: int, k: int) -> bool:
+        return (r % self.every == 0
+                and (self.first is None or r <= self.first)
+                and r > self.after
+                and (self.when is None or bool(self.when(r, k))))
+
+    def describe(self) -> Dict:
+        d = {"kind": self.kind, "every": self.every, "first": self.first,
+             "after": self.after, "when": bool(self.when)}
+        if self.kind == "local_steps":
+            d["reset_opt"] = self.reset_opt
+        return d
+
+
+def local_steps(**kw) -> RoundPhase:
+    """K dependency-free local steps per machine (Alg. 1/2 lines 3-9)."""
+    return RoundPhase("local_steps", **kw)
+
+
+def averaging(**kw) -> RoundPhase:
+    """The end-of-round parameter-average collective (Alg. 1/2 line 12)."""
+    return RoundPhase("averaging", **kw)
+
+
+def correction(**kw) -> RoundPhase:
+    """S global server-correction steps (Alg. 2 lines 13-18)."""
+    return RoundPhase("correction", **kw)
+
+
+# --------------------------------------------------------------------------
+# TrainPlan
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TrainPlan:
+    """A declarative training strategy: phases × grouped sub-configs."""
+
+    phases: Tuple[RoundPhase, ...]
+    local: LocalSpec = LocalSpec()
+    server: ServerSpec = ServerSpec()
+    comm: CommSpec = CommSpec()
+    sampler: SamplerSpec = SamplerSpec()
+    schedule: ScheduleSpec = ScheduleSpec()
+    compile: CompileSpec = CompileSpec()
+    name: str = "plan"
+    seed: int = 0
+    checkpoint_dir: Optional[str] = None
+    checkpoint: Optional[CheckpointSpec] = None
+
+    def __post_init__(self):
+        if not isinstance(self.phases, tuple):
+            object.__setattr__(self, "phases", tuple(self.phases))
+        _check(len(self.phases) > 0, "a TrainPlan needs at least one phase")
+        _check(all(p.kind != "halo_exchange" for p in self.phases),
+               _not_ported("the halo_exchange phase (GGS)",
+                           "7, graph/halo.py and the halo modes"))
+        _check(self.checkpoint is None and self.checkpoint_dir is None,
+               _not_ported("checkpointing (checkpoint / checkpoint_dir)",
+                           "9, checkpointing"))
+        if self.sampler.full_graph:
+            _check(self.comm.num_machines == 1,
+                   "sampler.full_graph (centralized reference) requires "
+                   "num_machines=1")
+
+    def describe(self) -> Dict:
+        """JSON-able summary for ``History.meta`` (callables elided)."""
+        return {
+            "name": self.name,
+            "phases": [p.describe() for p in self.phases],
+            "local": dataclasses.asdict(self.local),
+            "server": dataclasses.asdict(self.server),
+            "comm": dataclasses.asdict(self.comm),
+            "sampler": dataclasses.asdict(self.sampler),
+            "schedule": dataclasses.asdict(self.schedule),
+            "compile": dataclasses.asdict(self.compile),
+            "seed": self.seed,
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundDesc:
+    """One scheduled round after lowering: mode, threading and accounting."""
+
+    r: int
+    k: int
+    kind: str                        # data path: "local" | "full"
+    averaging: bool
+    correction: bool
+    reset_opt: bool
+
+    @property
+    def program_key(self) -> bool:
+        """Rounds share an engine program iff they thread the local
+        optimizer state alike."""
+        return self.reset_opt
+
+
+def lower_plan(plan: TrainPlan) -> List[RoundDesc]:
+    """Resolve the schedule and per-round phase activity into RoundDescs.
+
+    Pure and cheap — composition errors (a round with no compute phase,
+    missing averaging on >1 machine) surface here, before any data or
+    program is built.
+    """
+    P = plan.comm.num_machines
+    descs = []
+    for r, k in enumerate(plan.schedule.resolve(plan.local.local_k), 1):
+        active = [p for p in plan.phases if p.active(r, k)]
+        kinds = {p.kind for p in active}
+        _check("local_steps" in kinds,
+               f"round {r}: no compute phase is active — every round needs "
+               "local_steps")
+        avg = "averaging" in kinds
+        _check(avg or P == 1,
+               f"round {r}: local_steps on {P} machines requires the "
+               "averaging phase (the engine's round always ends in the "
+               "parameter-average collective); add averaging() or set "
+               "num_machines=1")
+        resets = {p.reset_opt for p in active if p.kind == "local_steps"}
+        _check(len(resets) == 1,
+               f"round {r}: conflicting reset_opt on active local_steps "
+               "phases")
+        descs.append(RoundDesc(
+            r=r, k=k, kind="full" if plan.sampler.full_graph else "local",
+            averaging=avg,
+            correction="correction" in kinds, reset_opt=resets.pop()))
+    return descs
+
+
+def _f32_mask(shape, fill: float = 1.0) -> np.ndarray:
+    """One float32 mask/bmask buffer (validity weights are f32 everywhere)."""
+    return np.full(shape, fill, np.float32)
+
+
+# --------------------------------------------------------------------------
+# RoundSampler — host-side sampling + the device copies of every view
+# --------------------------------------------------------------------------
+class RoundSampler:
+    """Partitioned views + host RNG streams for any plan.
+
+    One instance serves every round kind: padded per-machine local views,
+    the server's full-neighbor eval/correction tables, and the single
+    shared host RNG in the JAX package's draw order.  Every array the
+    engine reads is copied to ``device`` once here or once per round.
+    """
+
+    def __init__(self, data: SyntheticDataset, model: GNNModel,
+                 plan: TrainPlan, device):
+        self.data, self.model, self.plan = data, model, plan
+        self.device = torch.device(device)
+        comm, smp, loc, srv = plan.comm, plan.sampler, plan.local, plan.server
+        self.num_machines = comm.num_machines
+        self.rng_compat = plan.compile.rng_compat
+        self.batch_size = loc.batch_size
+        self.partition = partition_graph(data.graph, comm.num_machines,
+                                         method=comm.partition_method,
+                                         seed=plan.seed)
+        self.loaders, self.server_sampler = make_shard_loaders(
+            data, self.partition, fanout=smp.fanout,
+            fanout_ratio=smp.fanout_ratio, seed=plan.seed,
+            rng_compat=self.rng_compat)
+        self.rng = np.random.default_rng(plan.seed + 1)
+
+        P = comm.num_machines
+        self.n_max = max(len(self.partition.part_nodes[p]) for p in range(P))
+        # pad width must cover every machine's fanout (fanout_ratio resolves
+        # per-machine fanouts from the local max degrees)
+        self.fanout = max(ld.sampler.fanout for ld in self.loaders)
+        d = data.feature_dim
+        feats = np.zeros((P, self.n_max, d), np.float32)
+        labels = np.zeros((P, self.n_max), np.int32)
+        for p in range(P):
+            nl = self.loaders[p].num_nodes
+            feats[p, :nl] = self.loaders[p].features
+            labels[p, :nl] = self.loaders[p].labels
+        self.feats = self._dev(feats)
+        self.labels = self._dev(labels)
+
+        self.opt = make_optimizer(loc.optimizer, loc.lr)
+        server_lr = srv.server_lr if srv.server_lr is not None else loc.lr
+        self.server_opt = make_optimizer(loc.optimizer, server_lr)
+        self.eval_fn = make_eval_fn(model)
+
+        # full-graph full-neighbor table for eval + correction
+        self.full_table, self.full_mask = build_neighbor_table(data.graph)
+        self.full_feats = self._dev(data.features)
+        self.full_labels = self._dev(data.labels)
+        self.full_table_d = self._dev(self.full_table)
+        self.full_mask_d = self._dev(self.full_mask)
+
+        # correction-phase aggregation layout, resolved ONCE against the
+        # full table's geometry; operands build lazily / at prewarm
+        self.corr_agg_layout = choose_layout(
+            srv.agg_layout, num_nodes=data.num_nodes,
+            num_edges=data.graph.num_edges,
+            width=self.full_table.shape[1],
+            full_width=self.full_table.shape[1],
+            sampled=srv.correction_sampling)
+        self._corr_agg = None
+
+        params0 = model.init_numpy(plan.seed)
+        self.param_bytes = tree_bytes(params0)
+        # one machine's averaging payload on the wire
+        self.avg_payload_bytes = averaging_payload_bytes(
+            params0, plan.comm.compression)
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def prewarm(self, kinds, correction: bool = False) -> None:
+        """Build every per-(graph, fanout) sampling plan (and, with
+        ``correction``, the correction's aggregation operands) up front, so
+        no round pays the host-side build.  Skipped under ``rng_compat``."""
+        if correction:
+            self.correction_operands()
+        if self.rng_compat:
+            return
+        if "local" in kinds:
+            for ld in self.loaders:
+                _all_nodes_plan(ld.sampler.graph, ld.sampler.fanout)
+        if "full" in kinds:
+            _all_nodes_plan(self.data.graph, self.fanout)
+
+    # --------------------------------------------------------------- server
+    def correction_operands(self):
+        """The correction forward's prebuilt :class:`~repro_torch.models.gnn.
+        agg.AggOperands` (None for the padded layout), cached on the graph."""
+        if self.corr_agg_layout == "padded":
+            return None
+        if self._corr_agg is None:
+            self._corr_agg = build_agg_operands(
+                self.data.graph, self.corr_agg_layout, self.device)
+        return self._corr_agg
+
+    def correction_pool(self) -> np.ndarray:
+        """Train-node pool for the server batch (Eq. 2 / App. A.3)."""
+        if self.plan.server.max_cut_minibatch:
+            src, dst = self.data.graph.to_edges()
+            asg = self.partition.assignment
+            cut_nodes = np.unique(np.concatenate(
+                [src[asg[src] != asg[dst]], dst[asg[src] != asg[dst]]]))
+            pool = np.intersect1d(cut_nodes, self.data.train_nodes)
+            if pool.size:
+                return pool
+        return self.data.train_nodes
+
+    def sample_correction(self) -> Dict:
+        """S stacked server batches (+ per-step sampled tables if ablated)."""
+        srv = self.plan.server
+        S, Bs = srv.correction_steps, srv.server_batch_size
+        pool = self.correction_pool()
+        batches = np.zeros((S, Bs), np.int32)
+        corr_tables, corr_masks = self.full_table_d, self.full_mask_d
+        if srv.correction_sampling:
+            if self.rng_compat:
+                tabs = np.zeros((S, self.data.num_nodes, self.fanout),
+                                np.int32)
+                msks = _f32_mask(tabs.shape, 0.0)
+                for s in range(S):
+                    batches[s] = sample_minibatch(pool, Bs, self.rng)
+                    t, m = sample_neighbors(self.data.graph,
+                                            np.arange(self.data.num_nodes),
+                                            self.fanout, self.rng,
+                                            rng_compat=True)
+                    tabs[s], msks[s] = t, m
+            else:
+                batches[:] = sample_minibatch_batched(pool, Bs, S, self.rng)
+                tabs, msks = sample_neighbors_batched(
+                    self.data.graph, None, self.fanout, self.rng, num_steps=S)
+            corr_tables, corr_masks = self._dev(tabs), self._dev(msks)
+        elif self.rng_compat:
+            for s in range(S):
+                batches[s] = sample_minibatch(pool, Bs, self.rng)
+        else:
+            batches[:] = sample_minibatch_batched(pool, Bs, S, self.rng)
+        return dict(corr_feats=self.full_feats, corr_labels=self.full_labels,
+                    corr_tables=corr_tables, corr_masks=corr_masks,
+                    corr_batches=self._dev(batches),
+                    corr_bmasks=self._dev(_f32_mask((S, Bs))),
+                    corr_agg=self.correction_operands())
+
+    # --------------------------------------------------------- round kinds
+    def sample_local_round(self, k: int):
+        """(tables, masks, batches, bmasks) numpy stacks for a local round."""
+        return sample_round(self.loaders, k, self.batch_size, self.n_max,
+                            self.fanout, self.rng, rng_compat=self.rng_compat)
+
+    def sample_full_round(self, k: int):
+        """Centralized reference: sample the UNpartitioned graph (P=1)."""
+        data, N, B = self.data, self.data.num_nodes, self.batch_size
+        if self.rng_compat:
+            tables = np.zeros((1, k, N, self.fanout), np.int32)
+            masks = _f32_mask((1, k, N, self.fanout), 0.0)
+            batches = np.zeros((1, k, B), np.int32)
+            for i in range(k):
+                t, m = sample_neighbors(data.graph, np.arange(N), self.fanout,
+                                        self.rng, rng_compat=True)
+                tables[0, i, :, : t.shape[1]] = t
+                masks[0, i, :, : m.shape[1]] = m
+                batches[0, i] = sample_minibatch(data.train_nodes, B,
+                                                 self.rng)
+        else:
+            t, m = sample_neighbors_batched(data.graph, None, self.fanout,
+                                            self.rng, num_steps=k)
+            tables, masks = t[None], m[None]
+            batches = sample_minibatch_batched(
+                data.train_nodes, B, k, self.rng)[None].astype(np.int32)
+        return tables, masks, batches, _f32_mask((1, k, B))
+
+    def sample(self, desc: RoundDesc) -> RoundInputs:
+        """One round's :class:`RoundInputs` on the device.
+
+        Draw order per round matches the JAX package exactly: the round's
+        tables + batches first, then — only on rounds where the correction
+        phase is active — the server batches.
+        """
+        if desc.kind == "local":
+            arrays = self.sample_local_round(desc.k)
+        elif desc.kind == "full":
+            arrays = self.sample_full_round(desc.k)
+        else:
+            raise ValueError(f"unknown round kind {desc.kind!r}")
+        corr = self.sample_correction() if desc.correction else {}
+        tables, masks, batches, bmasks = (self._dev(a) for a in arrays)
+        return RoundInputs(tables=tables, masks=masks, batches=batches,
+                           bmasks=bmasks, **corr)
+
+    def round_feats_labels(self, kind: str) -> Tuple[Any, Any]:
+        """The (feats, labels) device tensors a round kind trains on."""
+        if kind == "local":
+            return self.feats, self.labels
+        if kind == "full":
+            return self.full_feats[None], self.full_labels[None]
+        raise ValueError(f"unknown round kind {kind!r}")
+
+    def evaluate(self, params, nodes):
+        loss, score = self.eval_fn(params, self.full_feats, self.full_table_d,
+                                   self.full_mask_d, self.full_labels,
+                                   self._dev(nodes))
+        return float(loss), float(score)
+
+    def cut_stats(self) -> Dict:
+        from repro_torch.graph.partition import cut_edge_stats
+        return cut_edge_stats(self.data.graph, self.partition.assignment)
+
+
+# --------------------------------------------------------------------------
+# Plan program — per-round dispatch over the engine's RoundPrograms
+# --------------------------------------------------------------------------
+class _PlanProgram:
+    """Duck-typed ``RoundProgram`` that dispatches each round to the right
+    engine program and threads the mixed optimizer state.
+
+    A plan can mix ``reset_opt`` settings across rounds, so this facade
+    keeps one :class:`RoundProgram` per distinct ``reset_opt`` key,
+    one persistent sub-state per program, and ONE shared server-optimizer
+    state injected into whichever program runs a correction round.  Each
+    round trains on its own kind's arrays from the sampler.
+    """
+
+    def __init__(self, model, sampler: RoundSampler,
+                 descs: List[RoundDesc]):
+        plan = sampler.plan
+        self.descs = descs
+        self.sampler = sampler
+        self.with_correction = any(d.correction for d in descs)
+        self.server_opt = sampler.server_opt if self.with_correction else None
+        corr_keys = {d.program_key for d in descs if d.correction}
+        self.programs: Dict[bool, RoundProgram] = {}
+        for key in {d.program_key for d in descs}:
+            self.programs[key] = RoundProgram(
+                model, sampler.opt,
+                self.server_opt if key in corr_keys else None,
+                EngineConfig(num_machines=plan.comm.num_machines,
+                             with_correction=key in corr_keys,
+                             reset_local_opt=key))
+        self._data = {kind: sampler.round_feats_labels(kind)
+                      for kind in {d.kind for d in descs}}
+        self._cursor = 0
+        self._sub: Dict[bool, EngineState] = {}
+        self._server_state = None
+
+    @property
+    def num_retraces(self) -> int:
+        return sum(p.num_retraces for p in self.programs.values())
+
+    @property
+    def num_corr_retraces(self) -> int:
+        return sum(p.num_corr_retraces for p in self.programs.values())
+
+    def init_state(self, params) -> EngineState:
+        self._cursor = 0
+        self._sub = {k: p.init_state(params)
+                     for k, p in self.programs.items()}
+        if self.with_correction:
+            self._server_state = self.server_opt.init(params)
+        return EngineState(params=params, local_opt_state=None)
+
+    def run_round(self, state: EngineState, feats, labels,
+                  inputs: RoundInputs):
+        desc = self.descs[self._cursor]
+        self._cursor += 1
+        prog = self.programs[desc.program_key]
+        sub = self._sub[desc.program_key]
+        corr = prog.cfg.with_correction
+        sub = EngineState(params=state.params,
+                          local_opt_state=sub.local_opt_state,
+                          server_opt_state=(self._server_state if corr
+                                            else None))
+        feats, labels = self._data[desc.kind]
+        new, metrics = prog.run_round(sub, feats, labels, inputs)
+        self._sub[desc.program_key] = new
+        if corr:
+            self._server_state = new.server_opt_state
+        return EngineState(params=new.params, local_opt_state=None), metrics
+
+
+# --------------------------------------------------------------------------
+# build_trainer — the one entry point
+# --------------------------------------------------------------------------
+class PlanTrainer:
+    """A lowered :class:`TrainPlan`, ready to run on ``device``.
+
+    Construction validates and lowers the plan (:func:`lower_plan`).
+    :meth:`run` builds the :class:`RoundSampler`, the engine programs and
+    the schedule loop fresh on every call, so repeated runs reproduce
+    identical trajectories (the RNG streams restart).
+    """
+
+    def __init__(self, data: SyntheticDataset, model: GNNModel,
+                 plan: TrainPlan, backend: str = "vmap", device="cuda"):
+        _check(backend in BACKENDS,
+               _not_ported(f"backend {backend!r}", "12, the device-per-"
+                           "machine backend") if backend == "shard_map"
+               else f"unknown backend {backend!r}; choose one of {BACKENDS}")
+        self.data, self.model, self.plan = data, model, plan
+        self.backend = backend
+        self.device = torch.device(device)
+        self.descs = lower_plan(plan)
+        self.schedule = [d.k for d in self.descs]
+
+    # ------------------------------------------------------------ accounting
+    def accounting(self, sampler: Optional[RoundSampler] = None
+                   ) -> List[Dict]:
+        """Per-round (kind, bytes, steps): the parameter up + down per
+        machine on every averaging round, priced at the wire format."""
+        if sampler is None:
+            P = self.plan.comm.num_machines
+            apb = averaging_payload_bytes(
+                self.model.init_numpy(self.plan.seed),
+                self.plan.comm.compression)
+        else:
+            P, apb = sampler.num_machines, sampler.avg_payload_bytes
+        rows = []
+        for d in self.descs:
+            nbytes = 2.0 * P * apb if d.kind == "local" and d.averaging \
+                else 0.0
+            rows.append({"round": d.r, "k": d.k, "kind": d.kind,
+                         "correction": d.correction,
+                         "bytes": nbytes, "steps": P * d.k})
+        return rows
+
+    # ------------------------------------------------------------------- run
+    def run(self) -> History:
+        """Run the plan on the trainer's device; returns the History."""
+        plan, data, model = self.plan, self.data, self.model
+        sampler = RoundSampler(data, model, plan, self.device)
+        sampler.prewarm({d.kind for d in self.descs},
+                        correction=any(d.correction for d in self.descs))
+        program = _PlanProgram(model, sampler, self.descs)
+        by_round = {row["round"]: row for row in self.accounting(sampler)}
+        bucketing = plan.compile.bucketing_for(self.schedule,
+                                               plan.local.local_k)
+        meta: Dict = {"param_bytes": sampler.param_bytes,
+                      "plan": plan.describe(),
+                      "device": str(self.device),
+                      "corr_agg_layout": sampler.corr_agg_layout}
+        desc_by_round = {d.r: d for d in self.descs}
+        hist = run_schedule(
+            program, model.init(plan.seed, device=self.device), None, None,
+            lambda r, k: sampler.sample(desc_by_round[r]),
+            self.schedule,
+            lambda p: sampler.evaluate(p, data.val_nodes),
+            plan.name,
+            bytes_per_round=lambda r, k: by_round[r]["bytes"],
+            steps_per_round=lambda r, k: by_round[r]["steps"],
+            meta=meta,
+            bucketing=bucketing)
+        hist.meta["cut_stats"] = sampler.cut_stats()
+        hist.meta["round_kinds"] = [d.kind for d in self.descs]
+        return hist
+
+
+def build_trainer(data: SyntheticDataset, model: GNNModel, plan: TrainPlan,
+                  backend: str = "vmap", device="cuda") -> PlanTrainer:
+    """Lower ``plan`` onto the round engine; run with ``.run() -> History``.
+
+    Runs on ``device`` — the GPU unless the caller passes another (the
+    tests pass ``"cpu"``, where the kernels' plain versions run).
+    """
+    return PlanTrainer(data, model, plan, backend=backend, device=device)
+
+
+# --------------------------------------------------------------------------
+# DistConfig — the flat config, validated into the grouped specs
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class DistConfig:
+    """Flat config; every field is validated at construction and
+    :meth:`specs` regroups them into the typed sub-configs."""
+
+    num_machines: int = 8
+    rounds: int = 20
+    local_k: int = 4                 # K
+    rho: float = 1.0                 # ρ  (>1 → LLCG schedule; 1.0 → PSGD-PA)
+    correction_steps: int = 1        # S
+    batch_size: int = 32             # B_L
+    server_batch_size: int = 64      # B_S
+    fanout: Optional[int] = 10       # neighbor-sampling fanout (None = full)
+    fanout_ratio: Optional[float] = None
+    lr: float = 1e-2                 # η
+    server_lr: Optional[float] = None  # γ (defaults to η)
+    optimizer: str = "adam"          # paper uses ADAM (App. A.2)
+    partition_method: str = "bfs"
+    correction_sampling: bool = False  # App. A "sampling at correction"
+    max_cut_minibatch: bool = False    # App. A.3 ablation
+    server_agg_layout: str = "padded"  # correction-forward agg layout
+    rng_compat: bool = False         # replay the pre-vectorization RNG
+    k_bucketing: bool = False        # pad K to buckets
+    bucket_growth: int = 2           # bucket lengths are local_k·growth^i
+    bucket_mode: str = "geometric"   # "geometric" | "fit" (schedule-aware)
+    ggs_host_halo: bool = False      # GGS option (not ported)
+    checkpoint_dir: Optional[str] = None  # params export (not ported)
+    seed: int = 0
+
+    def __post_init__(self):
+        self.specs()
+
+    def specs(self) -> Dict[str, Any]:
+        """Regroup into the TrainPlan sub-configs (validates all fields)."""
+        return dict(
+            local=LocalSpec(local_k=self.local_k, batch_size=self.batch_size,
+                            lr=self.lr, optimizer=self.optimizer),
+            server=ServerSpec(correction_steps=self.correction_steps,
+                              server_batch_size=self.server_batch_size,
+                              server_lr=self.server_lr,
+                              correction_sampling=self.correction_sampling,
+                              max_cut_minibatch=self.max_cut_minibatch,
+                              agg_layout=self.server_agg_layout),
+            comm=CommSpec(num_machines=self.num_machines,
+                          partition_method=self.partition_method,
+                          host_halo=self.ggs_host_halo),
+            sampler=SamplerSpec(fanout=self.fanout,
+                                fanout_ratio=self.fanout_ratio),
+            schedule=ScheduleSpec(rounds=self.rounds, rho=self.rho),
+            compile=CompileSpec(rng_compat=self.rng_compat,
+                                k_bucketing=self.k_bucketing,
+                                bucket_growth=self.bucket_growth,
+                                bucket_mode=self.bucket_mode),
+        )
+
+
+# --------------------------------------------------------------------------
+# Canned plans — the paper's strategies as one-line compositions
+# --------------------------------------------------------------------------
+def _plan(cfg: DistConfig, phases: Tuple[RoundPhase, ...], name: str,
+          **overrides) -> TrainPlan:
+    specs = cfg.specs()
+    specs.update(overrides)
+    return TrainPlan(phases=phases, name=name, seed=cfg.seed,
+                     checkpoint_dir=cfg.checkpoint_dir, **specs)
+
+
+def psgd_pa_plan(cfg: DistConfig) -> TrainPlan:
+    """Algorithm 1 — K local steps + parameter averaging, fixed schedule."""
+    cfg = dataclasses.replace(cfg, rho=1.0)
+    return _plan(cfg, (local_steps(), averaging()), "psgd_pa")
+
+
+def llcg_plan(cfg: DistConfig, correction_every: int = 1) -> TrainPlan:
+    """Algorithm 2 — PSGD-PA + the global server correction.
+
+    ``correction_every=m`` runs the correction only on every m-th round.
+    """
+    return _plan(cfg, (local_steps(), averaging(),
+                       correction(every=correction_every)), "llcg")
+
+
+def single_machine_plan(cfg: DistConfig) -> TrainPlan:
+    """Centralized full-graph reference (Figure 4's dashed baseline)."""
+    specs = cfg.specs()
+    return _plan(cfg, (local_steps(reset_opt=False),), "single",
+                 comm=CommSpec(num_machines=1, partition_method="random"),
+                 sampler=dataclasses.replace(specs["sampler"],
+                                             full_graph=True),
+                 schedule=ScheduleSpec(rounds=cfg.rounds, rho=1.0))

@@ -1,0 +1,91 @@
+"""Public wrappers around the port's kernels: operand caching and
+gradients.
+
+Every op takes natural-layout tensors and dispatches on the tensors'
+device: CUDA tensors go to the hand-written kernels (each counts its own
+launches), CPU tensors to the plain versions in :mod:`repro_torch.kernels.
+ref`.  That device split plays the role of the JAX package's Pallas
+interpret mode.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.graph.csr import CSRGraph
+from repro_torch.kernels.edge_softmax import edge_softmax
+from repro_torch.kernels.ref import edge_softmax_alpha
+from repro_torch.kernels.spmm import build_bcsr, spmm_bcsr
+
+
+# --------------------------------------------------------------------------
+# SpMM aggregation
+# --------------------------------------------------------------------------
+def bcsr_device_operands(graph: CSRGraph, device, block_m: int = 8,
+                         block_n: int = 128, normalization: str = "mean"
+                         ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Device-resident ``(tile_cols, tile_vals, n_pad)``, built once per
+    (graph, device, block sizes, normalization) and cached on the graph
+    object, so repeated aggregate calls never re-pay the host-side
+    :func:`~repro_torch.kernels.spmm.build_bcsr` pass or the copy to the
+    device."""
+    cache = graph.__dict__.get("_bcsr_cache")
+    if cache is None:
+        cache = {}
+        object.__setattr__(graph, "_bcsr_cache", cache)  # frozen dataclass
+    device = torch.device(device)
+    key = (str(device), block_m, block_n, normalization)
+    entry = cache.get(key)
+    if entry is None:
+        tile_cols, tile_vals, n_pad = build_bcsr(graph, block_m, block_n,
+                                                 normalization)
+        entry = (torch.from_numpy(tile_cols).to(device),
+                 torch.from_numpy(tile_vals).to(device), n_pad)
+        cache[key] = entry
+    return entry
+
+
+def spmm_aggregate(graph: CSRGraph, h: torch.Tensor,
+                   normalization: str = "mean") -> torch.Tensor:
+    """Full-graph Â @ H via the BCSR kernel.  Returns (N, D) in h's dtype."""
+    n = h.shape[0]
+    tile_cols, tile_vals, _ = bcsr_device_operands(graph, h.device,
+                                                   normalization=normalization)
+    return spmm_bcsr(tile_cols, tile_vals, h.float())[:n].to(h.dtype)
+
+
+# --------------------------------------------------------------------------
+# GAT fused edge softmax
+# --------------------------------------------------------------------------
+class _EdgeSoftmaxAggregate(torch.autograd.Function):
+    """Kernel forward, analytic backward.
+
+    With ``α = softmax over the masked slots`` and ``gv[n,f] = g[n]·v[n,f]``
+    the VJP of ``out = Σ_f α v`` is ``dv = α ⊗ g`` and ``ds = α ⊙ (gv −
+    Σ_f α gv)`` — the same cotangents as the JAX package's oracle VJP
+    (masked slots and fully masked rows get zero, as there), written as
+    explicit torch ops.  The mask gets no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, scores, mask, vals):
+        ctx.save_for_backward(scores, mask, vals)
+        return edge_softmax(scores, mask, vals)
+
+    @staticmethod
+    def backward(ctx, g):
+        scores, mask, vals = ctx.saved_tensors
+        alpha = edge_softmax_alpha(scores, mask)              # (N, F) f32
+        g = g.float()
+        gv = torch.einsum("nfd,nd->nf", vals.float(), g)
+        ds = alpha * (gv - (alpha * gv).sum(dim=-1, keepdim=True))
+        dv = alpha[:, :, None] * g[:, None, :]
+        return ds.to(scores.dtype), None, dv.to(vals.dtype)
+
+
+def edge_softmax_aggregate_trainable(scores: torch.Tensor, mask: torch.Tensor,
+                                     vals: torch.Tensor) -> torch.Tensor:
+    """Differentiable fused edge-softmax: kernel forward, analytic backward.
+    Used by the GAT layer when ``fused_gat=True``."""
+    return _EdgeSoftmaxAggregate.apply(scores, mask, vals)

@@ -14,6 +14,8 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line("markers",
                             "slow: long-running integration test")
+    config.addinivalue_line("markers",
+                            "gpu: needs a CUDA device (skips without one)")
 
 
 def pytest_addoption(parser):

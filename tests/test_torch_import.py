@@ -1,0 +1,60 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package.
+
+Every module of ``repro_torch`` is imported in a fresh interpreter where
+``import jax`` fails, and afterwards no ``repro`` module may be loaded.
+"""
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                     "repro_torch."))
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": names, "reference_loaded": loaded,
+                  "triton_loaded": "triton" in sys.modules}))
+"""
+
+
+def _probe() -> dict:
+    import json
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def probe():
+    return _probe()
+
+
+def test_every_module_imports_without_jax(probe):
+    expected = {"repro_torch.core.plan", "repro_torch.core.engine",
+                "repro_torch.kernels.spmm", "repro_torch.kernels.edge_softmax",
+                "repro_torch.models.gnn.model", "repro_torch.convert",
+                "repro_torch.configs.gnn_datasets"}
+    assert expected <= set(probe["modules"])
+
+
+def test_no_reference_module_is_loaded(probe):
+    assert probe["reference_loaded"] == []
+
+
+def test_kernels_do_not_import_triton_at_import_time(probe):
+    # triton is imported inside the launcher, so hosts without it (and the
+    # CPU tests) can import every module
+    assert probe["triton_loaded"] is False
