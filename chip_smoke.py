@@ -10,14 +10,20 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at one larger shape, and time kernel,
    plain version and (where one exists) a library call with CUDA events.
-3. Drive the main path — ``build_trainer(data, model, llcg_plan(cfg)).run()``
-   on the paper's ``reddit`` setting for 3 rounds — in two configurations:
-   A (arch SBSBS, server correction through the BCSR SpMM kernel) and
-   B (fused GAT, every aggregation through the edge-softmax kernel).
-   Launch counts are reset just before each run and read just after; each
-   config must launch its kernel.  The History must be finite, its byte
-   accounting exact, and its losses must agree with the same run on the CPU
-   (plain versions).
+   The int8 quantize/dequantize kernels must be bit-equal to theirs.
+3. Drive the main paths — ``build_trainer(data, model, plan).run()`` on the
+   paper's ``reddit`` setting for 3 rounds — in four configurations:
+   A (``llcg_plan``, arch SBSBS, server correction through the BCSR SpMM
+   kernel), B (the same on a fused GAT, every aggregation through the
+   edge-softmax kernel), C (config A with int8 error-feedback compressed
+   averaging: 13 parameter leaves, one quantize and one dequantize launch
+   each per round) and D (``ggs_plan``, arch SBSBS, the halo exchange
+   executed with int8 halo compression: one quantize and one dequantize
+   launch per round).  Launch counts are reset just before each run and
+   read just after; each config must launch its kernels, C and D exactly
+   as many times as stated.  The History must be finite, its bytes must
+   equal the trainer's accounting, and its losses must agree with the same
+   run on the CPU (plain versions, same stochastic-rounding uniforms).
 
 Prints the card (``nvidia-smi`` name and power limit) and one JSON line of
 per-kernel numbers, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -42,9 +48,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
 ROUNDS = 3
+# round time: the least wall time of this many runs of each length
+TIMING_REPS = 3
 # kernel vs plain version on the card: both f32, summed in another order
 SPMM_TOL = 1e-4          # × max(1, max|plain|): sums of ≤ max-degree terms
 ESM_TOL = 1e-5           # absolute: weights ≤ 1 on unit-scale values
+# quantize/dequantize: correctly rounded divisions and an order-independent
+# max on both sides, so kernel and plain version are bit-equal
+QUANT_TOL = 0.0
 # the card's run vs the CPU run of the same plan: f32 in another order,
 # compounded over 3 rounds of Adam steps
 TRAJ_RTOL = 1e-3
@@ -182,11 +193,63 @@ def _esm_case(n: int, f: int, d: int, label: str, seed: int) -> dict:
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def _quant_case(r: int, c: int, with_u: bool, label: str,
+                seed: int) -> tuple:
+    """Quantize then dequantize ``(r, c)`` rows on the card, bit-compared
+    with the plain versions; one result row per kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
+    from repro_torch.kernels.ref import (dequantize_int8_rows_ref,
+                                         quantize_int8_rows_ref)
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((r, c)) * 3.0).astype(
+        np.float32)).cuda()
+    u = (torch.from_numpy(rng.random((r, c)).astype(np.float32)).cuda()
+         if with_u else None)
+    q, s = quantize_rows(x, u)
+    deq = dequantize_rows(q, s)
+    qr, sr = quantize_int8_rows_ref(x, u)
+    dr = dequantize_int8_rows_ref(qr, sr)
+    torch.cuda.synchronize()
+    q_err = float((q.int() - qr.int()).abs().max())
+    s_err = float((s - sr).abs().max())
+    d_err = float((deq - dr).abs().max())
+    name = f"({r}, {c}) {'u' if with_u else 'u=None'} {label}"
+    _check(q_err <= QUANT_TOL and s_err <= QUANT_TOL,
+           f"quantize_rows {name}: q differs by {q_err}, scale by {s_err}")
+    _check(d_err <= QUANT_TOL, f"dequantize_rows {name}: differs by {d_err}")
+    n = r * c
+    rows = []
+    for kernel, fn, plain, nbytes, ops, err in (
+            ("quantize_rows", lambda: quantize_rows(x, u),
+             lambda: quantize_int8_rows_ref(x, u),
+             n * (4 + (4 if with_u else 0) + 1) + 4 * r, 6.0 * n,
+             max(q_err, s_err)),
+            ("dequantize_rows", lambda: dequantize_rows(q, s),
+             lambda: dequantize_int8_rows_ref(q, s), n * (1 + 4) + 4 * r,
+             2.0 * n, d_err)):
+        bound_ms, bound_by = _bound(nbytes, ops)
+        rows.append({"kernel": kernel, "label": label, "shape": name,
+                     "max_abs_err": err, "tol": QUANT_TOL,
+                     "ms": _time_ms(fn), "device_ms": _graph_ms(fn),
+                     "plain_ms": _time_ms(plain), "library_ms": None,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+    return tuple(rows)
+
+
 # --------------------------------------------------------------------------
 # phase 3: the main path
 # --------------------------------------------------------------------------
+def _with_comm(plan, **comm):
+    return dataclasses.replace(plan,
+                               comm=dataclasses.replace(plan.comm, **comm))
+
+
 def _configs():
     from repro_torch.configs.gnn_datasets import make_paper_setting
+    from repro_torch.core.plan import ggs_plan, llcg_plan
     from repro_torch.models.gnn.model import build_model
 
     data, model_a, cfg = make_paper_setting("reddit")
@@ -194,13 +257,20 @@ def _configs():
                               rounds=ROUNDS)
     model_b = build_model("GAT", data.feature_dim, data.num_classes,
                           hidden_dim=64, fused_gat=True)
-    return data, cfg, {"A": model_a, "B": model_b}
+    plans = {"A": (model_a, llcg_plan(cfg)),
+             "B": (model_b, llcg_plan(cfg)),
+             "C": (model_a, _with_comm(llcg_plan(cfg),
+                                       compression="int8_ef")),
+             "D": (model_a, _with_comm(ggs_plan(cfg),
+                                       halo_compression="int8"))}
+    return data, cfg, plans
 
 
 def _device_busy_share(run) -> str:
     """Summed device time of the kernels over the wall time of ``run()``,
     from ``torch.profiler``, with the five kernels that take the most
-    device time; "not measured" if it records no device time."""
+    device time and the five host ops that take the most host time;
+    "not measured" if it records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -210,8 +280,11 @@ def _device_busy_share(run) -> str:
             run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kernels = [e for e in prof.key_averages()
+        events = prof.key_averages()
+        kernels = [e for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA]
+        host = [e for e in events
+                if e.device_type == torch.autograd.DeviceType.CPU]
     except (RuntimeError, AttributeError) as e:    # tracing unavailable
         return f"not measured ({e})"
     device_us = sum(e.self_device_time_total for e in kernels)
@@ -220,30 +293,46 @@ def _device_busy_share(run) -> str:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     top_s = "; ".join(f"{e.key[:60]} x{e.count} "
                       f"{e.self_device_time_total / 1e3:.3f} ms" for e in top)
+    top_h = sorted(host, key=lambda e: -e.self_cpu_time_total)[:5]
+    host_s = "; ".join(f"{e.key[:40]} x{e.count} "
+                       f"{e.self_cpu_time_total / 1e3:.3f} ms" for e in top_h)
     return (f"{device_us / 1e6 / wall:.4f} ({device_us / 1e3:.3f} ms device "
-            f"in {wall * 1e3:.3f} ms wall; top: {top_s})")
+            f"in {wall * 1e3:.3f} ms wall; top: {top_s}; host top: "
+            f"{host_s})")
 
 
-def _drive(name: str, data, model, cfg, kernels) -> dict:
+def _drive(name: str, data, model, plan, kernels) -> dict:
+    import itertools
+
     import torch
-    from repro_torch.core.plan import (RoundSampler, build_trainer,
-                                       llcg_plan, lower_plan)
+    from repro_torch.core.plan import RoundSampler, build_trainer, lower_plan
 
-    plan = llcg_plan(cfg)
     one_round = dataclasses.replace(
         plan, schedule=dataclasses.replace(plan.schedule, rounds=1))
+
+    def timed(p) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build_trainer(data, model, p).run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
     # warm-up: loads the built library and compiles Triton specializations
     build_trainer(data, model, one_round).run()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    build_trainer(data, model, one_round).run()
-    wall1 = time.perf_counter() - t0
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    hist = build_trainer(data, model, plan).run()     # device "cuda"
-    wall = time.perf_counter() - t0
+    trainer = build_trainer(data, model, plan)        # device "cuda"
+    hist = trainer.run()
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
     counts = {k.__name__: k.launches for k in kernels}
+    # steady round time: (least 3-round wall − least 1-round wall) / 2, so
+    # set-up (partition, sampling plans, operand builds) drops out
+    walls += [timed(plan) for _ in range(TIMING_REPS - 1)]
+    walls1 = [timed(one_round) for _ in range(TIMING_REPS)]
+    wall, wall1 = min(walls), min(walls1)
     busy = _device_busy_share(lambda: build_trainer(data, model, plan).run())
     # the host layer alone: one round's sampling and its copy to the card
     sampler = RoundSampler(data, model, plan, "cuda")
@@ -253,15 +342,18 @@ def _drive(name: str, data, model, cfg, kernels) -> dict:
         sampler.sample(desc)
     torch.cuda.synchronize()
     sample_ms = (time.perf_counter() - t0) / ROUNDS * 1e3
+    corr = hist.meta["corr_loss"] or [None] * len(hist.rounds)
     for r in range(len(hist.rounds)):
         print(f"config {name} round {hist.rounds[r]}: steps_cum "
               f"{hist.steps_cum[r]} bytes_cum {hist.bytes_cum[r]} "
               f"train_loss {hist.train_loss[r]} val_f1 {hist.val_score[r]} "
               f"local_loss {hist.meta['local_loss'][r]} corr_loss "
-              f"{hist.meta['corr_loss'][r]}")
+              f"{corr[r]}")
     per_round = (wall - wall1) / (ROUNDS - 1)
-    print(f"config {name}: {per_round * 1e3:.3f} ms per round (run() wall "
-          f"{wall:.4f} s for {ROUNDS} rounds, {wall1:.4f} s for 1), of which "
+    print(f"config {name}: {per_round * 1e3:.3f} ms per round (least run() "
+          f"wall of {TIMING_REPS}: {wall:.4f} s for {ROUNDS} rounds, "
+          f"{wall1:.4f} s for 1; all: {[round(w, 4) for w in walls]}, "
+          f"{[round(w, 4) for w in walls1]}), of which "
           f"host sampling + copy {sample_ms:.3f} ms; launches {counts}; "
           f"device busy {busy} of a profiled run")
 
@@ -271,10 +363,10 @@ def _drive(name: str, data, model, cfg, kernels) -> dict:
            "loss")
     _check(all(0.0 <= s <= 1.0 for s in hist.val_score),
            f"config {name}: F1 out of range")
-    pb = hist.meta["param_bytes"]
-    P = cfg.num_machines
-    _check(hist.bytes_cum == [2.0 * P * pb * r for r in hist.rounds],
-           f"config {name}: byte accounting {hist.bytes_cum}")
+    acct = list(itertools.accumulate(row["bytes"]
+                                     for row in trainer.accounting()))
+    _check(hist.bytes_cum == acct,
+           f"config {name}: bytes {hist.bytes_cum} vs accounting {acct}")
     cpu = build_trainer(data, model, plan, device="cpu").run()
     for a, b in zip(vals, cpu.train_loss + cpu.meta["local_loss"]
                     + cpu.meta["corr_loss"]):
@@ -310,7 +402,9 @@ def main() -> int:
     from repro_torch.graph.datasets import sbm_graph
     from repro_torch.kernels import build
     from repro_torch.kernels.edge_softmax import edge_softmax
+    from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
     from repro_torch.kernels.spmm import spmm_bcsr
+    all_kernels = (spmm_bcsr, edge_softmax, quantize_rows, dequantize_rows)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "--id=0"],
@@ -323,11 +417,13 @@ def main() -> int:
         print(f"built {[p.name for p in libs]} in "
               f"{time.perf_counter() - t0:.1f} s")
 
-        data, cfg, models = _configs()
-        from repro_torch.core.plan import RoundSampler, llcg_plan
-        smp = RoundSampler(data, models["A"], llcg_plan(cfg), "cpu")
+        data, cfg, plans = _configs()
+        from repro_torch.core.plan import RoundSampler
+        smp = RoundSampler(data, *plans["D"], "cpu")
+        smp.ensure_halo()
         n_loc = cfg.num_machines * smp.n_max
         n_full, f_full = smp.full_table.shape
+        n_send = cfg.num_machines * smp.halo_program.max_send
 
         spmm_cases = [_spmm_case(data.graph, d, "slice", s)
                       for s, d in enumerate((32, 64))]
@@ -341,39 +437,59 @@ def main() -> int:
                      _esm_case(65536, 10, 64, "large", 24),
                      _esm_case(65536, big.graph.max_degree(), 64, "large",
                                25)]
+        # averaging: (P, leaf numel) rows, the widest leaf 64x64; halo:
+        # (P·max_send, feature_dim) rows, round-half-up
+        quant_cases = [_quant_case(cfg.num_machines, 4096, True,
+                                   "averaging", 30),
+                       _quant_case(n_send, data.feature_dim, False, "halo",
+                                   31),
+                       _quant_case(65536, 256, True, "large", 32),
+                       _quant_case(65536, 256, False, "large", 33)]
         for c in spmm_cases:
             print(f"spmm_bcsr {json.dumps(c)}")
         for c in esm_cases:
             print(f"edge_softmax {json.dumps(c)}")
+        for pair in quant_cases:
+            for c in pair:
+                print(f"{c['kernel']} {json.dumps(c)}")
 
-        counts = {}
-        counts.update(_drive("A", data, models["A"], cfg, (spmm_bcsr,
-                                                            edge_softmax)))
-        _check(counts["spmm_bcsr"] > 0, "config A launched no SpMM kernel")
-        counts_b = _drive("B", data, models["B"], cfg, (spmm_bcsr,
-                                                        edge_softmax))
-        _check(counts_b["edge_softmax"] > 0,
+        counts = {name: _drive(name, data, *plans[name], all_kernels)
+                  for name in plans}
+        _check(counts["A"]["spmm_bcsr"] > 0,
+               "config A launched no SpMM kernel")
+        _check(counts["B"]["edge_softmax"] > 0,
                "config B launched no edge-softmax kernel")
-        counts["edge_softmax"] = counts_b["edge_softmax"]
+        leaves = sum(len(layer)            # 13 for SBSBS: one launch each
+                     for layer in plans["C"][0].init_numpy(0).values())
+        for name, want in (("C", leaves * ROUNDS), ("D", ROUNDS)):
+            for k in ("quantize_rows", "dequantize_rows"):
+                _check(counts[name][k] == want,
+                       f"config {name} launched {k} {counts[name][k]} "
+                       f"times, not {want}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
-    def row(name, route, source, replaces, case):
+    def row(name, route, source, replaces, case, config):
         return {"name": name, "route": route, "source": source,
-                "replaces": replaces, "launches": counts[name],
+                "replaces": replaces, "launches": counts[config][name],
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "device_ms": case["device_ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],
                 "library_ms": case["library_ms"]}
 
+    quant_src = "src/repro_torch/kernels/csrc/quantize_rows.cu"
     kernels = [
         row("spmm_bcsr", "cuda", "src/repro_torch/kernels/csrc/spmm_bcsr.cu",
-            "src/repro/kernels/spmm.py:127", spmm_cases[1]),
+            "src/repro/kernels/spmm.py:127", spmm_cases[1], "A"),
         row("edge_softmax", "triton",
             "src/repro_torch/kernels/edge_softmax.py",
-            "src/repro/kernels/edge_softmax.py:49", esm_cases[0]),
+            "src/repro/kernels/edge_softmax.py:49", esm_cases[0], "B"),
+        row("quantize_rows", "cuda", quant_src,
+            "src/repro/kernels/quantize.py:51", quant_cases[0][0], "C"),
+        row("dequantize_rows", "cuda", quant_src,
+            "src/repro/kernels/quantize.py:77", quant_cases[0][1], "C"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,16 +1,33 @@
 """The LLCG round engine: K local steps on P machines, one parameter
 average, S server corrections — the port of the JAX package's
-``core/engine.py`` (``backend="vmap"``, ``mode="local"``).
+``core/engine.py`` (``backend="vmap"``).
 
 The JAX engine compiles a round into one ``jit`` over a ``lax.scan`` of K
 steps with the machines on a ``vmap`` axis.  PyTorch runs eagerly, so the
-port executes the same round body directly: the machine axis is a leading
+port executes the same round bodies directly: the machine axis is a leading
 stack axis (:func:`repro_torch.core.machine.make_local_round`), the K and S
 steps are Python loops, and averaging is a mean over the stack.  Byte and
 step accounting and :class:`History` are shared by every plan.
 
-Round modes ``"sync"`` / ``"halo"`` (GGS) and the compressed averaging
-codecs are not ported yet.
+Three round modes cover every strategy in the paper:
+
+* ``mode="local"`` — Alg. 1/2: K independent local steps per machine, then
+  parameter averaging (+ optional S corrections).  With a ``compression``
+  codec each machine's parameter delta is quantized and dequantized
+  (:mod:`repro_torch.comm.compress`) before the mean, and ``int8_ef``
+  carries the per-machine error-feedback residual.
+* ``mode="sync"``  — every step averages the machines' gradients at one
+  shared set of parameters before a single update, on host-materialized
+  extended features (GGS with ``host_halo``).
+* ``mode="halo"``  — GGS with its cut-node exchange executed: every step
+  splices the machines' halo rows out of the gathered send buffers
+  (:func:`repro_torch.core.machine.halo_fill`, index tables from
+  :class:`repro_torch.graph.halo.HaloProgram`), then does the sync-mode
+  gradient averaging.  With ``halo_compression`` the send buffer is
+  quantized once per round (features are static within a round).
+
+In ``sync`` and ``halo`` modes the optimizer state is one unstacked state
+that persists across rounds.
 
 **K-bucketing.**  :func:`run_schedule` can pad each round's K to a bucket
 length, the tail running as masked no-op steps (``step_valid``).  The
@@ -26,11 +43,15 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.core.machine import (make_local_round, make_loss_fn,
-                                      value_and_grad)
+from repro_torch.comm.compress import (UniformStream, check_compression,
+                                       compress_features, compress_tree,
+                                       decompress_features, decompress_tree)
+from repro_torch.core.machine import (halo_fill, make_local_round,
+                                      make_loss_fn, value_and_grad)
 from repro_torch.core.schedules import KBucketing
-from repro_torch.optim.optimizers import Optimizer, apply_updates
-from repro_torch.utils.pytree import tree_map
+from repro_torch.optim.optimizers import (Optimizer, apply_updates,
+                                          masked_update)
+from repro_torch.utils.pytree import tree_leaves, tree_map
 
 
 # --------------------------------------------------------------------------
@@ -59,16 +80,24 @@ class History:
 # --------------------------------------------------------------------------
 # Engine config / per-round inputs / carried state
 # --------------------------------------------------------------------------
+MODES = ("local", "sync", "halo")
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """The ported round mode is the JAX engine's ``mode="local"`` on its
-    ``vmap`` backend with uncompressed averaging; its other modes, backends
-    and codecs are refused by the plan layer (:mod:`repro_torch.core.plan`)
-    with the ROADMAP item that brings them."""
+    """The JAX engine's config on its ``vmap`` backend (the only ported
+    one; the plan layer refuses ``shard_map`` with its ROADMAP item)."""
 
     num_machines: int
+    mode: str = "local"            # "local" (Alg. 1/2) | "sync" | "halo" (GGS)
     with_correction: bool = False  # Alg. 2 lines 13-18
     reset_local_opt: bool = True   # fresh local optimizer each round (line 3)
+    # payload codecs (repro_torch.comm.compress): `compression` applies to
+    # the averaging of mode="local", `halo_compression` to the exchange of
+    # mode="halo"; each is ignored by the modes it doesn't name
+    compression: str = "none"
+    halo_compression: str = "none"
+    comm_seed: int = 0             # seed of the stochastic-rounding uniforms
 
 
 @dataclasses.dataclass
@@ -78,7 +107,9 @@ class RoundInputs:
     ``corr_tables`` is either the static full-neighbor table ``(N, F)`` or,
     for the sampling-at-correction ablation, per-step tables ``(S, N, F)``.
     ``step_valid`` is the K-bucketing validity flag (host floats, 1.0 real /
-    0.0 padded step); ``None`` means every step is real.
+    0.0 padded step); ``None`` means every step is real.  The four
+    ``halo_*`` tables are the :class:`repro_torch.graph.halo.HaloProgram`
+    index arrays driving ``mode="halo"``; required there, ignored otherwise.
     """
 
     tables: Any                    # (P, K, n_max, F) int32
@@ -93,15 +124,23 @@ class RoundInputs:
     corr_batches: Any = None       # (S, B_S) int32
     corr_bmasks: Any = None        # (S, B_S) f32
     corr_agg: Any = None           # AggOperands for the correction forward
+    halo_send_idx: Any = None      # (P, max_send) int32
+    halo_recv_idx: Any = None      # (P, max_halo) int32
+    halo_dest_idx: Any = None      # (P, max_halo) int32
+    halo_recv_valid: Any = None    # (P, max_halo) f32
 
 
 @dataclasses.dataclass
 class EngineState:
     params: Any
-    # with reset_local_opt the per-round state is rebuilt inside the round
-    # and this is None; otherwise the machines' stacked optimizer state
+    # mode="local" with reset_local_opt: None (the per-round state is
+    # rebuilt inside the round); mode="local" otherwise: the machines'
+    # stacked state; modes "sync"/"halo": the one shared state
     local_opt_state: Any
     server_opt_state: Any = None
+    # compression="int8_ef": per-machine error-feedback residual, a params
+    # tree stacked (P, …).  None for every other codec.
+    comm_residual: Any = None
 
 
 def _signature(*arrays) -> tuple:
@@ -109,18 +148,41 @@ def _signature(*arrays) -> tuple:
                  else type(a).__name__ for a in arrays)
 
 
+def _masked_mean(losses: torch.Tensor, svalid) -> torch.Tensor:
+    """Mean of ``(K, …)`` step losses over REAL steps only (masked padding
+    adds 0 to both sums)."""
+    per_step = losses[0].numel()           # machines sharing a step
+    return losses.sum() / max(sum(svalid) * per_step, 1.0)
+
+
 # --------------------------------------------------------------------------
 # RoundProgram
 # --------------------------------------------------------------------------
 class RoundProgram:
-    """The LLCG round: local phase + averaging (+ corrections)."""
+    """One engine round: the mode's local phase + averaging (+ corrections).
+
+    ``uniforms`` builds the stochastic-rounding source from ``comm_seed``
+    (default :class:`repro_torch.comm.compress.UniformStream`); tests pass
+    one that replays the JAX package's draws.
+    """
 
     def __init__(self, model, local_opt: Optimizer,
-                 server_opt: Optional[Optimizer], cfg: EngineConfig):
+                 server_opt: Optional[Optimizer], cfg: EngineConfig,
+                 uniforms: Callable[[int], Any] = UniformStream):
+        if cfg.mode not in MODES:
+            raise ValueError(f"unknown mode {cfg.mode!r}")
         if cfg.with_correction and server_opt is None:
             raise ValueError("with_correction requires a server optimizer")
+        check_compression(cfg.compression)
+        check_compression(cfg.halo_compression, halo=True)
         self.model, self.cfg = model, cfg
         self.local_opt, self.server_opt = local_opt, server_opt
+        self._comp = cfg.compression if cfg.mode == "local" else "none"
+        self._halo_comp = (cfg.halo_compression if cfg.mode == "halo"
+                           else "none")
+        self._ef = self._comp == "int8_ef"
+        self._uniforms = (uniforms(cfg.comm_seed)
+                          if self._comp in ("int8", "int8_ef") else None)
         self._local_round = make_local_round(model, local_opt,
                                              reset_opt=cfg.reset_local_opt)
         self._loss_fn = make_loss_fn(model)
@@ -136,19 +198,121 @@ class RoundProgram:
         return len(self._corr_sigs)
 
     def init_state(self, params) -> EngineState:
-        cfg = self.cfg
+        cfg, P = self.cfg, self.cfg.num_machines
         o = None
-        if not cfg.reset_local_opt:
+        if cfg.mode != "local":
+            o = self.local_opt.init(params)
+        elif not cfg.reset_local_opt:
             with torch.no_grad():
                 stacked = tree_map(
-                    lambda x: x[None].repeat(cfg.num_machines,
-                                             *([1] * x.dim())), params)
+                    lambda x: x[None].repeat(P, *([1] * x.dim())), params)
             o = self.local_opt.init(stacked)
         server = (self.server_opt.init(params) if cfg.with_correction
                   else None)
+        residual = None
+        if self._ef:
+            residual = tree_map(
+                lambda x: torch.zeros((P,) + tuple(x.shape), dtype=x.dtype,
+                                      device=x.device), params)
+        if self._uniforms is not None:
+            self._uniforms.reset()   # restart the stochastic-rounding draws
         return EngineState(params=params, local_opt_state=o,
-                           server_opt_state=server)
+                           server_opt_state=server, comm_residual=residual)
 
+    # ------------------------------------------------------------ mode local
+    def _round_local(self, state: EngineState, feats, labels,
+                     inputs: RoundInputs, svalid):
+        """K local steps per machine, then the (compressed) average."""
+        p_new, o_new, losses = self._local_round(
+            state.params, state.local_opt_state, feats, labels,
+            inputs.tables, inputs.masks, inputs.batches, inputs.bmasks,
+            svalid)
+        residual = state.comm_residual
+        with torch.no_grad():
+            loss = _masked_mean(losses, svalid)
+            if self._comp == "none":
+                # Alg. 1/2 line 12 — THE inter-machine collective
+                params = tree_map(lambda x: x.mean(dim=0), p_new)
+            else:
+                # each machine compresses its param DELTA; the average is
+                # over the dequantized deltas — what every machine gets
+                # from the exchange of compressed payloads — and under EF
+                # the quantization error stays on the machine
+                delta = tree_map(lambda a, b: a - b, p_new, state.params)
+                if self._ef:
+                    delta = tree_map(torch.add, delta, residual)
+                u = None
+                if self._uniforms is not None:
+                    u = self._uniforms.draw(
+                        self.cfg.num_machines,
+                        [x[0].numel() for x in tree_leaves(delta)],
+                        loss.device)
+                payload, scales = compress_tree(delta, self._comp, u=u,
+                                                stacked=True)
+                deq = decompress_tree(payload, scales, self._comp)
+                params = tree_map(lambda p0, d: p0 + d.mean(dim=0),
+                                  state.params, deq)
+                if self._ef:
+                    residual = tree_map(torch.sub, delta, deq)
+        o_carry = None if self.cfg.reset_local_opt else o_new
+        return params, o_carry, loss, residual
+
+    # ------------------------------------------------- modes sync and halo
+    def _round_sync(self, state: EngineState, feats, labels,
+                    inputs: RoundInputs, svalid):
+        """Per-step gradient averaging across machines sharing one set of
+        parameters (GGS); in halo mode each step first fills the halo rows
+        from the exchanged send buffers."""
+        P = self.cfg.num_machines
+        halo = self.cfg.mode == "halo"
+        if halo:
+            tabs = (inputs.halo_send_idx, inputs.halo_recv_idx,
+                    inputs.halo_dest_idx, inputs.halo_recv_valid)
+            if any(t is None for t in tabs):
+                raise ValueError("mode='halo' requires the halo_* index "
+                                 "tables in RoundInputs (see "
+                                 "repro_torch.graph.halo.HaloProgram)")
+            send_idx, recv_idx, dest_idx, recv_valid = tabs
+            rows = torch.arange(P, device=feats.device)[:, None]
+            flat = (send_idx.numel(), feats.shape[-1])
+
+            def send_buffer():
+                return feats[rows, send_idx.long()].reshape(flat)
+
+            if self._halo_comp != "none":
+                # the send buffer is compressed ONCE per round (features are
+                # static); every machine sees the dequantized gather
+                payload, scales = compress_features(send_buffer(),
+                                                    self._halo_comp)
+                gathered_comp = decompress_features(payload, scales,
+                                                    self._halo_comp)
+        p, o = state.params, state.local_opt_state
+        losses = []
+        for k, valid in enumerate(svalid):
+            step_feats = feats
+            if halo:
+                # the exchange: what the all-gather hands every machine
+                gathered = (send_buffer() if self._halo_comp == "none"
+                            else gathered_comp)
+                step_feats = halo_fill(feats, gathered, recv_idx, dest_idx,
+                                       recv_valid)
+            with torch.no_grad():
+                stacked = tree_map(
+                    lambda x: x[None].repeat(P, *([1] * x.dim())), p)
+            loss, grads = value_and_grad(
+                self._loss_fn, stacked, step_feats, inputs.tables[:, k],
+                inputs.masks[:, k], inputs.batches[:, k], labels,
+                inputs.bmasks[:, k])
+            with torch.no_grad():
+                g = tree_map(lambda x: x.mean(dim=0), grads)
+            upd, o = masked_update(self.local_opt, g, o, p, valid)
+            p = apply_updates(p, upd)
+            losses.append(loss.mean() * valid)
+        with torch.no_grad():
+            loss = _masked_mean(torch.stack(losses), svalid)
+        return p, o, loss, state.comm_residual
+
+    # ------------------------------------------------------ correction phase
     def _correction(self, params, server_state, inputs: RoundInputs):
         """S server steps on uniform global batches (Alg. 2 lines 13-18)."""
         per_step = inputs.corr_tables.dim() == 3   # sampling-at-correction
@@ -179,15 +343,10 @@ class RoundProgram:
         self._round_sigs.add(_signature(feats, labels, inputs.tables,
                                         inputs.masks, inputs.batches,
                                         inputs.bmasks))
-        p_new, o_new, losses = self._local_round(
-            state.params, state.local_opt_state, feats, labels,
-            inputs.tables, inputs.masks, inputs.batches, inputs.bmasks,
-            svalid)
-        with torch.no_grad():
-            # Alg. 1/2 line 12 — THE inter-machine collective
-            params = tree_map(lambda x: x.mean(dim=0), p_new)
-            # mean over REAL steps only (masked padding adds 0 to both sums)
-            loss = losses.sum() / max(sum(svalid) * losses.shape[1], 1.0)
+        body = (self._round_local if self.cfg.mode == "local"
+                else self._round_sync)
+        params, opt_state, loss, residual = body(state, feats, labels,
+                                                 inputs, svalid)
         # metrics stay device scalars; run_schedule floats them
         metrics = {"local_loss": loss}
         server_state = state.server_opt_state
@@ -201,9 +360,9 @@ class RoundProgram:
             params, server_state, closs = self._correction(
                 params, server_state, inputs)
             metrics["corr_loss"] = closs
-        o_carry = None if self.cfg.reset_local_opt else o_new
-        return EngineState(params=params, local_opt_state=o_carry,
-                           server_opt_state=server_state), metrics
+        return EngineState(params=params, local_opt_state=opt_state,
+                           server_opt_state=server_state,
+                           comm_residual=residual), metrics
 
 
 # --------------------------------------------------------------------------

@@ -8,6 +8,10 @@ step runs one forward over all P graphs, so one ``backward`` of the SUM of
 the P per-machine losses yields each machine's own gradients (machine p's
 loss depends only on machine p's parameters), and the optimizer — which is
 elementwise — updates the stack at once.  The K steps are a Python loop.
+:func:`halo_fill` is the per-step half of the engine's ``halo`` round mode:
+it splices the exchanged cut-node features into every machine's extended
+feature rows (:class:`repro_torch.graph.halo.HaloProgram` supplies the
+index tables).
 """
 from __future__ import annotations
 
@@ -33,9 +37,14 @@ def make_loss_fn(model: GNNModel) -> Callable:
 
     def loss_fn(params, feats, table, mask, batch, labels, bmask, agg=None):
         logits = model.apply_stacked(params, feats, table, mask, agg=agg)
-        rows = torch.arange(logits.shape[0], device=logits.device)[:, None]
+        b, n, c = logits.shape
+        rows = torch.arange(b, device=logits.device)[:, None]
         idx = batch.long()
-        logp = torch.log_softmax(logits[rows, idx], dim=-1)   # (B, Bs, C)
+        # index_select: a backward that sums repeated batch rows in a fixed
+        # order (see repro_torch.models.gnn.layers._gather)
+        picked = logits.reshape(b * n, c).index_select(
+            0, (idx + rows * n).reshape(-1)).reshape(b, -1, c)
+        logp = torch.log_softmax(picked, dim=-1)               # (B, Bs, C)
         nll = -logp.gather(-1, labels[rows, idx].long()[..., None])[..., 0]
         return (nll * bmask).sum(-1) / bmask.sum(-1).clamp_min(1.0)
 
@@ -90,6 +99,28 @@ def make_local_round(model: GNNModel, optimizer: Optimizer,
         return p, o, torch.stack(losses)
 
     return local_round
+
+
+def halo_fill(feats: torch.Tensor, gathered_flat: torch.Tensor,
+              recv_idx: torch.Tensor, dest_idx: torch.Tensor,
+              recv_valid: torch.Tensor) -> torch.Tensor:
+    """Splice exchanged cut-node features into every machine's feature rows.
+
+    ``feats (P, n_ext_pad, d)`` holds only the machines' local rows;
+    ``gathered_flat (P · max_send, d)`` is the flattened all-gather of every
+    machine's owner-bucketed send buffer.  Machine p's halo rows are
+    gathered out of it (``recv_idx[p]``) and scattered to their
+    extended-buffer rows (``dest_idx[p]``).  Padded slots carry
+    ``recv_valid == 0`` and a destination of ``n_ext_pad``: the JAX package
+    drops that out-of-bounds write (``mode="drop"``); a torch index op would
+    raise (on CUDA, a device-side assert), so the scatter writes into one
+    sink row past the buffer, which is sliced off.
+    """
+    P, n, d = feats.shape
+    halo = gathered_flat[recv_idx.long()] * recv_valid[..., None]
+    out = torch.cat([feats, feats.new_zeros((P, 1, d))], dim=1)
+    out.scatter_(1, dest_idx.long()[..., None].expand(-1, -1, d), halo)
+    return out[:, :n]
 
 
 def make_eval_fn(model: GNNModel) -> Callable:

@@ -10,22 +10,26 @@ the caller passes another)::
     data, model, cfg = make_paper_setting("reddit")
     hist = build_trainer(data, model, llcg_plan(cfg)).run()
 
-The canned plans :func:`psgd_pa_plan`, :func:`llcg_plan` and
-:func:`single_machine_plan` are one-line compositions.  Each scheduled
+The canned plans :func:`psgd_pa_plan`, :func:`llcg_plan`, :func:`ggs_plan`
+and :func:`single_machine_plan` are one-line compositions.  Each scheduled
 round is lowered independently: the phases active at round ``r``
-(scheduled length ``k``) pick the engine program, the optimizer-state
+(scheduled length ``k``) pick the engine round mode, the optimizer-state
 threading, the host sampling path and the byte/step accounting.
 
 :class:`RoundSampler` owns the partition, the shard loaders, the shared
-host RNG, the padded per-machine views and the server's full-neighbor
-eval/correction tables; its RNG draw order is the JAX package's, so both
-packages train on identical samples from the same seeds.
+host RNG, the padded per-machine views, the server's full-neighbor
+eval/correction tables and, built on demand by
+:meth:`RoundSampler.ensure_halo`, the extended-graph views and
+:class:`~repro_torch.graph.halo.HaloProgram` of the halo rounds; its RNG
+draw order is the JAX package's, so both packages train on identical
+samples from the same seeds.  ``CommSpec``'s codecs
+(:mod:`repro_torch.comm.compress`) compress the averaging deltas and the
+halo features, and every byte count prices the compressed wire format.
 
 Not ported yet, and refused with the ROADMAP item that brings them:
-``halo_exchange`` phases and GGS options (Queue 1 item 7), compressed
-averaging (item 6), checkpointing (item 9), device-placed sampling and
-prefetch (item 10), the device-per-machine backend (item 12) and the
-``csr`` aggregation layout (item 5).
+checkpointing (Queue 1 item 9), device-placed sampling and prefetch
+(item 10), the device-per-machine backend (item 12) and the ``csr``
+aggregation layout (item 5).
 """
 from __future__ import annotations
 
@@ -35,6 +39,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.comm.compress import (COMPRESSIONS, HALO_COMPRESSIONS,
+                                       UniformStream,
+                                       averaging_payload_bytes)
 from repro_torch.core.engine import (
     EngineConfig, EngineState, History, RoundInputs, RoundProgram,
     run_schedule,
@@ -44,6 +51,8 @@ from repro_torch.core.schedules import KBucketing, local_epoch_schedule
 from repro_torch.data.graph_loader import make_shard_loaders, sample_round
 from repro_torch.graph.csr import build_neighbor_table
 from repro_torch.graph.datasets import SyntheticDataset
+from repro_torch.graph.halo import (build_halo_plan, build_halo_program,
+                                    ext_fanout)
 from repro_torch.graph.partition import PARTITION_METHODS, partition_graph
 from repro_torch.graph.sampling import (
     _all_nodes_plan, sample_minibatch, sample_minibatch_batched,
@@ -72,15 +81,6 @@ def _check(cond: bool, msg: str):
 
 def _not_ported(what: str, item: str) -> str:
     return f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
-
-
-def averaging_payload_bytes(params, compression: str = "none") -> int:
-    """One machine's averaging payload on the wire.  Only the uncompressed
-    codec is ported: the payload is the parameters themselves."""
-    _check(compression == "none",
-           _not_ported(f"compression {compression!r}",
-                       "6, compressed averaging"))
-    return tree_bytes(params)
 
 
 # --------------------------------------------------------------------------
@@ -141,25 +141,39 @@ class ServerSpec:
 
 @dataclasses.dataclass(frozen=True)
 class CommSpec:
-    """Topology + communication semantics."""
+    """Topology + communication semantics.
+
+    ``compression`` is the averaging rounds' parameter-delta codec
+    (``none | bf16 | int8 | int8_ef``; the int8 codecs round
+    stochastically, ``int8_ef`` carries the per-machine error-feedback
+    residual) and ``halo_compression`` the halo rounds' feature codec
+    (``none | bf16 | int8``, deterministic rounding).  All byte accounting
+    prices the compressed wire format.
+    """
 
     num_machines: int = 8
     partition_method: str = "bfs"
-    host_halo: bool = False          # GGS option (not ported)
-    compression: str = "none"        # averaging codec
-    halo_compression: str = "none"   # halo feature codec (not ported)
+    host_halo: bool = False          # GGS: host-materialized halo
+    compression: str = "none"        # averaging-round param-delta codec
+    halo_compression: str = "none"   # halo-round feature codec
 
     def __post_init__(self):
         _check(self.num_machines >= 1, "num_machines must be ≥ 1")
         _check(self.partition_method in PARTITION_METHODS,
                f"unknown partition_method {self.partition_method!r}; "
                f"choose one of {PARTITION_METHODS}")
-        _check(self.compression == "none",
-               _not_ported(f"compression {self.compression!r}",
-                           "6, compressed averaging"))
-        _check(self.halo_compression == "none" and not self.host_halo,
-               _not_ported("halo exchange (host_halo / halo_compression)",
-                           "7, graph/halo.py and the halo modes"))
+        _check(self.compression in COMPRESSIONS,
+               f"unknown compression {self.compression!r}; "
+               f"choose one of {COMPRESSIONS}")
+        _check(self.halo_compression in HALO_COMPRESSIONS,
+               f"unknown halo_compression {self.halo_compression!r}; "
+               f"choose one of {HALO_COMPRESSIONS} (error feedback needs "
+               "a persistent per-machine residual, which per-step feature "
+               "buffers don't carry)")
+        _check(not (self.host_halo and self.halo_compression != "none"),
+               "host_halo materializes raw f32 halo features on the host — "
+               "halo_compression requires the executed device exchange "
+               "(host_halo=False)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,7 +291,8 @@ class RoundPhase:
         _check(self.after >= 0, "after must be ≥ 0")
         _check(self.kind == "local_steps" or self.reset_opt,
                f"reset_opt=False applies only to local_steps phases "
-               f"(got kind={self.kind!r})")
+               f"(got kind={self.kind!r}; halo rounds always thread their "
+               "per-step optimizer state)")
 
     def active(self, r: int, k: int) -> bool:
         return (r % self.every == 0
@@ -308,6 +323,12 @@ def correction(**kw) -> RoundPhase:
     return RoundPhase("correction", **kw)
 
 
+def halo_exchange(**kw) -> RoundPhase:
+    """GGS rounds: per-step cut-node feature exchange + per-step gradient
+    averaging on the extended (local ∪ halo) graphs."""
+    return RoundPhase("halo_exchange", **kw)
+
+
 # --------------------------------------------------------------------------
 # TrainPlan
 # --------------------------------------------------------------------------
@@ -331,9 +352,6 @@ class TrainPlan:
         if not isinstance(self.phases, tuple):
             object.__setattr__(self, "phases", tuple(self.phases))
         _check(len(self.phases) > 0, "a TrainPlan needs at least one phase")
-        _check(all(p.kind != "halo_exchange" for p in self.phases),
-               _not_ported("the halo_exchange phase (GGS)",
-                           "7, graph/halo.py and the halo modes"))
         _check(self.checkpoint is None and self.checkpoint_dir is None,
                _not_ported("checkpointing (checkpoint / checkpoint_dir)",
                            "9, checkpointing"))
@@ -341,6 +359,9 @@ class TrainPlan:
             _check(self.comm.num_machines == 1,
                    "sampler.full_graph (centralized reference) requires "
                    "num_machines=1")
+            _check(all(p.kind != "halo_exchange" for p in self.phases),
+                   "sampler.full_graph cannot be combined with "
+                   "halo_exchange phases")
 
     def describe(self) -> Dict:
         """JSON-able summary for ``History.meta`` (callables elided)."""
@@ -363,33 +384,48 @@ class RoundDesc:
 
     r: int
     k: int
-    kind: str                        # data path: "local" | "full"
+    kind: str                        # data path: "local" | "ext" | "full"
+    mode: str                        # engine mode: "local" | "sync" | "halo"
     averaging: bool
     correction: bool
     reset_opt: bool
 
     @property
-    def program_key(self) -> bool:
-        """Rounds share an engine program iff they thread the local
-        optimizer state alike."""
-        return self.reset_opt
+    def program_key(self) -> Tuple:
+        """Rounds share an engine program iff they run the same mode and
+        (local mode) thread the local optimizer state alike."""
+        return (self.mode, self.reset_opt if self.mode == "local" else None)
 
 
 def lower_plan(plan: TrainPlan) -> List[RoundDesc]:
     """Resolve the schedule and per-round phase activity into RoundDescs.
 
     Pure and cheap — composition errors (a round with no compute phase,
-    missing averaging on >1 machine) surface here, before any data or
-    program is built.
+    local_steps+halo_exchange in the same round, missing averaging on >1
+    machine) surface here, before any data or program is built.
     """
     P = plan.comm.num_machines
     descs = []
     for r, k in enumerate(plan.schedule.resolve(plan.local.local_k), 1):
         active = [p for p in plan.phases if p.active(r, k)]
         kinds = {p.kind for p in active}
+        if "halo_exchange" in kinds:
+            _check("local_steps" not in kinds,
+                   f"round {r}: local_steps and halo_exchange cannot both "
+                   "be active — a round is either K independent local steps "
+                   "or per-step synchronized halo rounds")
+            _check("averaging" not in kinds,
+                   f"round {r}: halo_exchange already averages gradients "
+                   "every step; drop the averaging phase on halo rounds")
+            descs.append(RoundDesc(
+                r=r, k=k, kind="ext",
+                mode="sync" if plan.comm.host_halo else "halo",
+                averaging=True, correction="correction" in kinds,
+                reset_opt=False))
+            continue
         _check("local_steps" in kinds,
                f"round {r}: no compute phase is active — every round needs "
-               "local_steps")
+               "local_steps or halo_exchange")
         avg = "averaging" in kinds
         _check(avg or P == 1,
                f"round {r}: local_steps on {P} machines requires the "
@@ -402,7 +438,7 @@ def lower_plan(plan: TrainPlan) -> List[RoundDesc]:
                "phases")
         descs.append(RoundDesc(
             r=r, k=k, kind="full" if plan.sampler.full_graph else "local",
-            averaging=avg,
+            mode="local", averaging=avg,
             correction="correction" in kinds, reset_opt=resets.pop()))
     return descs
 
@@ -419,9 +455,12 @@ class RoundSampler:
     """Partitioned views + host RNG streams for any plan.
 
     One instance serves every round kind: padded per-machine local views,
-    the server's full-neighbor eval/correction tables, and the single
-    shared host RNG in the JAX package's draw order.  Every array the
-    engine reads is copied to ``device`` once here or once per round.
+    the server's full-neighbor eval/correction tables, the single shared
+    host RNG in the JAX package's draw order, and, built on demand by
+    :meth:`ensure_halo`, the extended-graph views and
+    :class:`~repro_torch.graph.halo.HaloProgram` of the halo rounds.  Every
+    array the engine reads is copied to ``device`` once here or once per
+    round.
     """
 
     def __init__(self, data: SyntheticDataset, model: GNNModel,
@@ -480,9 +519,11 @@ class RoundSampler:
 
         params0 = model.init_numpy(plan.seed)
         self.param_bytes = tree_bytes(params0)
-        # one machine's averaging payload on the wire
+        # one machine's averaging payload on the wire (== param_bytes for
+        # compression="none"; the compressed wire format otherwise)
         self.avg_payload_bytes = averaging_payload_bytes(
             params0, plan.comm.compression)
+        self._halo_built = False
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -498,8 +539,58 @@ class RoundSampler:
         if "local" in kinds:
             for ld in self.loaders:
                 _all_nodes_plan(ld.sampler.graph, ld.sampler.fanout)
+        if "ext" in kinds:
+            self.ensure_halo()
+            for g in self.halo_plan.ext_graphs:
+                _all_nodes_plan(g, self.fanout_ext)
         if "full" in kinds:
             _all_nodes_plan(self.data.graph, self.fanout)
+
+    # ------------------------------------------------------------- halo view
+    def ensure_halo(self) -> None:
+        """Build the extended-graph (local ∪ halo) machinery once.
+
+        Deterministic — consumes no host RNG, so building it lazily leaves
+        every sampling stream untouched.  The halo index tables go to the
+        device here, once.
+        """
+        if self._halo_built:
+            return
+        data, P = self.data, self.num_machines
+        self.halo_plan = build_halo_plan(data.graph, self.partition)
+        self.n_ext_max = max(g.num_nodes for g in self.halo_plan.ext_graphs)
+        self.halo_program = build_halo_program(data.graph, self.partition,
+                                               plan=self.halo_plan,
+                                               n_ext_pad=self.n_ext_max)
+        self.fanout_ext = ext_fanout(self.halo_plan, self.fanout)
+        d = data.feature_dim
+
+        # padded extended features: local rows always; halo rows fetched
+        # from global X host-side (host_halo) or left zero for the
+        # engine's exchange to fill
+        self.ext_feats = np.zeros((P, self.n_ext_max, d), np.float32)
+        self.local_feats = np.zeros((P, self.n_ext_max, d), np.float32)
+        self.ext_labels = np.zeros((P, self.n_ext_max), np.int32)
+        for p in range(P):
+            local = self.partition.part_nodes[p]
+            rows = np.concatenate([local, self.halo_plan.halo_nodes[p]]
+                                  ).astype(np.int64)
+            self.ext_feats[p, : rows.size] = data.features[rows]
+            self.ext_labels[p, : rows.size] = data.labels[rows]
+            self.local_feats[p, : local.size] = data.features[local]
+        fdtype = self.ext_feats.dtype
+        halo_comp = self.plan.comm.halo_compression
+        self.halo_bytes_per_step = self.halo_program.halo_bytes(
+            d, dtype=fdtype, compression=halo_comp)
+        self.exchange_bytes_per_step = self.halo_program.exchange_bytes(
+            d, dtype=fdtype, compression=halo_comp)
+        hp = self.halo_program
+        self.halo_inputs = dict(
+            halo_send_idx=self._dev(hp.send_idx),
+            halo_recv_idx=self._dev(hp.recv_idx),
+            halo_dest_idx=self._dev(hp.dest_idx),
+            halo_recv_valid=self._dev(hp.recv_valid))
+        self._halo_built = True
 
     # --------------------------------------------------------------- server
     def correction_operands(self):
@@ -565,6 +656,37 @@ class RoundSampler:
         return sample_round(self.loaders, k, self.batch_size, self.n_max,
                             self.fanout, self.rng, rng_compat=self.rng_compat)
 
+    def sample_ext_round(self, k: int):
+        """One halo round's extended-graph tables + local batches (numpy)."""
+        self.ensure_halo()
+        P, B = self.num_machines, self.batch_size
+        tables = np.zeros((P, k, self.n_ext_max, self.fanout_ext), np.int32)
+        masks = _f32_mask((P, k, self.n_ext_max, self.fanout_ext), 0.0)
+        batches = np.zeros((P, k, B), np.int32)
+        if self.rng_compat:
+            # step-major / machine-minor on the ONE shared rng — the draw
+            # order of the JAX package's per-step loop
+            for i in range(k):
+                for p in range(P):
+                    g = self.halo_plan.ext_graphs[p]
+                    t, m = sample_neighbors(g, np.arange(g.num_nodes),
+                                            self.fanout_ext, self.rng,
+                                            rng_compat=True)
+                    tables[p, i, : g.num_nodes, : t.shape[1]] = t
+                    masks[p, i, : g.num_nodes, : m.shape[1]] = m
+                    batches[p, i] = sample_minibatch(
+                        self.loaders[p].train_nodes, B, self.rng)
+        else:
+            for p in range(P):
+                g = self.halo_plan.ext_graphs[p]
+                t, m = sample_neighbors_batched(g, None, self.fanout_ext,
+                                                self.rng, num_steps=k)
+                tables[p, :, : g.num_nodes] = t
+                masks[p, :, : g.num_nodes] = m
+                batches[p] = sample_minibatch_batched(
+                    self.loaders[p].train_nodes, B, k, self.rng)
+        return tables, masks, batches, _f32_mask((P, k, B))
+
     def sample_full_round(self, k: int):
         """Centralized reference: sample the UNpartitioned graph (P=1)."""
         data, N, B = self.data, self.data.num_nodes, self.batch_size
@@ -596,19 +718,27 @@ class RoundSampler:
         """
         if desc.kind == "local":
             arrays = self.sample_local_round(desc.k)
+        elif desc.kind == "ext":
+            arrays = self.sample_ext_round(desc.k)
         elif desc.kind == "full":
             arrays = self.sample_full_round(desc.k)
         else:
             raise ValueError(f"unknown round kind {desc.kind!r}")
         corr = self.sample_correction() if desc.correction else {}
+        halo = self.halo_inputs if desc.mode == "halo" else {}
         tables, masks, batches, bmasks = (self._dev(a) for a in arrays)
         return RoundInputs(tables=tables, masks=masks, batches=batches,
-                           bmasks=bmasks, **corr)
+                           bmasks=bmasks, **corr, **halo)
 
     def round_feats_labels(self, kind: str) -> Tuple[Any, Any]:
         """The (feats, labels) device tensors a round kind trains on."""
         if kind == "local":
             return self.feats, self.labels
+        if kind == "ext":
+            self.ensure_halo()
+            feats = (self.ext_feats if self.plan.comm.host_halo
+                     else self.local_feats)
+            return self._dev(feats), self._dev(self.ext_labels)
         if kind == "full":
             return self.full_feats[None], self.full_labels[None]
         raise ValueError(f"unknown round kind {kind!r}")
@@ -631,33 +761,43 @@ class _PlanProgram:
     """Duck-typed ``RoundProgram`` that dispatches each round to the right
     engine program and threads the mixed optimizer state.
 
-    A plan can mix ``reset_opt`` settings across rounds, so this facade
-    keeps one :class:`RoundProgram` per distinct ``reset_opt`` key,
-    one persistent sub-state per program, and ONE shared server-optimizer
-    state injected into whichever program runs a correction round.  Each
-    round trains on its own kind's arrays from the sampler.
+    A plan can mix round modes and ``reset_opt`` settings, so this facade
+    keeps one :class:`RoundProgram` per distinct ``(mode, reset_opt)`` key,
+    one persistent sub-state per program (local rounds their optimizer
+    state and error-feedback residual, halo/sync rounds their per-step
+    optimizer moments), and ONE shared server-optimizer state injected into
+    whichever program runs a correction round.  Each round trains on its
+    own kind's arrays from the sampler.
     """
 
     def __init__(self, model, sampler: RoundSampler,
-                 descs: List[RoundDesc]):
+                 descs: List[RoundDesc], uniforms=UniformStream):
         plan = sampler.plan
         self.descs = descs
         self.sampler = sampler
         self.with_correction = any(d.correction for d in descs)
         self.server_opt = sampler.server_opt if self.with_correction else None
+        # correction machinery goes only into programs that run a
+        # correction round
         corr_keys = {d.program_key for d in descs if d.correction}
-        self.programs: Dict[bool, RoundProgram] = {}
+        self.programs: Dict[Tuple, RoundProgram] = {}
         for key in {d.program_key for d in descs}:
+            mode, reset = key
             self.programs[key] = RoundProgram(
                 model, sampler.opt,
                 self.server_opt if key in corr_keys else None,
                 EngineConfig(num_machines=plan.comm.num_machines,
-                             with_correction=key in corr_keys,
-                             reset_local_opt=key))
+                             mode=mode, with_correction=key in corr_keys,
+                             reset_local_opt=(reset if mode == "local"
+                                              else True),
+                             compression=plan.comm.compression,
+                             halo_compression=plan.comm.halo_compression,
+                             comm_seed=plan.seed),
+                uniforms=uniforms)
         self._data = {kind: sampler.round_feats_labels(kind)
                       for kind in {d.kind for d in descs}}
         self._cursor = 0
-        self._sub: Dict[bool, EngineState] = {}
+        self._sub: Dict[Tuple, EngineState] = {}
         self._server_state = None
 
     @property
@@ -686,7 +826,8 @@ class _PlanProgram:
         sub = EngineState(params=state.params,
                           local_opt_state=sub.local_opt_state,
                           server_opt_state=(self._server_state if corr
-                                            else None))
+                                            else None),
+                          comm_residual=sub.comm_residual)
         feats, labels = self._data[desc.kind]
         new, metrics = prog.run_round(sub, feats, labels, inputs)
         self._sub[desc.program_key] = new
@@ -705,10 +846,16 @@ class PlanTrainer:
     :meth:`run` builds the :class:`RoundSampler`, the engine programs and
     the schedule loop fresh on every call, so repeated runs reproduce
     identical trajectories (the RNG streams restart).
+
+    ``uniforms`` builds the stochastic-rounding source of the compressed
+    codecs from a seed (default :class:`repro_torch.comm.compress.
+    UniformStream`, which draws on the host, so the card and the CPU see
+    the same uniforms).
     """
 
     def __init__(self, data: SyntheticDataset, model: GNNModel,
-                 plan: TrainPlan, backend: str = "vmap", device="cuda"):
+                 plan: TrainPlan, backend: str = "vmap", device="cuda",
+                 uniforms=UniformStream):
         _check(backend in BACKENDS,
                _not_ported(f"backend {backend!r}", "12, the device-per-"
                            "machine backend") if backend == "shard_map"
@@ -716,27 +863,48 @@ class PlanTrainer:
         self.data, self.model, self.plan = data, model, plan
         self.backend = backend
         self.device = torch.device(device)
+        self.uniforms = uniforms
         self.descs = lower_plan(plan)
         self.schedule = [d.k for d in self.descs]
 
     # ------------------------------------------------------------ accounting
     def accounting(self, sampler: Optional[RoundSampler] = None
                    ) -> List[Dict]:
-        """Per-round (kind, bytes, steps): the parameter up + down per
-        machine on every averaging round, priced at the wire format."""
+        """Per-round (kind, bytes, steps) without running any training.
+
+        Averaging rounds move the parameter payload up + down per machine,
+        priced at the compressed wire format; a halo round moves, per step,
+        the executed exchange (or, with ``host_halo``, the ideal halo
+        bytes) plus the f32 gradient average.  Plans with halo rounds build
+        a host-side :class:`RoundSampler` for the halo byte model unless one
+        is passed; others need only the model.
+        """
+        P = self.plan.comm.num_machines
+        if sampler is None and any(d.kind == "ext" for d in self.descs):
+            sampler = RoundSampler(self.data, self.model, self.plan, "cpu")
         if sampler is None:
-            P = self.plan.comm.num_machines
-            apb = averaging_payload_bytes(
-                self.model.init_numpy(self.plan.seed),
-                self.plan.comm.compression)
+            params0 = self.model.init_numpy(self.plan.seed)
+            pb = tree_bytes(params0)
+            apb = averaging_payload_bytes(params0,
+                                          self.plan.comm.compression)
         else:
-            P, apb = sampler.num_machines, sampler.avg_payload_bytes
+            pb, apb = sampler.param_bytes, sampler.avg_payload_bytes
         rows = []
         for d in self.descs:
-            nbytes = 2.0 * P * apb if d.kind == "local" and d.averaging \
-                else 0.0
+            if d.kind == "ext":
+                sampler.ensure_halo()
+                comm_step = (sampler.halo_bytes_per_step
+                             if self.plan.comm.host_halo
+                             else sampler.exchange_bytes_per_step)
+                # the per-step gradient average stays full f32 (only the
+                # averaging deltas and the halo features are compressed)
+                nbytes = d.k * (comm_step + 2 * P * pb)
+            elif d.kind == "local" and d.averaging:
+                nbytes = 2.0 * P * apb
+            else:
+                nbytes = 0.0
             rows.append({"round": d.r, "k": d.k, "kind": d.kind,
-                         "correction": d.correction,
+                         "mode": d.mode, "correction": d.correction,
                          "bytes": nbytes, "steps": P * d.k})
         return rows
 
@@ -747,7 +915,7 @@ class PlanTrainer:
         sampler = RoundSampler(data, model, plan, self.device)
         sampler.prewarm({d.kind for d in self.descs},
                         correction=any(d.correction for d in self.descs))
-        program = _PlanProgram(model, sampler, self.descs)
+        program = _PlanProgram(model, sampler, self.descs, self.uniforms)
         by_round = {row["round"]: row for row in self.accounting(sampler)}
         bucketing = plan.compile.bucketing_for(self.schedule,
                                                plan.local.local_k)
@@ -755,6 +923,13 @@ class PlanTrainer:
                       "plan": plan.describe(),
                       "device": str(self.device),
                       "corr_agg_layout": sampler.corr_agg_layout}
+        if any(d.kind == "ext" for d in self.descs):
+            meta.update({
+                "halo_executed": not plan.comm.host_halo,
+                "halo_bytes_per_step": sampler.halo_bytes_per_step,
+                "exchange_bytes_per_step": sampler.exchange_bytes_per_step,
+                "halo_max_send": sampler.halo_program.max_send,
+                "halo_max_halo": sampler.halo_program.max_halo})
         desc_by_round = {d.r: d for d in self.descs}
         hist = run_schedule(
             program, model.init(plan.seed, device=self.device), None, None,
@@ -772,13 +947,17 @@ class PlanTrainer:
 
 
 def build_trainer(data: SyntheticDataset, model: GNNModel, plan: TrainPlan,
-                  backend: str = "vmap", device="cuda") -> PlanTrainer:
+                  backend: str = "vmap", device="cuda",
+                  uniforms=UniformStream) -> PlanTrainer:
     """Lower ``plan`` onto the round engine; run with ``.run() -> History``.
 
     Runs on ``device`` — the GPU unless the caller passes another (the
     tests pass ``"cpu"``, where the kernels' plain versions run).
+    ``uniforms`` replaces the stochastic-rounding source (see
+    :class:`PlanTrainer`).
     """
-    return PlanTrainer(data, model, plan, backend=backend, device=device)
+    return PlanTrainer(data, model, plan, backend=backend, device=device,
+                       uniforms=uniforms)
 
 
 # --------------------------------------------------------------------------
@@ -809,7 +988,7 @@ class DistConfig:
     k_bucketing: bool = False        # pad K to buckets
     bucket_growth: int = 2           # bucket lengths are local_k·growth^i
     bucket_mode: str = "geometric"   # "geometric" | "fit" (schedule-aware)
-    ggs_host_halo: bool = False      # GGS option (not ported)
+    ggs_host_halo: bool = False      # GGS: host-materialized halo
     checkpoint_dir: Optional[str] = None  # params export (not ported)
     seed: int = 0
 
@@ -864,6 +1043,12 @@ def llcg_plan(cfg: DistConfig, correction_every: int = 1) -> TrainPlan:
     """
     return _plan(cfg, (local_steps(), averaging(),
                        correction(every=correction_every)), "llcg")
+
+
+def ggs_plan(cfg: DistConfig) -> TrainPlan:
+    """GGS baseline — per-step halo exchange + per-step averaging."""
+    return _plan(cfg, (halo_exchange(),), "ggs",
+                 schedule=ScheduleSpec(rounds=cfg.rounds, rho=1.0))
 
 
 def single_machine_plan(cfg: DistConfig) -> TrainPlan:

@@ -9,12 +9,13 @@ interpret mode.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels.edge_softmax import edge_softmax
+from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
 from repro_torch.kernels.ref import edge_softmax_alpha
 from repro_torch.kernels.spmm import build_bcsr, spmm_bcsr
 
@@ -89,3 +90,25 @@ def edge_softmax_aggregate_trainable(scores: torch.Tensor, mask: torch.Tensor,
     """Differentiable fused edge-softmax: kernel forward, analytic backward.
     Used by the GAT layer when ``fused_gat=True``."""
     return _EdgeSoftmaxAggregate.apply(scores, mask, vals)
+
+
+# --------------------------------------------------------------------------
+# Row-wise int8 quantize/dequantize (compressed communication wire format)
+# --------------------------------------------------------------------------
+def quantize_int8_rows(x: torch.Tensor, u: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise symmetric int8 quantization with stochastic rounding.
+
+    x: (R, C) float; u: (R, C) uniforms in [0, 1) (None → deterministic
+    round-half-up).  Returns ``(q int8 (R, C), scale f32 (R, 1))`` — the
+    compressed-communication wire format (1 byte/value + 4 bytes/row).
+    The kernel takes any row count, so unlike the Pallas one it needs no
+    block padding.
+    """
+    return quantize_rows(x.float(), None if u is None else u.float())
+
+
+def dequantize_int8_rows(vals: torch.Tensor,
+                         scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_int8_rows`: f32 (R, C) ← q·scale."""
+    return dequantize_rows(vals, scale.float())

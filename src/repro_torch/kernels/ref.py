@@ -53,3 +53,32 @@ def edge_softmax_ref(scores: torch.Tensor, mask: torch.Tensor,
     """
     alpha = edge_softmax_alpha(scores, mask)
     return torch.einsum("nf,nfd->nd", alpha, vals.float())
+
+
+def quantize_int8_rows_ref(x: torch.Tensor, u: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Wire format of the compressed communication layer.
+
+    Each row of ``x (R, C)`` is scaled by ``scale[r] = max(|x[r]|, eps)/127``
+    and rounded to int8 as ``clip(floor(x/scale + u), -127, 127)``.  With
+    ``u ~ U[0,1)`` this is *stochastic* rounding — the dequantized estimate
+    ``q·scale`` is unbiased, the property error-feedback averaging relies
+    on.  ``u=None`` means a constant 0.5, i.e. deterministic round-half-up
+    (used for halo feature compression, which needs no unbiasedness).
+    Returns ``(q int8 (R, C), scale float32 (R, 1))``.
+    """
+    x = x.float()
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    # divide by a tensor, never by a Python number: PyTorch's CUDA division
+    # by a host scalar multiplies by its reciprocal, which is not the
+    # correctly rounded quotient the CUDA kernel computes
+    scale = amax.clamp_min(1e-12) / torch.full_like(amax, 127.0)
+    uu = torch.full_like(x, 0.5) if u is None else u.float()
+    q = torch.clamp(torch.floor(x / scale + uu), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def dequantize_int8_rows_ref(q: torch.Tensor,
+                             scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_int8_rows_ref`: ``q·scale`` as float32."""
+    return q.float() * scale.float()

@@ -35,9 +35,16 @@ def _flat_index(table: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _gather(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """``x[b][table[b]]`` for every graph b: (B, N, …) → (B, N, F, …)."""
+    """``x[b][table[b]]`` for every graph b: (B, N, …) → (B, N, F, …).
+
+    An ``index_select``, whose backward (``index_add_``) sums in a fixed
+    order on the CPU; the advanced-indexing backward does not, and runs of
+    the same plan would differ in the last bits.
+    """
     b, n = x.shape[:2]
-    return x.reshape(b * n, *x.shape[2:])[_flat_index(table, n)]
+    idx = _flat_index(table, n)
+    rows = x.reshape(b * n, *x.shape[2:]).index_select(0, idx.reshape(-1))
+    return rows.reshape(*idx.shape, *x.shape[2:])
 
 
 def _single_graph(h: torch.Tensor) -> None:

@@ -19,16 +19,25 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 
 
 def tree_leaves(tree: Any) -> List[Any]:
-    """The leaves in insertion order (the order every tree map visits)."""
+    """The leaves in sorted-key order — the order of JAX's ``tree_flatten``,
+    so leaf ``i`` is the same leaf in both packages (the compressed codecs
+    key their per-leaf random draws by it)."""
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
 
 
 def tree_unflatten(tree: Any, leaves: List[Any]) -> Any:
-    """A tree of ``tree``'s structure holding ``leaves`` in visit order."""
+    """A tree of ``tree``'s structure holding ``leaves`` in
+    :func:`tree_leaves` order."""
     it = iter(leaves)
-    return tree_map(lambda _: next(it), tree)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(tree)
 
 
 def tree_bytes(tree: Any) -> int:

@@ -1,0 +1,261 @@
+"""The port's compressed-communication layer against the JAX package.
+
+The plain quantize/dequantize (what the CUDA kernels are held to on the
+card) must be bit-equal to the JAX package's oracles
+(``repro.kernels.ref``).  Against the JAX op itself (the Pallas kernel in
+interpret mode, under ``jit``) the tolerance is the JAX package's own
+(``tests/test_comm.py``): the scale within 1 ulp — XLA computes
+``amax / 127`` as ``amax · (1/127)`` — and ``q`` within ±1 level, since a
+1-ulp scale can move ``floor`` one level at a boundary.
+
+Stochastic rounding draws its uniforms from one explicit source;
+:class:`JaxUniforms` replays the JAX package's fold chain
+``fold_in(fold_in(fold_in(PRNGKey(seed), call), machine), leaf)`` so both
+packages round with the same numbers.  Leaf ``i`` has to mean the same leaf
+in both, so the port's leaf order is checked against ``tree_leaves``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+
+from repro.comm import compress as ref_comp
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_k
+from repro.models.gnn.model import build_model as ref_build_model
+
+from repro_torch.comm import compress as comp
+from repro_torch.configs.gnn_datasets import SETTINGS
+from repro_torch.kernels import ops
+from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
+from repro_torch.models.gnn.model import build_model
+from repro_torch.utils.pytree import tree_leaves, tree_map
+
+SHAPES = [(1, 7), (5, 33), (37, 128), (130, 65), (8, 4096)]
+
+
+class JaxUniforms:
+    """The JAX package's stochastic-rounding draws, as a port uniform
+    source: per call ``c``, machine ``m`` and leaf ``i`` the uniforms of
+    ``fold_in(fold_in(fold_in(PRNGKey(seed), c), m), i)``
+    (``src/repro/core/engine.py`` and ``src/repro/comm/compress.py``)."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+        self.reset()
+
+    def reset(self):
+        self.calls = 0
+
+    def draw(self, num_machines, sizes, device):
+        key = jax.random.fold_in(jax.random.PRNGKey(self.seed), self.calls)
+        self.calls += 1
+        keys = ref_comp.machine_keys(key, num_machines)
+        out = []
+        for i, n in enumerate(sizes):
+            u = jax.vmap(lambda k: jax.random.uniform(
+                jax.random.fold_in(k, i), (n,)))(keys)
+            out.append(torch.from_numpy(np.array(u)).to(device))
+        return out
+
+
+def _xu(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) * 3.0).astype(np.float32)
+    u = rng.random(shape).astype(np.float32)
+    return x, u
+
+
+def _assert_scale_within_ulp(port, jax_scale):
+    a, b = np.asarray(port, np.float32), np.asarray(jax_scale, np.float32)
+    assert (np.abs(a - b) <= np.spacing(np.maximum(np.abs(a),
+                                                   np.abs(b)))).all()
+
+
+def _assert_q_within_level(port, jax_q):
+    d = np.abs(np.asarray(port, np.int32) - np.asarray(jax_q, np.int32))
+    assert int(d.max(initial=0)) <= 1
+
+
+# --------------------------------------------------------------------------
+# kernels' plain versions
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("with_u", [True, False], ids=["u", "half_up"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_plain_quantize_is_bit_equal_to_the_oracle(shape, with_u):
+    x, u = _xu(shape)
+    uj = jnp.asarray(u) if with_u else None
+    ut = torch.from_numpy(u) if with_u else None
+    qr, sr = ref_k.quantize_int8_rows_ref(jnp.asarray(x), uj)
+    qp, sp = ops.quantize_int8_rows(torch.from_numpy(x), ut)
+    assert qp.dtype == torch.int8 and sp.shape == (shape[0], 1)
+    np.testing.assert_array_equal(qp.numpy(), np.asarray(qr))
+    np.testing.assert_array_equal(sp.numpy(), np.asarray(sr))
+    np.testing.assert_array_equal(
+        ops.dequantize_int8_rows(qp, sp).numpy(),
+        np.asarray(ref_k.dequantize_int8_rows_ref(qr, sr)))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_plain_quantize_within_tolerance_of_the_jax_kernel(shape):
+    x, u = _xu(shape, seed=1)
+    qk, sk = ref_ops.quantize_int8_rows(jnp.asarray(x), jnp.asarray(u))
+    qp, sp = ops.quantize_int8_rows(torch.from_numpy(x), torch.from_numpy(u))
+    _assert_scale_within_ulp(sp.numpy(), sk)
+    _assert_q_within_level(qp.numpy(), qk)
+    # reconstruction error bounded by one quantization level per row
+    err = np.abs(ops.dequantize_int8_rows(qp, sp).numpy() - x)
+    assert (err <= sp.numpy() * 1.001).all()
+
+
+def test_all_zero_rows_and_the_half_up_default():
+    x = torch.tensor([[0.0, 0.0, 0.0], [0.4, -0.4, 126.6]])
+    q, s = ops.quantize_int8_rows(x)
+    qr, sr = ref_k.quantize_int8_rows_ref(jnp.asarray(x.numpy()))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qr))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sr))
+    assert q[0].abs().max() == 0
+    d = ops.dequantize_int8_rows(q, s)[1]
+    assert float((d - x[1]).abs().max()) <= float(s[1, 0]) / 2 + 1e-6
+
+
+def test_wrappers_count_no_launch_on_cpu_and_reject_bad_shapes():
+    before = (quantize_rows.launches, dequantize_rows.launches)
+    q, s = quantize_rows(torch.randn(4, 9))
+    dequantize_rows(q, s)
+    assert (quantize_rows.launches, dequantize_rows.launches) == before
+    with pytest.raises(ValueError):
+        quantize_rows(torch.randn(4, 9), torch.rand(4, 8))
+    with pytest.raises(ValueError):
+        quantize_rows(torch.randn(9))
+    with pytest.raises(ValueError):
+        dequantize_rows(q, s[:2])
+
+
+def test_stochastic_rounding_is_unbiased():
+    x = torch.linspace(-2.0, 2.0, 16)[None]
+    stream = comp.UniformStream(0)
+    acc = torch.zeros(x.shape, dtype=torch.float64)
+    n = 400
+    for _ in range(n):
+        (u,) = stream.draw(1, [16], "cpu")
+        q, s = ops.quantize_int8_rows(x, u)
+        acc += ops.dequantize_int8_rows(q, s).double()
+    scale = 2.0 / 127.0                    # one quantization level
+    np.testing.assert_allclose((acc / n).numpy(), x.numpy(),
+                               atol=3 * scale / np.sqrt(n))
+
+
+def test_uniform_stream_restarts_and_splits_per_leaf():
+    stream = comp.UniformStream(5)
+    a = stream.draw(3, [4, 7], "cpu")
+    b = stream.draw(3, [4, 7], "cpu")
+    stream.reset()
+    a2 = stream.draw(3, [4, 7], "cpu")
+    assert [t.shape for t in a] == [(3, 4), (3, 7)]
+    assert all(torch.equal(x, y) for x, y in zip(a, a2))
+    assert not torch.equal(a[0], b[0])
+    assert all(float(t.min()) >= 0.0 and float(t.max()) < 1.0 for t in a)
+
+
+# --------------------------------------------------------------------------
+# leaf order, codecs and pricing
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", sorted({s.base_arch
+                                         for s in SETTINGS.values()}))
+def test_leaf_order_is_the_jax_tree_order(arch):
+    pm = build_model(arch, 12, 5, hidden_dim=16)
+    rm = ref_build_model(arch, 12, 5, hidden_dim=16)
+    ours = tree_leaves(pm.init_numpy(3))
+    theirs = jax.tree_util.tree_leaves(rm.init(3))
+    assert len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def _stacked_delta(P=3, seed=0):
+    rm = ref_build_model("SBSBS", 12, 5, hidden_dim=16)
+    rng = np.random.default_rng(seed)
+    tree = jax.tree_util.tree_map(
+        lambda a: (rng.standard_normal((P,) + a.shape) * 0.01).astype(
+            np.float32), rm.init(0))
+    return tree
+
+
+@pytest.mark.parametrize("compression", ref_comp.COMPRESSIONS)
+def test_compress_tree_matches_the_jax_payloads(compression):
+    P = 3
+    tree = _stacked_delta(P)
+    jtree = jax.tree_util.tree_map(jnp.asarray, tree)
+    ttree = tree_map(torch.from_numpy, tree)
+    stoch = compression in ("int8", "int8_ef")
+    key = (ref_comp.machine_keys(
+        jax.random.fold_in(jax.random.PRNGKey(7), 0), P) if stoch else None)
+    u = (JaxUniforms(7).draw(P, [x[0].numel() for x in tree_leaves(ttree)],
+                             "cpu") if stoch else None)
+    jp, js = ref_comp.compress_tree(jtree, compression, key=key, stacked=True)
+    tp, ts = comp.compress_tree(ttree, compression, u=u, stacked=True)
+    jd = ref_comp.decompress_tree(jp, js, compression)
+    td = comp.decompress_tree(tp, ts, compression)
+    for a, b in zip(tree_leaves(tp), jax.tree_util.tree_leaves(jp)):
+        assert a.shape == b.shape
+        if compression.startswith("int8"):
+            _assert_q_within_level(a.numpy(), b)
+        else:
+            np.testing.assert_array_equal(a.float().numpy(),
+                                          np.asarray(b, np.float32))
+    if ts is not None:
+        for a, b in zip(tree_leaves(ts), jax.tree_util.tree_leaves(js)):
+            assert a.shape == b.shape == (P, 1)
+            _assert_scale_within_ulp(a.numpy(), b)
+    for a, b in zip(tree_leaves(td), jax.tree_util.tree_leaves(jd)):
+        assert a.dtype == torch.float32
+        # one quantization level of a 0.01-scale delta at most
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("compression", ref_comp.HALO_COMPRESSIONS)
+def test_compress_features_matches_jax(compression):
+    x, _ = _xu((40, 24), seed=4)
+    jp, js = ref_comp.compress_features(jnp.asarray(x), compression)
+    tp, ts = comp.compress_features(torch.from_numpy(x), compression)
+    jd = np.asarray(ref_comp.decompress_features(jp, js, compression))
+    td = comp.decompress_features(tp, ts, compression).numpy()
+    if compression == "int8":
+        _assert_scale_within_ulp(ts.numpy(), js)
+        _assert_q_within_level(tp.numpy(), jp)
+        # the plain version is the oracle's deterministic rounding exactly
+        q, s = ref_k.quantize_int8_rows_ref(jnp.asarray(x))
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(q))
+        np.testing.assert_allclose(td, jd, rtol=0,
+                                   atol=float(ts.max()) * 1.001)
+    else:
+        np.testing.assert_array_equal(td, jd)
+
+
+@pytest.mark.parametrize("compression", ref_comp.COMPRESSIONS)
+def test_wire_pricing_is_exactly_equal(compression):
+    for d in (1, 16, 32, 100):
+        for dtype in (np.float32, np.float16):
+            assert comp.wire_row_bytes(d, dtype, compression) == \
+                ref_comp.wire_row_bytes(d, dtype, compression)
+    for arch in ("SBSBS", "GAT", "BSBSBL"):
+        pm = build_model(arch, 12, 5, hidden_dim=16)
+        rparams = ref_build_model(arch, 12, 5, hidden_dim=16).init(0)
+        want = ref_comp.averaging_payload_bytes(rparams, compression)
+        assert comp.averaging_payload_bytes(pm.init_numpy(0),
+                                            compression) == want
+        assert comp.averaging_payload_bytes(pm.init(0, device="cpu"),
+                                            compression) == want
+
+
+def test_check_compression_rejects_unknown_codecs():
+    assert comp.check_compression("int8_ef") == "int8_ef"
+    with pytest.raises(ValueError, match="halo_compression"):
+        comp.check_compression("int8_ef", halo=True)
+    with pytest.raises(ValueError, match="compression"):
+        comp.check_compression("fp8")

@@ -1,5 +1,8 @@
 """The CUDA and Triton kernels against their plain versions, on the card.
 
+The int8 quantize/dequantize kernels are held bit-equal (correctly rounded
+divisions on both sides); the SpMM and edge softmax within f32 tolerances.
+
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one; they import no JAX, so they run on a GPU machine with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py``.
@@ -12,6 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.graph.datasets import rmat_graph
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.edge_softmax import edge_softmax
+from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
 from repro_torch.kernels.spmm import spmm_bcsr
 
 # edge softmax: weights ≤ 1 on unit-scale values, f32 sums over ≤ F slots
@@ -84,3 +88,45 @@ def test_spmm_backward_launches_the_kernel_on_card(graph, cuda):
     agg.bcsr_mean_aggregate(xc, agg.bcsr_operands(graph, "cpu")).sum() \
         .backward()
     torch.testing.assert_close(x.grad.cpu(), xc.grad, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_u", [True, False], ids=["u", "half_up"])
+@pytest.mark.parametrize("r,c", [(1, 7), (5, 33), (37, 128), (130, 65),
+                                 (8, 4096), (800, 32), (3, 1000)])
+def test_quantize_kernels_bit_equal_plain_on_card(cuda, r, c, with_u):
+    rng = np.random.default_rng(r * 1000 + c)
+    x = torch.from_numpy((rng.standard_normal((r, c)) * 3.0).astype(
+        np.float32)).to(cuda)
+    x[0, : c // 2] = 0.0                         # a half-zero row
+    u = (torch.from_numpy(rng.random((r, c)).astype(np.float32)).to(cuda)
+         if with_u else None)
+    before = (quantize_rows.launches, dequantize_rows.launches)
+    q, s = quantize_rows(x, u)
+    deq = dequantize_rows(q, s)
+    assert (quantize_rows.launches, dequantize_rows.launches) == (
+        before[0] + 1, before[1] + 1)
+    qr, sr = ref.quantize_int8_rows_ref(x, u)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert torch.equal(deq, ref.dequantize_int8_rows_ref(qr, sr))
+    # and the CPU plain version agrees bit for bit
+    qc, sc = ref.quantize_int8_rows_ref(x.cpu(), None if u is None
+                                        else u.cpu())
+    assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+
+
+@pytest.mark.gpu
+def test_halo_fill_drops_padded_slots_on_card(cuda):
+    """The padded destinations point one past the buffer: the sink row
+    keeps the CUDA scatter in bounds."""
+    from repro_torch.core.machine import halo_fill
+    feats = torch.randn(2, 5, 3, device=cuda)
+    gathered = torch.randn(4, 3, device=cuda)
+    recv = torch.tensor([[1, 0], [3, 2]], device=cuda)
+    dest = torch.tensor([[4, 5], [3, 4]], device=cuda)      # 5 = padding
+    valid = torch.tensor([[1.0, 0.0], [1.0, 1.0]], device=cuda)
+    out = halo_fill(feats, gathered, recv, dest, valid)
+    torch.cuda.synchronize()
+    want = feats.clone()
+    want[0, 4], want[1, 3], want[1, 4] = gathered[1], gathered[3], gathered[2]
+    assert torch.equal(out, want)

@@ -45,8 +45,9 @@ def probe():
 def test_every_module_imports_without_jax(probe):
     expected = {"repro_torch.core.plan", "repro_torch.core.engine",
                 "repro_torch.kernels.spmm", "repro_torch.kernels.edge_softmax",
-                "repro_torch.models.gnn.model", "repro_torch.convert",
-                "repro_torch.configs.gnn_datasets"}
+                "repro_torch.kernels.quantize", "repro_torch.comm.compress",
+                "repro_torch.graph.halo", "repro_torch.models.gnn.model",
+                "repro_torch.convert", "repro_torch.configs.gnn_datasets"}
     assert expected <= set(probe["modules"])
 
 
