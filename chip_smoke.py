@@ -10,8 +10,10 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at one larger shape, and time kernel,
    plain version and (where one exists) a library call with CUDA events.
-   The int8 quantize/dequantize kernels must be bit-equal to theirs.
-3. Drive the main paths — ``build_trainer(data, model, plan).run()`` on the
+   The int8 quantize/dequantize kernels must be bit-equal to theirs; the
+   chunked linear scan is checked in both conventions (RWKV6's strict one
+   at the serving shapes, ragged and large; the plain one at Mamba2 widths).
+3. Drive the trainer — ``build_trainer(data, model, plan).run()`` on the
    paper's ``reddit`` setting for 3 rounds — in four configurations:
    A (``llcg_plan``, arch SBSBS, server correction through the BCSR SpMM
    kernel), B (the same on a fused GAT, every aggregation through the
@@ -24,6 +26,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    as many times as stated.  The History must be finite, its bytes must
    equal the trainer's accounting, and its losses must agree with the same
    run on the CPU (plain versions, same stochastic-rounding uniforms).
+4. Serve rwkv6-1.6b at full width (config E): random weights from a seed,
+   drawn once on the CPU.  E1 serves 8 greedy requests (4 prompts of 192
+   tokens, 4 of 77, 32 new tokens each; two waves of 4) through
+   ``ServingEngine`` in the config's bfloat16 (embedding rows rounded to
+   bf16, layers in f32, as the JAX package computes it): every prefill
+   layer's scan through the kernel (exactly 48 launches), every logit
+   finite, the same tokens when served again, and the 77-token wave's
+   prefill on the card within 1e-3 × max(1, max|cpu|) of the CPU's in the
+   same config, layer by layer (each layer fed the CPU's input to it).
+   E2 runs the f32 model on the card and on the CPU on one 77-token
+   prompt: prefill logits, every layer's state and 4 teacher-forced
+   decode steps must agree within the same tolerance.
 
 Prints the card (``nvidia-smi`` name and power limit) and one JSON line of
 per-kernel numbers, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -59,6 +73,16 @@ QUANT_TOL = 0.0
 # the card's run vs the CPU run of the same plan: f32 in another order,
 # compounded over 3 rounds of Adam steps
 TRAJ_RTOL = 1e-3
+# linear scan kernel vs plain version: f32 summed in another order (the scan
+# tolerance of tests/test_kernels.py), × max(1, max|plain|)
+SCAN_TOL = 2e-4
+# config E2, the card's f32 LM vs the CPU's: f32 in another order over 24
+# layers, × max(1, max|cpu|)
+LM_TOL = 1e-3
+E_SEED = 0
+E_PROMPTS = (192,) * 4 + (77,) * 4
+E_NEW_TOKENS = 32
+E_DECODE_STEPS = 4
 
 
 class SmokeFailure(Exception):
@@ -239,6 +263,86 @@ def _quant_case(r: int, c: int, with_u: bool, label: str,
     return tuple(rows)
 
 
+def _scan_ops(bh: int, t: int, chunk: int, dk: int, dv: int, strict: bool,
+              with_h0: bool) -> float:
+    """Operations the scan needs on this run's inputs: per head and chunk of
+    l real steps (the last chunk cut to its length), the masked products
+    q~k~ᵀ and A·V over the l(l+1)/2 kept pairs (l(l−1)/2 when strict), the
+    inter-chunk read q~·h_in (none in the first chunk when h0 is zero), the
+    state update (k~P_L)ᵀV, 2-3 exponentials per (step, key) element and
+    the strict bonus, as multiply-adds counted twice."""
+    total = 0.0
+    for c0 in range(0, t, chunk):
+        ln = min(chunk, t - c0)
+        pairs = ln * (ln - 1) // 2 if strict else ln * (ln + 1) // 2
+        total += 2.0 * pairs * (dk + dv) + 2.0 * ln * dk * dv
+        if c0 or with_h0:
+            total += 2.0 * ln * dk * dv
+        total += (3 if strict else 2) * ln * dk
+        if strict:
+            total += 2.0 * ln * (dk + dv)
+    return bh * total
+
+
+def _scan_case(bh: int, t: int, d: int, strict: bool, with_h0: bool,
+               label: str, seed: int, chunk: int = 64) -> dict:
+    """``ops.linear_scan`` (the kernel, a ragged T padded to the chunk) vs
+    the plain chunked form on the card; dk = dv = ``d``.  A ragged case
+    also times the kernel alone on the padded inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.linear_scan import linear_scan_chunked
+    from repro_torch.kernels.ref import chunked_scan_ref
+
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).cuda()
+    q, k, v = f(bh, t, d), f(bh, t, d), f(bh, t, d)
+    lw = torch.from_numpy((-0.15 * rng.random((bh, t, d))).astype(
+        np.float32)).cuda()
+    h0 = f(bh, d, d) if with_h0 else None
+    u = f(bh, d) * 0.3 if strict else None
+    pad = -t % chunk
+    padded = [torch.nn.functional.pad(x, (0, 0, 0, pad))
+              for x in (q, k, v, lw)]
+
+    def kernel():
+        return ops.linear_scan(q, k, v, lw, h0, chunk=chunk, strict=strict,
+                               u=u)
+
+    def kernel_alone():
+        return linear_scan_chunked(*padded, h0, u=u, chunk=chunk,
+                                   strict=strict)
+
+    def plain():
+        y, h = chunked_scan_ref(*padded, h0, chunk=chunk, strict=strict, u=u)
+        return y[:, :t], h
+
+    (y, h), (y_r, h_r) = kernel(), plain()
+    torch.cuda.synchronize()
+    err = max(float((y - y_r).abs().max()), float((h - h_r).abs().max()))
+    tol = SCAN_TOL * max(1.0, float(y_r.abs().max()), float(h_r.abs().max()))
+    name = (f"{'strict' if strict else 'plain'} BH={bh} T={t} dk=dv={d} "
+            f"L={chunk}{' h0' if with_h0 else ''}")
+    _check(math.isfinite(err) and err <= tol,
+           f"linear_scan {name}: max |kernel - plain| {err} > {tol}")
+    # each input read once, each output written once, at the real T
+    nbytes = 4 * (bh * t * 5 * d + bh * d * d * (2 if with_h0 else 1)
+                  + (bh * d if strict else 0))
+    bound_ms, bound_by = _bound(
+        nbytes, _scan_ops(bh, t, chunk, d, d, strict, with_h0))
+    case = {"label": label, "shape": name, "max_abs_err": err, "tol": tol,
+            "ms": _time_ms(kernel), "device_ms": _graph_ms(kernel),
+            "plain_ms": _time_ms(plain), "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    if pad:
+        case.update(padded_to=t + pad,
+                    kernel_alone_ms=_time_ms(kernel_alone),
+                    kernel_alone_device_ms=_graph_ms(kernel_alone))
+    return case
+
+
 # --------------------------------------------------------------------------
 # phase 3: the main path
 # --------------------------------------------------------------------------
@@ -382,6 +486,200 @@ def _drive(name: str, data, model, plan, kernels) -> dict:
     return counts
 
 
+def _close_to_cpu(label: str, what: str, gpu, cpu, worst: list) -> None:
+    """Gate one card-vs-CPU comparison of config E at LM_TOL and record
+    its share of the tolerance in ``worst``."""
+    err = float((gpu.cpu().float() - cpu.float()).abs().max())
+    tol = LM_TOL * max(1.0, float(cpu.abs().max()))
+    _check(gpu.dtype == cpu.dtype and math.isfinite(err) and err <= tol,
+           f"config {label} {what}: max |card - cpu| {err} > {tol} "
+           f"({gpu.dtype}, {cpu.dtype})")
+    worst.append((err / tol, what, err))
+
+
+def _config_e(kernels) -> dict:
+    """Config E: rwkv6-1.6b at full width.  E1 serves through
+    ``ServingEngine`` in the config's dtype; E2 holds the f32 model on the
+    card against the CPU.  Returns the launch counts of E1's counted
+    run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer.model import LM
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    cfg = get_config("rwkv6-1.6b")
+    t0 = time.perf_counter()
+    p_cpu = LM(cfg).init(E_SEED, "cpu")      # drawn once, used by E1 and E2
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_gpu = tree_map(lambda x: x.cuda(), p_cpu)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(p_cpu))
+    print(f"config E: {cfg.name}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{n_params} parameters (f32), dtype {cfg.dtype}; init on the CPU "
+          f"{init_s:.1f} s, copy to the card {time.perf_counter() - t0:.1f} s")
+
+    # ---- E1: serving through the engine, greedy, the bf16 config
+    rng = np.random.default_rng(E_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in E_PROMPTS]
+    finite = []
+    first_logits = {}             # prompt length → the wave's prefill logits
+
+    def serve(check_logits: bool = False):
+        eng = ServingEngine(cfg, params=p_gpu, batch_size=4, max_seq=512)
+        if check_logits:                  # every logit the engine samples from
+            sample = eng.backend._sample
+
+            def checked(logits, wave, step):
+                finite.append(torch.isfinite(logits).all())
+                if step == 0:
+                    first_logits[len(wave[0].prompt)] = (
+                        [r.prompt for r in wave], logits.cpu())
+                return sample(logits, wave, step)
+            eng.backend._sample = checked
+        for uid, prompt in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=prompt,
+                               max_new_tokens=E_NEW_TOKENS))
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        return eng, {r.uid: r for r in res}, time.perf_counter() - t0
+
+    warm, first, _ = serve()              # warm-up; also the repeat check
+    for w in warm.stats()["wave_log"]:
+        print(f"config E1 warm-up wave {w['wave']}: {w['prompt_len']} prompt "
+              f"tokens; time to first token {w['ttft_s'] * 1e3:.3f} ms")
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    eng, res, wall = serve(check_logits=True)
+    counts = {k.__name__: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check(sorted(res) == list(range(len(prompts))),
+           f"config E1: served {sorted(res)}")
+    _check(all(len(r.tokens) == E_NEW_TOKENS for r in res.values()),
+           "config E1: a request did not get its tokens")
+    _check(bool(torch.stack(finite).all()), "config E1: a logit is not "
+           "finite")
+    _check(all(res[u].tokens == first[u].tokens for u in res),
+           "config E1: the same requests served again gave other tokens")
+    want = cfg.num_layers * len(set(E_PROMPTS))
+    _check(counts["linear_scan_chunked"] == want,
+           f"config E1 launched linear_scan_chunked "
+           f"{counts['linear_scan_chunked']} times, not {want}")
+    n_tok = sum(len(r.tokens) for r in res.values())
+    for w in eng.stats()["wave_log"]:
+        print(f"config E1 wave {w['wave']}: {w['requests']} requests x "
+              f"{w['prompt_len']} prompt tokens; time to first token "
+              f"{w['ttft_s'] * 1e3:.3f} ms; {w['decode_steps']} decode steps "
+              f"{w['decode_s'] / max(1, w['decode_steps']) * 1e3:.3f} ms each")
+    busy = _device_busy_share(lambda: serve())
+    print(f"config E1: {n_tok} tokens in {wall:.4f} s = {n_tok / wall:.2f} "
+          f"generated tokens/s; peak memory allocated {peak_gb:.3f} GB; "
+          f"launches {counts}; device busy {busy} of a served run; "
+          f"tokens of uid 0: {res[0].tokens[:8]}...")
+
+    # the served prefill of each wave alone, least of 3, and where its device
+    # time goes (the ragged wave's prompts are padded to 128 in the scan)
+    lm = LM(cfg)
+    for plen, (wave_prompts, _) in sorted(first_logits.items()):
+        batch = {"tokens": torch.tensor(wave_prompts, device="cuda")}
+
+        def prefill():
+            with torch.no_grad():
+                lm.prefill(p_gpu, batch, max_seq=512)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        print(f"config E1 prefill alone, {len(wave_prompts)} x {plen} "
+              f"tokens: {min(times) * 1e3:.3f} ms (least of 3; "
+              f"{[round(x * 1e3, 3) for x in times]}); device busy "
+              f"{_device_busy_share(prefill)}")
+
+    # the ragged wave's served prefill against the CPU's in the same config,
+    # one layer at a time: each layer on the card takes the CPU's input to
+    # it, so a comparison holds one layer's f32 sums in another order.  End
+    # to end the 24 layers compound that (GroupNorm over a near-constant
+    # head divides by ~sqrt(eps)): the served logits' distance from the
+    # CPU's is printed, not gated (PERF.md, PR 13)
+    from repro_torch.models.transformer import blocks as B
+    wave_prompts, served = first_logits[min(E_PROMPTS)]
+    toks = torch.tensor(wave_prompts)
+    worst_e1 = []
+    layer_check = lambda what, gpu, cpu: _close_to_cpu("E1", what, gpu, cpu,
+                                                       worst_e1)
+
+    with torch.no_grad():
+        h = lm._embed(p_cpu, toks)
+        layer_check("embedding", lm._embed(p_gpu, toks.cuda()), h)
+        for n, (group, key, kind, idx) in enumerate(lm._layers()):
+            out_g, st_g, _ = B.block_prefill(
+                kind, lm._index(p_gpu[group][key], idx), h.cuda(), cfg)
+            out_c, st_c, _ = B.block_prefill(
+                kind, lm._index(p_cpu[group][key], idx), h, cfg)
+            layer_check(f"layer {n} output", out_g, out_c)
+            for name in st_c:
+                layer_check(f"layer {n} state {name}", st_g[name],
+                            st_c[name])
+            h = out_c
+        cpu_logits = lm._head(p_cpu, h[:, -1])
+        layer_check("logits", lm._head(p_gpu, h[:, -1].cuda()), cpu_logits)
+        # the same wave in the f32 config, end to end: how far the
+        # compounding goes without the bf16 rounding of the embeddings
+        lm32 = LM(dataclasses.replace(cfg, dtype="float32"))
+        g32, _ = lm32.prefill(p_gpu, {"tokens": toks.cuda()}, max_seq=512)
+        c32, _ = lm32.prefill(p_cpu, {"tokens": toks}, max_seq=512)
+    worst_e1.sort(reverse=True)
+    e2e = float((served.float() - cpu_logits).abs().max())
+    e2e32 = float((g32.cpu() - c32).abs().max())
+    print(f"config E1: the served {cfg.dtype} prefill of the "
+          f"{len(wave_prompts)} x {min(E_PROMPTS)} wave, card vs CPU layer "
+          f"by layer: {len(worst_e1)} comparisons, worst {worst_e1[0][1]} "
+          f"{worst_e1[0][2]:.3e} ({worst_e1[0][0]:.3f} of its tolerance); "
+          f"end to end, max |card - cpu| of the logits: served "
+          f"{e2e:.3e} of max |cpu| {float(cpu_logits.abs().max()):.3f}, "
+          f"the f32 config {e2e32:.3e} of {float(c32.abs().max()):.3f}")
+
+    # ---- E2: the card against the CPU, f32, batch 1, teacher-forced
+    model = LM(dataclasses.replace(cfg, dtype="float32"))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 77)))
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (E_DECODE_STEPS, 1)))
+    worst = []
+    compare = lambda what, gpu, cpu: _close_to_cpu("E2", what, gpu, cpu,
+                                                   worst)
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, sg = model.prefill(p_gpu, {"tokens": toks.cuda()}, max_seq=512)
+        lc, sc = model.prefill(p_cpu, {"tokens": toks}, max_seq=512)
+        compare("prefill logits", lg, lc)
+        for entry, g_tree in sg["units"].items():    # (n_units, count, …)
+            for name, g in g_tree.items():
+                c = sc["units"][entry][name]
+                for layer, (a, b) in enumerate(zip(g.flatten(0, 1),
+                                                   c.flatten(0, 1))):
+                    compare(f"units/{entry} layer {layer} {name}", a, b)
+        for step in range(E_DECODE_STEPS):
+            lg, sg = model.decode_step(p_gpu, sg, feed[step].cuda(),
+                                       77 + step, max_seq=512)
+            lc, sc = model.decode_step(p_cpu, sc, feed[step], 77 + step,
+                                       max_seq=512)
+            compare(f"decode step {step} logits", lg, lc)
+    worst.sort(reverse=True)
+    print(f"config E2: card vs CPU, f32, {len(worst)} comparisons in "
+          f"{time.perf_counter() - t0:.1f} s; worst {worst[0][1]} "
+          f"{worst[0][2]:.3e} ({worst[0][0]:.3f} of its tolerance)")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -402,9 +700,11 @@ def main() -> int:
     from repro_torch.graph.datasets import sbm_graph
     from repro_torch.kernels import build
     from repro_torch.kernels.edge_softmax import edge_softmax
+    from repro_torch.kernels.linear_scan import linear_scan_chunked
     from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
     from repro_torch.kernels.spmm import spmm_bcsr
-    all_kernels = (spmm_bcsr, edge_softmax, quantize_rows, dequantize_rows)
+    all_kernels = (spmm_bcsr, edge_softmax, quantize_rows, dequantize_rows,
+                   linear_scan_chunked)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "--id=0"],
@@ -445,6 +745,15 @@ def main() -> int:
                                    31),
                        _quant_case(65536, 256, True, "large", 32),
                        _quant_case(65536, 256, False, "large", 33)]
+        # RWKV6 serving: batch 4 × 32 heads, prompts of 192 and 77 (padded
+        # to 128) tokens; a larger strict case with a carried state; the
+        # plain convention at zamba2-7b's Mamba2 widths (112 heads × batch 2,
+        # state 64, head 64)
+        scan_cases = [_scan_case(128, 192, 64, True, False, "slice", 40),
+                      _scan_case(128, 77, 64, True, False, "slice ragged",
+                                 41),
+                      _scan_case(512, 2048, 64, True, True, "large", 42),
+                      _scan_case(224, 1024, 64, False, True, "mamba2", 43)]
         for c in spmm_cases:
             print(f"spmm_bcsr {json.dumps(c)}")
         for c in esm_cases:
@@ -452,6 +761,8 @@ def main() -> int:
         for pair in quant_cases:
             for c in pair:
                 print(f"{c['kernel']} {json.dumps(c)}")
+        for c in scan_cases:
+            print(f"linear_scan_chunked {json.dumps(c)}")
 
         counts = {name: _drive(name, data, *plans[name], all_kernels)
                   for name in plans}
@@ -466,6 +777,7 @@ def main() -> int:
                 _check(counts[name][k] == want,
                        f"config {name} launched {k} {counts[name][k]} "
                        f"times, not {want}")
+        counts["E"] = _config_e(all_kernels)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -490,6 +802,9 @@ def main() -> int:
             "src/repro/kernels/quantize.py:51", quant_cases[0][0], "C"),
         row("dequantize_rows", "cuda", quant_src,
             "src/repro/kernels/quantize.py:77", quant_cases[0][1], "C"),
+        row("linear_scan_chunked", "cuda",
+            "src/repro_torch/kernels/csrc/linear_scan.cu",
+            "src/repro/kernels/linear_scan.py:108", scan_cases[0], "E"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,1 +1,39 @@
-"""The paper's experimental settings as synthetic analogs."""
+"""The paper's experimental settings as synthetic analogs, and the
+architecture registry: ``get_config(arch_id)`` resolves one of the ten
+transformer-family ``ModelConfig``\\ s (copies of the JAX package's data-only
+modules), ``get_smoke_config`` its tiny same-family variant for CPU tests.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.models.transformer.config import ModelConfig, reduced_variant
+
+_MODULES: Dict[str, str] = {
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "gemma3-1b": "gemma3_1b",
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "hubert-xlarge": "hubert_xlarge",
+    "zamba2-7b": "zamba2_7b",
+    "stablelm-12b": "stablelm_12b",
+    "internvl2-2b": "internvl2_2b",
+    "starcoder2-15b": "starcoder2_15b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+}
+
+ARCH_IDS: List[str] = list(_MODULES)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; choose from {ARCH_IDS}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    cfg = mod.CONFIG
+    cfg.validate()
+    return cfg
+
+
+def get_smoke_config(arch_id: str, **overrides) -> ModelConfig:
+    return reduced_variant(get_config(arch_id), **overrides)

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels.edge_softmax import edge_softmax
+from repro_torch.kernels.linear_scan import linear_scan_chunked
 from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
 from repro_torch.kernels.ref import edge_softmax_alpha
 from repro_torch.kernels.spmm import build_bcsr, spmm_bcsr
@@ -112,3 +113,35 @@ def dequantize_int8_rows(vals: torch.Tensor,
                          scale: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`quantize_int8_rows`: f32 (R, C) ← q·scale."""
     return dequantize_rows(vals, scale.float())
+
+
+# --------------------------------------------------------------------------
+# Gated linear scan (Mamba2 / RWKV6)
+# --------------------------------------------------------------------------
+def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_w: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                chunk: int = 64, strict: bool = False,
+                u: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched gated linear recurrence.
+
+    q,k,log_w: (BH, T, dk); v: (BH, T, dv).  ``strict``/``u`` select the
+    RWKV6 output convention (y_t reads h_{t−1} + u-bonus).  Returns
+    (y (BH,T,dv) f32, h_T (BH,dk,dv) f32).
+
+    A T that is not a multiple of ``chunk`` is zero-padded (q = k = v = 0,
+    log_w = 0: decay 1 and no input, so ``h_T`` is unchanged) and ``y`` is
+    cut back to T — the kernel runs on every length, where the JAX op
+    leaves its kernel for the oracle.
+    """
+    t = q.shape[1]
+    pad = -t % chunk
+    if pad:
+        q, k, v, log_w = (torch.nn.functional.pad(x, (0, 0, 0, pad))
+                          for x in (q, k, v, log_w))
+    y, h_t = linear_scan_chunked(q.float(), k.float(), v.float(),
+                                 log_w.float(),
+                                 None if h0 is None else h0.float(),
+                                 u=None if u is None else u.float(),
+                                 chunk=chunk, strict=strict)
+    return y[:, :t], h_t

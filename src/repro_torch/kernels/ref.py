@@ -82,3 +82,88 @@ def dequantize_int8_rows_ref(q: torch.Tensor,
                              scale: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`quantize_int8_rows_ref`: ``q·scale`` as float32."""
     return q.float() * scale.float()
+
+
+def linear_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_w: torch.Tensor, h0: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential oracle for the gated linear recurrence.
+
+      h_t = diag(w_t) h_{t-1} + k_t v_tᵀ          (h ∈ R^{dk×dv})
+      y_t = h_tᵀ q_t                               (y ∈ R^{dv})
+
+    q,k,log_w: (T, dk); v: (T, dv); w_t = exp(log_w_t) ∈ (0,1].
+    Returns (y (T,dv), h_T (dk,dv)) in float32.
+    """
+    y, h = linear_scan_batched_ref(q[None], k[None], v[None], log_w[None],
+                                   None if h0 is None else h0[None])
+    return y[0], h[0]
+
+
+def linear_scan_batched_ref(q, k, v, log_w, h0=None):
+    """:func:`linear_scan_ref` over a leading (batch·heads) axis: one step
+    at a time, every batch·head at once."""
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    q, k, v, w = q.float(), k.float(), v.float(), log_w.float().exp()
+    h = (torch.zeros(bh, dk, dv, dtype=torch.float32, device=q.device)
+         if h0 is None else h0.float())
+    ys = []
+    for i in range(t):
+        h = w[:, i, :, None] * h + k[:, i, :, None] * v[:, i, None, :]
+        ys.append(torch.einsum("bdv,bd->bv", h, q[:, i]))
+    return torch.stack(ys, dim=1), h
+
+
+def chunked_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     log_w: torch.Tensor, h0: torch.Tensor | None = None,
+                     chunk: int = 64, strict: bool = False,
+                     u: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked form of the recurrence, one chunk of L steps at a time —
+    the math of the JAX package's ``scan_common.chunked_scan`` and of the
+    Pallas kernel ``linear_scan_chunked``, as a loop over chunks.
+
+    Within a chunk, with ``P_t = exp(Σ_{s≤t} log_w_s)``::
+
+      A[t,s]     = (q_t ⊙ P_t)·(k_s ⊘ P_s) for s ≤ t (s < t when strict)
+      y          = A V + (Q ⊙ P) h_in
+      h_out      = diag(P_L) h_in + (K ⊘ P ⊙ P_L)ᵀ V
+
+    ``strict`` (RWKV6): the query reads ``h_{t−1}`` (decay ``P_{t−1}``) and
+    the current token enters only through the bonus ``(q_t·(u⊙k_t)) v_t``.
+    ``T % chunk == 0``: :func:`repro_torch.kernels.ops.linear_scan` pads a
+    ragged T before it comes here.
+
+    q,k,log_w: (BH, T, dk); v: (BH, T, dv); h0: (BH, dk, dv) or None;
+    u: (BH, dk) or None.  Returns (y (BH,T,dv) f32, h_T (BH,dk,dv) f32).
+    """
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    if t % chunk:
+        raise ValueError(f"T={t} is not a multiple of chunk={chunk}")
+    q, k, v, lw = (x.float() for x in (q, k, v, log_w))
+    h = (torch.zeros(bh, dk, dv, dtype=torch.float32, device=q.device)
+         if h0 is None else h0.float())
+    idx = torch.arange(chunk, device=q.device)
+    mask = (idx[:, None] > idx[None, :]) if strict else \
+        (idx[:, None] >= idx[None, :])
+    ys = []
+    for c0 in range(0, t, chunk):
+        qx, kx, vx, lwx = (x[:, c0:c0 + chunk] for x in (q, k, v, lw))
+        lw_cum = torch.cumsum(lwx, dim=1)           # log P_t  (BH, L, dk)
+        p = torch.exp(lw_cum)
+        qp = qx * (torch.exp(lw_cum - lwx) if strict else p)
+        kp = kx * torch.exp(-lw_cum)
+        attn = torch.einsum("btd,bsd->bts", qp, kp)
+        attn = torch.where(mask, attn, torch.zeros_like(attn))
+        y = torch.einsum("bts,bsd->btd", attn, vx)
+        ys.append(y + torch.einsum("btd,bdv->btv", qp, h))
+        p_last = p[:, -1]                           # (BH, dk)
+        h = p_last[:, :, None] * h + torch.einsum(
+            "bsd,bsv->bdv", kp * p_last[:, None, :], vx)
+    y = torch.cat(ys, dim=1)
+    if strict and u is not None:
+        bonus = torch.einsum("btd,btd->bt", q, u.float()[:, None, :] * k)
+        y = y + bonus[..., None] * v
+    return y, h

@@ -1,0 +1,203 @@
+"""Language model assembly over the config's repeating-unit pattern.
+
+The parameter and state trees keep the JAX package's layout, so carried-over
+weights and states compare leaf for leaf:
+
+  params["units"][str(i)] — pattern entry i, stacked (n_units, count, …)
+  params["rem"][str(i)]   — remainder entry i, stacked (count, …)
+  states["units"][str(i)], states["rem"][str(i)], states["emb0_last"]
+
+Where the JAX package ``lax.scan``\\ s over units and layers, the port loops
+over the stacked axes in Python; each layer's parameters are views into the
+stacks.  Weights stay f32 and are cast to the stream's dtype at use.  As in
+the JAX package, the embedding scale promotes the stream to f32, so a
+bfloat16 config rounds only the embedding rows to bfloat16 (ROADMAP.md
+Queue 3, quirk 3).
+
+Entry points:
+  init(seed, device)                → params (drawn on the CPU, then moved)
+  forward(params, batch)            → (logits, aux)
+  prefill(params, batch, max_seq)   → (logits_last, states)
+  decode_step(params, states, token, position, max_seq) → (logits, states)
+
+The token frontend only: the audio and vision frontends, the
+``shared_attn`` parameter set and ``loss`` (training) are later slices
+(ROADMAP.md Queue 1 item 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models.transformer import blocks as B
+from repro_torch.models.transformer.config import ModelConfig
+from repro_torch.models.transformer.initutils import TorchRng
+from repro_torch.models.transformer.norms import rms_norm
+from repro_torch.utils.pytree import tree_map
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _stack(trees: List[Dict], dim_sizes: Tuple[int, ...]) -> Dict:
+    """Per-layer trees (in layer order) → one tree of ``dim_sizes + leaf``
+    stacks."""
+    return tree_map(lambda *xs: torch.stack(xs).reshape(
+        *dim_sizes, *xs[0].shape), *trees)
+
+
+@dataclasses.dataclass(frozen=True)
+class LM:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        if self.cfg.frontend is not None:
+            raise ValueError(f"{self.cfg.name}: the {self.cfg.frontend} "
+                             "frontend is not ported yet (ROADMAP.md Queue 1 "
+                             "item 13)")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.cfg.dtype]
+
+    def _entries(self):
+        """``(group, key, kind, leading dims)`` of every stacked entry, in
+        layer order: the pattern's entries unit by unit, then the
+        remainder."""
+        n_units = self.cfg.resolved_units()
+        units = [("units", str(i), kind, (n_units, cnt))
+                 for i, (kind, cnt) in enumerate(self.cfg.pattern)]
+        rem = [("rem", str(i), kind, (cnt,))
+               for i, (kind, cnt) in enumerate(self.cfg.remainder)]
+        return units, rem
+
+    def _layers(self):
+        """``(group, key, kind, index)`` of every layer in depth order, the
+        index into the entry's stacked leading axes."""
+        units, rem = self._entries()
+        for u in range(self.cfg.resolved_units()):
+            for group, key, kind, (_, cnt) in units:
+                for c in range(cnt):
+                    yield group, key, kind, (u, c)
+        for group, key, kind, (cnt,) in rem:
+            for c in range(cnt):
+                yield group, key, kind, (c,)
+
+    # ------------------------------------------------------------------ init
+    def init(self, seed: int, device="cuda") -> Dict:
+        """Random f32 weights from ``seed``: drawn on the CPU generator, so
+        the same seed gives the same weights on every device."""
+        cfg = self.cfg
+        rng = TorchRng(seed)
+        d = cfg.d_model
+        params: Dict[str, Any] = {
+            "embed": rng.standard_normal((cfg.vocab_size, d)) / math.sqrt(d),
+            "final_norm": torch.zeros(d),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = (rng.standard_normal((d, cfg.vocab_size))
+                                 / math.sqrt(d))
+
+        def stack_init(kind: str, dims: Tuple[int, ...]):
+            base = rng.fork()
+            layers = [B.init_block_params(kind, cfg, base.fork())
+                      for _ in range(math.prod(dims))]
+            return _stack(layers, dims)
+
+        units, rem = self._entries()
+        params["units"] = {key: stack_init(kind, dims)
+                           for _, key, kind, dims in units}
+        params["rem"] = {key: stack_init(kind, dims)
+                         for _, key, kind, dims in rem}
+        return tree_map(lambda x: x.to(device), params)
+
+    # -------------------------------------------------------------- helpers
+    def _embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+        # as the JAX package: rows rounded to cfg.dtype, then scaled by a
+        # numpy float64, which promotes the stream to float32 — every layer
+        # after this computes in f32 whatever cfg.dtype says
+        return params["embed"][tokens].to(self.dtype).float() * \
+            math.sqrt(self.cfg.d_model)
+
+    def _head(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
+        h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        head = (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
+        return h @ head.to(h.dtype)
+
+    def _stacked_states(self, per_layer: List[Dict]) -> Dict:
+        """Per-layer states in :meth:`_layers` order → the stacked tree."""
+        lists: Dict[Tuple[str, str], List[Dict]] = {}
+        for (group, key, _, _), st in zip(self._layers(), per_layer):
+            lists.setdefault((group, key), []).append(st)
+        units, rem = self._entries()
+        states: Dict[str, Any] = {"units": {}, "rem": {}}
+        for group, key, _, dims in units + rem:
+            states[group][key] = _stack(lists[(group, key)], dims)
+        return states
+
+    @staticmethod
+    def _index(tree: Dict, idx: Tuple[int, ...]) -> Dict:
+        return tree_map(lambda x: x[idx], tree)
+
+    # ---------------------------------------------------------------- forward
+    def forward(self, params: Dict, batch: Dict
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = self._embed(params, batch["tokens"])
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for group, key, kind, idx in self._layers():
+            h, a = B.block_forward(kind, self._index(params[group][key], idx),
+                                   h, self.cfg)
+            aux = aux + a
+        return self._head(params, h), aux
+
+    # --------------------------------------------------------------- prefill
+    def prefill(self, params: Dict, batch: Dict, max_seq: int,
+                last_index: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+        """``last_index`` selects which row's logits (and ``emb0_last``) to
+        return instead of the final row.  ``max_seq`` sizes attention
+        caches, which the recurrent kinds do not have."""
+        h = self._embed(params, batch["tokens"])
+        emb0 = h
+        per_layer = []
+        for group, key, kind, idx in self._layers():
+            h, st, _ = B.block_prefill(
+                kind, self._index(params[group][key], idx), h, self.cfg)
+            per_layer.append(st)
+        states = self._stacked_states(per_layer)
+        row = -1 if last_index is None else int(last_index)
+        states["emb0_last"] = emb0[:, row][:, None]
+        return self._head(params, h[:, row]), states
+
+    def init_states(self, params: Dict, batch: int, max_seq: int) -> Dict:
+        """Zero decode states (no prefill)."""
+        device = params["embed"].device
+        per_layer = [B.init_block_state(kind, self.cfg, batch, self.dtype,
+                                        device)
+                     for _, _, kind, _ in self._layers()]
+        states = self._stacked_states(per_layer)
+        states["emb0_last"] = torch.zeros((batch, 1, self.cfg.d_model),
+                                          dtype=self.dtype, device=device)
+        return states
+
+    # ------------------------------------------------------------ decode step
+    def decode_step(self, params: Dict, states: Dict, token: torch.Tensor,
+                    position: int, max_seq: int
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """token: (B,) int.  ``position`` and ``max_seq`` index attention
+        caches, which the recurrent kinds do not have."""
+        h = self._embed(params, token)[:, None]
+        emb0 = h
+        per_layer = []
+        for group, key, kind, idx in self._layers():
+            h, st = B.block_decode(kind,
+                                   self._index(params[group][key], idx), h,
+                                   self.cfg,
+                                   self._index(states[group][key], idx))
+            per_layer.append(st)
+        new_states = self._stacked_states(per_layer)
+        new_states["emb0_last"] = emb0
+        return self._head(params, h[:, 0]), new_states

@@ -1,0 +1,163 @@
+"""RWKV6 "Finch" block — attention-free with data-dependent decay.
+
+Time-mixing: token-shift interpolation feeds five projections
+(r, k, v, g, w); the decay w_t is data-dependent through a low-rank adapter;
+the WKV state update is the strict-output gated linear recurrence with the
+per-head bonus ``u``:
+
+    h_t = diag(w_t) h_{t−1} + k_t v_tᵀ
+    y_t = r_tᵀ h_{t−1} + (r_t · (u ⊙ k_t)) v_t
+
+followed by per-head GroupNorm and a SiLU(g) gate.  Channel-mixing is the
+RWKV squared-ReLU FFN with its own token shift.  Decode state per layer:
+(x_prev_att, x_prev_ffn, h).
+
+The prefill's scan goes through :func:`repro_torch.kernels.ops.linear_scan`
+— on the card, the hand-written scan kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.transformer.config import ModelConfig
+from repro_torch.models.transformer.norms import group_norm
+from repro_torch.models.transformer.scan_common import scan_decode_step
+
+_HEAD = 64          # RWKV6 head size
+_LORA = 64          # decay adapter rank
+
+
+def _nheads(cfg: ModelConfig) -> int:
+    return cfg.d_model // _HEAD
+
+
+def init_rwkv6_params(cfg: ModelConfig, rng) -> Dict[str, torch.Tensor]:
+    """f32 CPU tensors drawn from ``rng`` (a :class:`TorchRng`)."""
+    d = cfg.d_model
+
+    def dense(shape, fan_in):
+        return rng.standard_normal(shape) / np.sqrt(fan_in)
+
+    mix = lambda: rng.random(d) * 0.5 + 0.25
+    return {
+        # time mixing
+        "mu_r": mix(), "mu_k": mix(), "mu_v": mix(), "mu_g": mix(), "mu_w": mix(),
+        "w_r": dense((d, d), d), "w_k": dense((d, d), d), "w_v": dense((d, d), d),
+        "w_g": dense((d, d), d), "w_o": dense((d, d), d),
+        "w_decay_base": -5.0 + 3.0 * rng.random(d),
+        "w_decay_a": dense((d, _LORA), d),
+        "w_decay_b": dense((_LORA, d), _LORA),
+        "u_bonus": rng.standard_normal(d) * 0.3,
+        "gn_scale": torch.ones(d),
+        # channel mixing
+        "mu_ck": mix(), "mu_cr": mix(),
+        "w_ck": dense((d, cfg.d_ff), d),
+        "w_cv": dense((cfg.d_ff, d), cfg.d_ff),
+        "w_cr": dense((d, d), d),
+    }
+
+
+def _token_shift(x: torch.Tensor, x_prev: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """xx_t = x_{t-1} (first slot from x_prev or zero)."""
+    if x_prev is None:
+        x_prev = torch.zeros_like(x[:, :1])
+    return torch.cat([x_prev, x[:, :-1]], dim=1)
+
+
+def _decay(params: Dict, xw: torch.Tensor) -> torch.Tensor:
+    """log w_t = −exp(base + lora(x)) ∈ (−∞, 0) — data-dependent decay."""
+    lora = torch.tanh(xw @ params["w_decay_a"].to(xw.dtype)) \
+        @ params["w_decay_b"].to(xw.dtype)
+    return -torch.exp(torch.clamp(params["w_decay_base"][None, None]
+                                  + lora.float(), -8.0, 2.0))
+
+
+def _time_mix_inputs(params, x, xx):
+    lerp = lambda mu: x + (xx - x) * mu[None, None].to(x.dtype)
+    return (lerp(params["mu_r"]), lerp(params["mu_k"]), lerp(params["mu_v"]),
+            lerp(params["mu_g"]), lerp(params["mu_w"]))
+
+
+def _bonus(params, b: int, nh: int) -> torch.Tensor:
+    return params["u_bonus"].reshape(1, nh, _HEAD).expand(b, nh, _HEAD) \
+        .reshape(b * nh, _HEAD)
+
+
+def rwkv6_time_mix(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                   x_prev=None, h0=None):
+    """x: (B,T,d).  Returns (out (B,T,d), x[:, -1:], h_T (B·nh, 64, 64))."""
+    b, t, d = x.shape
+    nh = _nheads(cfg)
+    dt = x.dtype
+    xx = _token_shift(x, x_prev)
+    xr, xk, xv, xg, xw = _time_mix_inputs(params, x, xx)
+    r = xr @ params["w_r"].to(dt)
+    k = xk @ params["w_k"].to(dt)
+    v = xv @ params["w_v"].to(dt)
+    g = F.silu(xg @ params["w_g"].to(dt))
+    log_w = _decay(params, xw)                           # (B,T,d) f32
+
+    def heads(arr):                                      # (B,T,d)→(B·nh,T,hd)
+        return arr.reshape(b, t, nh, _HEAD).transpose(1, 2) \
+                  .reshape(b * nh, t, _HEAD)
+
+    y, h_t = ops.linear_scan(heads(r).float(), heads(k).float(),
+                             heads(v).float(), heads(log_w), h0=h0, chunk=64,
+                             strict=True, u=_bonus(params, b, nh))
+    y = y.reshape(b, nh, t, _HEAD).transpose(1, 2).reshape(b, t, d)
+    y = group_norm(y.to(dt), params["gn_scale"], nh, cfg.norm_eps)
+    out = (y * g) @ params["w_o"].to(dt)
+    return out, x[:, -1:], h_t
+
+
+def rwkv6_channel_mix(params: Dict, x: torch.Tensor, x_prev=None):
+    dt = x.dtype
+    xx = _token_shift(x, x_prev)
+    lerp = lambda mu: x + (xx - x) * mu[None, None].to(dt)
+    xk, xr = lerp(params["mu_ck"]), lerp(params["mu_cr"])
+    kk = torch.square(F.relu(xk @ params["w_ck"].to(dt)))
+    rr = torch.sigmoid(xr @ params["w_cr"].to(dt))
+    return rr * (kk @ params["w_cv"].to(dt)), x[:, -1:]
+
+
+def init_rwkv6_state(cfg: ModelConfig, batch: int, dtype,
+                     device) -> Dict[str, torch.Tensor]:
+    nh = _nheads(cfg)
+    return {
+        "x_att": torch.zeros((batch, 1, cfg.d_model), dtype=dtype,
+                             device=device),
+        "x_ffn": torch.zeros((batch, 1, cfg.d_model), dtype=dtype,
+                             device=device),
+        "h": torch.zeros((batch * nh, _HEAD, _HEAD), dtype=torch.float32,
+                         device=device),
+    }
+
+
+def rwkv6_decode_time_mix(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                          state: Dict):
+    """x: (B,1,d).  Returns (out (B,1,d), new x_att, new h)."""
+    b, _, d = x.shape
+    nh = _nheads(cfg)
+    dt = x.dtype
+    xx = state["x_att"]
+    xr, xk, xv, xg, xw = _time_mix_inputs(params, x, xx)
+    r = (xr @ params["w_r"].to(dt))[:, 0]
+    k = (xk @ params["w_k"].to(dt))[:, 0]
+    v = (xv @ params["w_v"].to(dt))[:, 0]
+    g = F.silu((xg @ params["w_g"].to(dt))[:, 0])
+    log_w = _decay(params, xw)[:, 0]                     # (B,d)
+
+    hshape = lambda arr: arr.reshape(b * nh, _HEAD)
+    y, h = scan_decode_step(hshape(r).float(), hshape(k).float(),
+                            hshape(v).float(), hshape(log_w), state["h"],
+                            strict=True, u=_bonus(params, b, nh))
+    y = y.reshape(b, 1, d).to(dt)
+    y = group_norm(y, params["gn_scale"], nh, cfg.norm_eps)
+    out = (y * g[:, None]) @ params["w_o"].to(dt)
+    return out, x, h

@@ -1,7 +1,8 @@
 """The CUDA and Triton kernels against their plain versions, on the card.
 
 The int8 quantize/dequantize kernels are held bit-equal (correctly rounded
-divisions on both sides); the SpMM and edge softmax within f32 tolerances.
+divisions on both sides); the SpMM, edge softmax and chunked linear scan
+within f32 tolerances.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one; they import no JAX, so they run on a GPU machine with
@@ -15,11 +16,14 @@ torch = pytest.importorskip("torch")
 from repro_torch.graph.datasets import rmat_graph
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.edge_softmax import edge_softmax
+from repro_torch.kernels.linear_scan import linear_scan_chunked
 from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
 from repro_torch.kernels.spmm import spmm_bcsr
 
 # edge softmax: weights ≤ 1 on unit-scale values, f32 sums over ≤ F slots
 ESM_TOL = 1e-5
+# linear scan: f32 sums in another order (tests/test_kernels.py's tolerance)
+SCAN_TOL = 2e-4
 
 
 @pytest.fixture
@@ -130,3 +134,75 @@ def test_halo_fill_drops_padded_slots_on_card(cuda):
     want = feats.clone()
     want[0, 4], want[1, 3], want[1, 4] = gathered[1], gathered[3], gathered[2]
     assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
+@pytest.mark.parametrize("bh,t,dk,dv,chunk,with_h0", [
+    (2, 64, 8, 16, 16, False), (3, 128, 16, 24, 32, True),
+    (4, 256, 64, 64, 64, True), (5, 77, 64, 64, 64, False),
+    (3, 50, 32, 48, 16, True), (2, 33, 64, 64, 1, True),
+    (128, 192, 64, 64, 64, False)])
+def test_linear_scan_kernel_matches_plain_on_card(cuda, bh, t, dk, dv, chunk,
+                                                  with_h0, strict):
+    """Both conventions, ragged T (padded by ``ops.linear_scan``) and
+    chunks below 64, against the plain chunked form on the card."""
+    rng = np.random.default_rng(bh * 1000 + t)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    q, k, v = f(bh, t, dk), f(bh, t, dk), f(bh, t, dv)
+    lw = torch.from_numpy((-0.15 * rng.random((bh, t, dk))).astype(
+        np.float32)).to(cuda)
+    h0 = f(bh, dk, dv) if with_h0 else None
+    u = f(bh, dk) * 0.3 if strict else None
+    before = linear_scan_chunked.launches
+    y, h = ops.linear_scan(q, k, v, lw, h0, chunk=chunk, strict=strict, u=u)
+    torch.cuda.synchronize()
+    assert linear_scan_chunked.launches == before + 1
+    pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, -t % chunk))
+    y_r, h_r = ref.chunked_scan_ref(pad(q), pad(k), pad(v), pad(lw), h0,
+                                    chunk=chunk, strict=strict, u=u)
+    y_r = y_r[:, :t]
+    tol = SCAN_TOL * max(1.0, float(y_r.abs().max()))
+    torch.testing.assert_close(y, y_r, rtol=0, atol=tol)
+    tol = SCAN_TOL * max(1.0, float(h_r.abs().max()))
+    torch.testing.assert_close(h, h_r, rtol=0, atol=tol)
+    y_c, h_c = ops.linear_scan(q.cpu(), k.cpu(), v.cpu(), lw.cpu(),
+                               None if h0 is None else h0.cpu(),
+                               chunk=chunk, strict=strict,
+                               u=None if u is None else u.cpu())
+    torch.testing.assert_close(y.cpu(), y_c, rtol=SCAN_TOL, atol=SCAN_TOL)
+
+
+@pytest.mark.gpu
+def test_linear_scan_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(2, 64, 96, device=cuda)
+    with pytest.raises(ValueError, match="dk, dv"):
+        linear_scan_chunked(q, q, q, q, chunk=64)
+    q = torch.zeros(2, 64, 8, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        linear_scan_chunked(q, q, q, q, chunk=64)
+
+
+@pytest.mark.gpu
+def test_rwkv6_prefill_on_card_matches_cpu(cuda):
+    """The smoke RWKV6 model's prefill and decode on the card (scan kernel)
+    against the same weights on the CPU (plain versions)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer.model import LM
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    model = LM(get_smoke_config("rwkv6-1.6b"))
+    p_cpu = model.init(0, "cpu")
+    p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 77)))
+    before = linear_scan_chunked.launches
+    lg, sg = model.prefill(p_gpu, {"tokens": toks.to(cuda)}, max_seq=128)
+    assert linear_scan_chunked.launches == before + 2        # one per layer
+    lc, sc = model.prefill(p_cpu, {"tokens": toks}, max_seq=128)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for a, b in zip(tree_leaves(sg), tree_leaves(sc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    tok = toks[:, -1]
+    lg, _ = model.decode_step(p_gpu, sg, tok.to(cuda), 77, max_seq=128)
+    lc, _ = model.decode_step(p_cpu, sc, tok, 77, max_seq=128)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)

@@ -47,7 +47,18 @@ def test_every_module_imports_without_jax(probe):
                 "repro_torch.kernels.spmm", "repro_torch.kernels.edge_softmax",
                 "repro_torch.kernels.quantize", "repro_torch.comm.compress",
                 "repro_torch.graph.halo", "repro_torch.models.gnn.model",
-                "repro_torch.convert", "repro_torch.configs.gnn_datasets"}
+                "repro_torch.convert", "repro_torch.configs.gnn_datasets",
+                "repro_torch.configs.rwkv6_1_6b",
+                "repro_torch.configs.zamba2_7b",
+                "repro_torch.kernels.linear_scan",
+                "repro_torch.models.transformer.config",
+                "repro_torch.models.transformer.norms",
+                "repro_torch.models.transformer.initutils",
+                "repro_torch.models.transformer.scan_common",
+                "repro_torch.models.transformer.rwkv6",
+                "repro_torch.models.transformer.blocks",
+                "repro_torch.models.transformer.model",
+                "repro_torch.serving.core", "repro_torch.serving.engine"}
     assert expected <= set(probe["modules"])
 
 
