@@ -11,21 +11,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    shapes the main path gives it and at one larger shape, and time kernel,
    plain version and (where one exists) a library call with CUDA events.
    The int8 quantize/dequantize kernels must be bit-equal to theirs; the
-   chunked linear scan is checked in both conventions (RWKV6's strict one
-   at the serving shapes, ragged and large; the plain one at Mamba2 widths).
+   SpMM runs on the slice graph, a 16,384-node SBM graph and the same with
+   16 hubs of 4,096 neighbors; the chunked linear scan is checked in both
+   conventions (RWKV6's strict one at the serving shapes, ragged and large;
+   the plain one at Mamba2 widths) and must fit two CTAs on each SM.
 3. Drive the trainer — ``build_trainer(data, model, plan).run()`` on the
    paper's ``reddit`` setting for 3 rounds — in four configurations:
-   A (``llcg_plan``, arch SBSBS, server correction through the BCSR SpMM
-   kernel), B (the same on a fused GAT, every aggregation through the
-   edge-softmax kernel), C (config A with int8 error-feedback compressed
-   averaging: 13 parameter leaves, one quantize and one dequantize launch
-   each per round) and D (``ggs_plan``, arch SBSBS, the halo exchange
-   executed with int8 halo compression: one quantize and one dequantize
-   launch per round).  Launch counts are reset just before each run and
-   read just after; each config must launch its kernels, C and D exactly
-   as many times as stated.  The History must be finite, its bytes must
-   equal the trainer's accounting, and its losses must agree with the same
-   run on the CPU (plain versions, same stochastic-rounding uniforms).
+   A (``llcg_plan``, arch SBSBS, server correction through the CSR SpMM
+   kernel, the ``bcsr_kernel`` layout), B (the same on a fused GAT, every
+   aggregation through the edge-softmax kernel), C (config A with int8
+   error-feedback compressed averaging: 13 parameter leaves, one quantize
+   and one dequantize launch each per round) and D (``ggs_plan``, arch
+   SBSBS, the halo exchange executed with int8 halo compression: one
+   quantize and one dequantize launch per round).  Launch counts are reset
+   just before each run and read just after; each config must launch its
+   kernels, C and D exactly as many times as stated.  The History must be
+   finite, its bytes must equal the trainer's accounting, and its losses
+   must agree with the same run on the CPU (plain versions, same
+   stochastic-rounding uniforms).
 4. Serve rwkv6-1.6b at full width (config E): random weights from a seed,
    drawn once on the CPU.  E1 serves 8 greedy requests (4 prompts of 192
    tokens, 4 of 77, 32 new tokens each; two waves of 4) through
@@ -94,7 +97,10 @@ def _check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def _time_ms(fn, iters: int = 20, warmup: int = 10) -> float:
+    """Mean time per call of ``fn`` over ``iters`` back-to-back calls, by
+    CUDA events, after ``warmup`` calls (the host's first calls of a path
+    run slower)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -135,52 +141,71 @@ def _bound(nbytes: float, ops: float) -> tuple:
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 def _spmm_case(graph, d: int, label: str, seed: int) -> dict:
+    """The CSR SpMM against its plain version and ``torch.sparse.mm`` on
+    the unnormalized adjacency of ``graph`` at width ``d``."""
     import numpy as np
     import torch
-    from repro_torch.kernels.ops import bcsr_device_operands
-    from repro_torch.kernels.ref import spmm_bcsr_ref
-    from repro_torch.kernels.spmm import spmm_bcsr
+    from repro_torch.kernels.ops import csr_device_operands
+    from repro_torch.kernels.ref import spmm_csr_ref
+    from repro_torch.kernels.spmm import spmm_csr
 
-    cols, vals, n_pad = bcsr_device_operands(graph, "cuda",
-                                             normalization="none")
-    n = graph.num_nodes
+    indptr, indices, values, items = csr_device_operands(
+        graph, "cuda", normalization="none")
+    n, nnz = graph.num_nodes, graph.num_edges
     h = torch.from_numpy(np.random.default_rng(seed).standard_normal(
         (n, d)).astype(np.float32)).cuda()
-    hp = torch.nn.functional.pad(h, (0, 0, 0, n_pad - n))
-    out = spmm_bcsr(cols, vals, h)
+    kernel = lambda: spmm_csr(indptr, indices, values, h, items)
+    plain = lambda: spmm_csr_ref(indptr, indices, values, h)
+    out, ref = kernel(), plain()
     torch.cuda.synchronize()
-    # the plain version gathers a (tiles, 128, D) copy of H: run it over
-    # chunks of row blocks so the large shape stays within memory
-    step = max(1, (1 << 28) // (vals.shape[1] * 128 * d))
-
-    def plain():
-        return torch.cat([spmm_bcsr_ref(cols[i:i + step], vals[i:i + step],
-                                        hp)
-                          for i in range(0, cols.shape[0], step)])
-
-    ref = plain()
     err = float((out - ref).abs().max())
     tol = SPMM_TOL * max(1.0, float(ref.abs().max()))
     _check(math.isfinite(err) and err <= tol,
-           f"spmm_bcsr {label} D={d}: max |kernel - plain| {err} > {tol}")
-    _, dst = graph.to_edges()
+           f"spmm_csr {label} D={d}: max |kernel - plain| {err} > {tol}")
     a = torch.sparse_csr_tensor(                  # the library yardstick
-        torch.from_numpy(graph.indptr.astype(np.int64)),
-        torch.from_numpy(dst.astype(np.int64)),
-        torch.ones(dst.shape[0]), size=(n, n),
-        check_invariants=True).cuda()
-    lib_err = float((torch.sparse.mm(a, h) - ref[:n]).abs().max())
+        indptr.long(), indices.long(), values, size=(n, n),
+        check_invariants=True)
+    library = lambda: torch.sparse.mm(a, h)
+    lib_err = float((library() - ref).abs().max())
     _check(lib_err <= tol, f"library yardstick disagrees: {lib_err}")
-    nnz = int((vals != 0).sum())
-    nbytes = 4 * (cols.numel() + vals.numel() + h.numel() + out.numel())
+    try:                    # the yardstick's device time, where it captures
+        library_device_ms = _graph_ms(library)
+        library_device = "CUDA-graph replay"
+    except RuntimeError as e:
+        library_device_ms = None
+        library_device = f"not captured: {str(e)[:120]}"
+    # the work, whatever the format: indptr, indices and values once, H read
+    # once, out written once; an FMA per nonzero and column
+    nbytes = 4 * (n + 1) + 8 * nnz + 4 * n * d + 4 * n * d
     bound_ms, bound_by = _bound(nbytes, 2.0 * nnz * d)
-    return {"label": label, "shape": f"{tuple(cols.shape)} tiles, "
-            f"h {tuple(h.shape)}", "max_abs_err": err, "tol": tol,
-            "ms": _time_ms(lambda: spmm_bcsr(cols, vals, h)),
-            "device_ms": _graph_ms(lambda: spmm_bcsr(cols, vals, h)),
-            "plain_ms": _time_ms(plain, iters=3, warmup=1),
-            "library_ms": _time_ms(lambda: torch.sparse.mm(a, h)),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    deg = graph.degrees()
+    return {"label": label, "shape": f"N {n}, nnz {nnz}, D {d}, max degree "
+            f"{int(deg.max())}, work items "
+            f"{n if items is None else items.shape[1]}",
+            "max_abs_err": err, "tol": tol,
+            "ms": _time_ms(kernel), "device_ms": _graph_ms(kernel),
+            "plain_ms": _time_ms(plain, iters=5, warmup=1),
+            "library_ms": _time_ms(library),
+            "library_device_ms": library_device_ms,
+            "library_device": library_device,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes_gathered_from_l2": 4 * nnz * d}
+
+
+def _hub_graph(base, hubs: int = 16, fan: int = 4096, seed: int = 2):
+    """``base`` plus ``hubs`` nodes, each joined symmetrically to ``fan``
+    random nodes: the degree-skewed SpMM case."""
+    import numpy as np
+    from repro_torch.graph.csr import CSRGraph
+
+    rng = np.random.default_rng(seed)
+    n = base.num_nodes + hubs
+    src, dst = base.to_edges()
+    hub_src = np.repeat(np.arange(base.num_nodes, n), fan)
+    hub_dst = np.concatenate([rng.choice(base.num_nodes, fan, replace=False)
+                              for _ in range(hubs)])
+    return CSRGraph.from_edges(n, np.concatenate([src, hub_src]),
+                               np.concatenate([dst, hub_dst]))
 
 
 def _esm_case(n: int, f: int, d: int, label: str, seed: int) -> dict:
@@ -286,9 +311,9 @@ def _scan_ops(bh: int, t: int, chunk: int, dk: int, dv: int, strict: bool,
 
 def _scan_case(bh: int, t: int, d: int, strict: bool, with_h0: bool,
                label: str, seed: int, chunk: int = 64) -> dict:
-    """``ops.linear_scan`` (the kernel, a ragged T padded to the chunk) vs
-    the plain chunked form on the card; dk = dv = ``d``.  A ragged case
-    also times the kernel alone on the padded inputs."""
+    """``ops.linear_scan`` (the kernel; a ragged T masked inside it) vs the
+    plain chunked form on the card; dk = dv = ``d``.  A ragged case also
+    times the kernel alone on inputs padded to whole chunks."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -583,7 +608,7 @@ def _config_e(kernels) -> dict:
           f"tokens of uid 0: {res[0].tokens[:8]}...")
 
     # the served prefill of each wave alone, least of 3, and where its device
-    # time goes (the ragged wave's prompts are padded to 128 in the scan)
+    # time goes (the scan kernel masks the ragged wave's second chunk)
     lm = LM(cfg)
     for plen, (wave_prompts, _) in sorted(first_logits.items()):
         batch = {"tokens": torch.tensor(wave_prompts, device="cuda")}
@@ -702,8 +727,9 @@ def main() -> int:
     from repro_torch.kernels.edge_softmax import edge_softmax
     from repro_torch.kernels.linear_scan import linear_scan_chunked
     from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
-    from repro_torch.kernels.spmm import spmm_bcsr
-    all_kernels = (spmm_bcsr, edge_softmax, quantize_rows, dequantize_rows,
+    from repro_torch.kernels.linear_scan import ctas_per_sm
+    from repro_torch.kernels.spmm import spmm_csr
+    all_kernels = (spmm_csr, edge_softmax, quantize_rows, dequantize_rows,
                    linear_scan_chunked)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -730,6 +756,9 @@ def main() -> int:
         big = sbm_graph(num_nodes=16384, avg_degree=25, seed=1)
         spmm_cases += [_spmm_case(big.graph, d, "large", 10 + s)
                        for s, d in enumerate((64, 128))]
+        # degree skew: 16 hubs of 4,096 neighbors each on the large graph
+        spmm_cases.append(_spmm_case(_hub_graph(big.graph), 64, "large hubs",
+                                     12))
         esm_cases = [_esm_case(n_loc, smp.fanout, 64, "slice local", 20),
                      _esm_case(n_loc, smp.fanout, 8, "slice local", 21),
                      _esm_case(n_full, f_full, 64, "slice full", 22),
@@ -745,8 +774,9 @@ def main() -> int:
                                    31),
                        _quant_case(65536, 256, True, "large", 32),
                        _quant_case(65536, 256, False, "large", 33)]
-        # RWKV6 serving: batch 4 × 32 heads, prompts of 192 and 77 (padded
-        # to 128) tokens; a larger strict case with a carried state; the
+        # RWKV6 serving: batch 4 × 32 heads, prompts of 192 and 77 (two
+        # chunks, the second ragged) tokens; a larger strict case with a
+        # carried state; the
         # plain convention at zamba2-7b's Mamba2 widths (112 heads × batch 2,
         # state 64, head 64)
         scan_cases = [_scan_case(128, 192, 64, True, False, "slice", 40),
@@ -755,7 +785,7 @@ def main() -> int:
                       _scan_case(512, 2048, 64, True, True, "large", 42),
                       _scan_case(224, 1024, 64, False, True, "mamba2", 43)]
         for c in spmm_cases:
-            print(f"spmm_bcsr {json.dumps(c)}")
+            print(f"spmm_csr {json.dumps(c)}")
         for c in esm_cases:
             print(f"edge_softmax {json.dumps(c)}")
         for pair in quant_cases:
@@ -763,10 +793,15 @@ def main() -> int:
                 print(f"{c['kernel']} {json.dumps(c)}")
         for c in scan_cases:
             print(f"linear_scan_chunked {json.dumps(c)}")
+        occ = {conv: ctas_per_sm(conv == "strict")
+               for conv in ("strict", "plain")}
+        print(f"linear_scan_chunked: CTAs per SM {occ} (two per batch·head)")
+        _check(min(occ.values()) >= 2, f"linear_scan_chunked fits "
+               f"{occ} CTAs per SM, not 2")
 
         counts = {name: _drive(name, data, *plans[name], all_kernels)
                   for name in plans}
-        _check(counts["A"]["spmm_bcsr"] > 0,
+        _check(counts["A"]["spmm_csr"] > 0,
                "config A launched no SpMM kernel")
         _check(counts["B"]["edge_softmax"] > 0,
                "config B launched no edge-softmax kernel")
@@ -789,11 +824,12 @@ def main() -> int:
                 "device_ms": case["device_ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],
-                "library_ms": case["library_ms"]}
+                "library_ms": case["library_ms"],
+                "library_device_ms": case.get("library_device_ms")}
 
     quant_src = "src/repro_torch/kernels/csrc/quantize_rows.cu"
     kernels = [
-        row("spmm_bcsr", "cuda", "src/repro_torch/kernels/csrc/spmm_bcsr.cu",
+        row("spmm_csr", "cuda", "src/repro_torch/kernels/csrc/spmm_csr.cu",
             "src/repro/kernels/spmm.py:127", spmm_cases[1], "A"),
         row("edge_softmax", "triton",
             "src/repro_torch/kernels/edge_softmax.py",

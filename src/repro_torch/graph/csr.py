@@ -3,14 +3,14 @@
 Two representations coexist:
 
 1. **CSR** (``indptr``/``indices``) — canonical host-side form, used by the
-   partitioners, the samplers and the BCSR construction of the SpMM kernel
+   partitioners, the samplers and the operands of the SpMM kernel
    (:mod:`repro_torch.kernels.spmm`).
 2. **Padded neighbor table** ``(N, max_deg)`` + mask — fixed-shape form used
    by the GNN layers (Eq. 1/3/4 of the paper: mean aggregation over
    ``N(v)`` or the sampled ``Ñ(v)``).
 
 The table form makes the paper's mean-aggregation GCN a dense gather +
-masked mean; the BCSR kernel path is the alternative for full-graph
+masked mean; the SpMM kernel path is the alternative for full-graph
 aggregation during server correction.  This module is a numpy-only copy of
 the JAX package's ``graph/csr.py``; both must give identical arrays.
 """

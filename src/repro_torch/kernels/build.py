@@ -77,6 +77,21 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def launch_on(device: int, fn, *args) -> int:
+    """Call the C entry ``fn(*args, stream)`` on the current stream of CUDA
+    device ``device`` (an index), with that device current; returns its
+    error code.  Switches the current device only when it differs: the
+    switch costs host time on every launch."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    stream = raw(device) if raw is not None else \
+        torch.cuda.current_stream(device).cuda_stream
+    if device == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)
+
+
 def sources() -> List[str]:
     """Names of every CUDA source of the port."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))

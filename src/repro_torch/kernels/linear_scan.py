@@ -4,11 +4,14 @@ hand-written CUDA kernel for Hopper.
 Replaces the JAX package's Pallas TPU kernel ``linear_scan_chunked``
 (``src/repro/kernels/linear_scan.py``), in both of its conventions
 (``strict=True`` for RWKV6, ``False`` for Mamba2).  The kernel
-(``csrc/linear_scan.cu``) runs one CTA per batch·head and walks its chunks
-in order with the ``(dk, dv)`` state in shared memory; the plain version is
-:func:`repro_torch.kernels.ref.chunked_scan_ref`.  On a CPU tensor the
-wrapper runs that plain version; on a CUDA tensor it launches the kernel or
-raises, and counts the launch in ``linear_scan_chunked.launches``.
+(``csrc/linear_scan.cu``) runs two CTAs per batch·head, each owning 32 dv
+columns of the state in shared memory, and walks the chunks in order,
+loading the next chunk's tiles while the current one computes; a ragged T
+is masked inside the kernel.  The plain version is
+:func:`repro_torch.kernels.ref.chunked_scan_ref`, which takes whole chunks:
+on a CPU tensor the wrapper pads a ragged T for it.  On a CUDA tensor the
+wrapper launches the kernel or raises, and counts the launch in
+``linear_scan_chunked.launches``.
 """
 from __future__ import annotations
 
@@ -29,25 +32,43 @@ _ENTRY = []
 def _kernel():
     """The ctypes entry of ``csrc/linear_scan.cu``, built at first use."""
     if not _ENTRY:
-        fn = build.load("linear_scan").linear_scan_chunked_f32
+        lib = build.load("linear_scan")
+        fn = lib.linear_scan_chunked_f32
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _ENTRY.append(fn)
+        occ = lib.linear_scan_ctas_per_sm
+        occ.argtypes = [ctypes.c_int]
+        occ.restype = ctypes.c_int
+        _ENTRY.extend((fn, occ))
     return _ENTRY[0]
+
+
+def ctas_per_sm(strict: bool) -> int:
+    """CTAs of the kernel that fit on one SM of the current device at
+    once (the occupancy its shared memory and registers allow)."""
+    _kernel()
+    n = _ENTRY[1](int(strict))
+    if n < 0:
+        raise RuntimeError(f"linear_scan occupancy query failed "
+                           f"(cudaError {-n})")
+    return n
 
 
 def linear_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         log_w: torch.Tensor,
                         h0: Optional[torch.Tensor] = None,
                         u: Optional[torch.Tensor] = None, chunk: int = 64,
-                        strict: bool = False
+                        strict: bool = False, ragged: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched chunked scan.
 
     q,k,log_w: (BH, T, dk); v: (BH, T, dv); h0: (BH, dk, dv) or None
-    (zeros); u: (BH, dk) strict-mode bonus or None; ``T % chunk == 0``.
-    Returns (y (BH,T,dv) f32, h_T (BH,dk,dv) f32).
+    (zeros); u: (BH, dk) strict-mode bonus or None.  ``T % chunk == 0``
+    unless ``ragged``: then the last chunk's missing steps count as zero
+    inputs with decay 1 (``h_T`` unchanged by them), masked in the kernel
+    and padded for the plain version.  Returns (y (BH,T,dv) f32, h_T
+    (BH,dk,dv) f32).
     """
     if q.dim() != 3 or k.shape != q.shape or log_w.shape != q.shape \
             or v.dim() != 3 or v.shape[:2] != q.shape[:2]:
@@ -60,12 +81,17 @@ def linear_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"h0 must be {(bh, dk, dv)}, got {tuple(h0.shape)}")
     if u is not None and u.shape != (bh, dk):
         raise ValueError(f"u must be {(bh, dk)}, got {tuple(u.shape)}")
-    if not 1 <= chunk <= MAX_DIM or t % chunk:
+    if not 1 <= chunk <= MAX_DIM or (t % chunk and not ragged):
         raise ValueError(f"chunk must be in [1, {MAX_DIM}] and divide "
                          f"T={t}, got {chunk}")
     if q.device.type == "cpu":
-        return chunked_scan_ref(q, k, v, log_w, h0, chunk=chunk,
-                                strict=strict, u=u)
+        pad = -t % chunk
+        if pad:                   # q = k = v = 0, log_w = 0: no input, decay 1
+            q, k, v, log_w = (torch.nn.functional.pad(x, (0, 0, 0, pad))
+                              for x in (q, k, v, log_w))
+        y, h_t = chunked_scan_ref(q, k, v, log_w, h0, chunk=chunk,
+                                  strict=strict, u=u)
+        return y[:, :t], h_t
     ops = [x for x in (q, k, v, log_w, h0, u) if x is not None]
     if q.device.type != "cuda" or any(x.device != q.device for x in ops):
         raise ValueError(f"linear_scan_chunked runs on cpu or cuda, with "
@@ -85,12 +111,10 @@ def linear_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bh == 0:
         return y, h_t
     ptr = lambda x: None if x is None else x.data_ptr()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        log_w.data_ptr(), ptr(h0), ptr(u), y.data_ptr(),
-                        h_t.data_ptr(), bh, t, dk, dv, chunk, int(strict),
-                        stream)
+    err = build.launch_on(q.get_device(), _kernel(), q.data_ptr(),
+                          k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+                          ptr(h0), ptr(u), y.data_ptr(), h_t.data_ptr(), bh,
+                          t, dk, dv, chunk, int(strict))
     if err != 0:
         raise RuntimeError(f"linear_scan_chunked kernel launch failed "
                            f"(cudaError {err})")

@@ -18,43 +18,43 @@ from repro_torch.kernels.edge_softmax import edge_softmax
 from repro_torch.kernels.linear_scan import linear_scan_chunked
 from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
 from repro_torch.kernels.ref import edge_softmax_alpha
-from repro_torch.kernels.spmm import build_bcsr, spmm_bcsr
+from repro_torch.kernels.spmm import build_csr, row_split, spmm_csr
 
 
 # --------------------------------------------------------------------------
 # SpMM aggregation
 # --------------------------------------------------------------------------
-def bcsr_device_operands(graph: CSRGraph, device, block_m: int = 8,
-                         block_n: int = 128, normalization: str = "mean"
-                         ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Device-resident ``(tile_cols, tile_vals, n_pad)``, built once per
-    (graph, device, block sizes, normalization) and cached on the graph
-    object, so repeated aggregate calls never re-pay the host-side
-    :func:`~repro_torch.kernels.spmm.build_bcsr` pass or the copy to the
-    device."""
-    cache = graph.__dict__.get("_bcsr_cache")
+def csr_device_operands(graph: CSRGraph, device,
+                        normalization: str = "mean"
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   Optional[torch.Tensor]]:
+    """Device-resident ``(indptr, indices, values, items)`` of Â — the CSR
+    operands of :func:`~repro_torch.kernels.spmm.spmm_csr` and its row
+    split (``None`` when no row is long) — built once per (graph, device,
+    normalization) and cached on the graph object, so repeated aggregate
+    calls never re-pay the host-side build or the copy to the device."""
+    cache = graph.__dict__.get("_csr_cache")
     if cache is None:
         cache = {}
-        object.__setattr__(graph, "_bcsr_cache", cache)  # frozen dataclass
+        object.__setattr__(graph, "_csr_cache", cache)  # frozen dataclass
     device = torch.device(device)
-    key = (str(device), block_m, block_n, normalization)
+    key = (str(device), normalization)
     entry = cache.get(key)
     if entry is None:
-        tile_cols, tile_vals, n_pad = build_bcsr(graph, block_m, block_n,
-                                                 normalization)
-        entry = (torch.from_numpy(tile_cols).to(device),
-                 torch.from_numpy(tile_vals).to(device), n_pad)
+        indptr, indices, values = build_csr(graph, normalization)
+        items = row_split(indptr)
+        entry = tuple(None if x is None else torch.from_numpy(x).to(device)
+                      for x in (indptr, indices, values, items))
         cache[key] = entry
     return entry
 
 
 def spmm_aggregate(graph: CSRGraph, h: torch.Tensor,
                    normalization: str = "mean") -> torch.Tensor:
-    """Full-graph Â @ H via the BCSR kernel.  Returns (N, D) in h's dtype."""
-    n = h.shape[0]
-    tile_cols, tile_vals, _ = bcsr_device_operands(graph, h.device,
-                                                   normalization=normalization)
-    return spmm_bcsr(tile_cols, tile_vals, h.float())[:n].to(h.dtype)
+    """Full-graph Â @ H via the CSR kernel.  Returns (N, D) in h's dtype."""
+    indptr, indices, values, items = csr_device_operands(
+        graph, h.device, normalization=normalization)
+    return spmm_csr(indptr, indices, values, h.float(), items).to(h.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -129,19 +129,14 @@ def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     RWKV6 output convention (y_t reads h_{t−1} + u-bonus).  Returns
     (y (BH,T,dv) f32, h_T (BH,dk,dv) f32).
 
-    A T that is not a multiple of ``chunk`` is zero-padded (q = k = v = 0,
-    log_w = 0: decay 1 and no input, so ``h_T`` is unchanged) and ``y`` is
-    cut back to T — the kernel runs on every length, where the JAX op
-    leaves its kernel for the oracle.
+    A T that is not a multiple of ``chunk`` runs as is: the kernel masks
+    the last chunk; the plain version on the CPU takes it zero-padded
+    (q = k = v = 0, log_w = 0: decay 1 and no input, so ``h_T`` is
+    unchanged) and ``y`` cut back to T — where the JAX op leaves its kernel
+    for the oracle.
     """
-    t = q.shape[1]
-    pad = -t % chunk
-    if pad:
-        q, k, v, log_w = (torch.nn.functional.pad(x, (0, 0, 0, pad))
-                          for x in (q, k, v, log_w))
-    y, h_t = linear_scan_chunked(q.float(), k.float(), v.float(),
-                                 log_w.float(),
-                                 None if h0 is None else h0.float(),
-                                 u=None if u is None else u.float(),
-                                 chunk=chunk, strict=strict)
-    return y[:, :t], h_t
+    return linear_scan_chunked(q.float(), k.float(), v.float(),
+                               log_w.float(),
+                               None if h0 is None else h0.float(),
+                               u=None if u is None else u.float(),
+                               chunk=chunk, strict=strict, ragged=True)

@@ -12,9 +12,27 @@ from __future__ import annotations
 import torch
 
 
+def spmm_csr_ref(indptr: torch.Tensor, indices: torch.Tensor,
+                 values: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """CSR SpMM: ``out[r] = Σ values[e]·h[indices[e]]`` over row r's
+    nonzeros, an ``index_select`` gather and an ``index_add_`` (on the CPU
+    it adds the nonzeros in their order).
+
+    indptr: (N+1,) int; indices, values: (nnz,); h: (N, D).  Returns (N, D)
+    float32.
+    """
+    n = indptr.numel() - 1
+    deg = indptr[1:].long() - indptr[:-1].long()
+    rows = torch.repeat_interleave(
+        torch.arange(n, device=h.device), deg, output_size=indices.numel())
+    gathered = h.float().index_select(0, indices.long())
+    out = torch.zeros((n, h.shape[1]), dtype=torch.float32, device=h.device)
+    return out.index_add_(0, rows, values.float()[:, None] * gathered)
+
+
 def spmm_bcsr_ref(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
                   h: torch.Tensor) -> torch.Tensor:
-    """BCSR reference: same data layout as the kernel, contracted naively.
+    """BCSR reference: the TPU kernel's tile layout, contracted naively.
 
     tile_cols: (n_row_blocks, max_tiles) int32 — column-block index per tile
                (padding tiles point at block 0 with all-zero values).
@@ -132,8 +150,8 @@ def chunked_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``strict`` (RWKV6): the query reads ``h_{t−1}`` (decay ``P_{t−1}``) and
     the current token enters only through the bonus ``(q_t·(u⊙k_t)) v_t``.
-    ``T % chunk == 0``: :func:`repro_torch.kernels.ops.linear_scan` pads a
-    ragged T before it comes here.
+    ``T % chunk == 0``: :func:`repro_torch.kernels.linear_scan.
+    linear_scan_chunked` pads a ragged T before it comes here.
 
     q,k,log_w: (BH, T, dk); v: (BH, T, dv); h0: (BH, dk, dv) or None;
     u: (BH, dk) or None.  Returns (y (BH,T,dv) f32, h_T (BH,dk,dv) f32).

@@ -10,10 +10,12 @@ This module makes the layout a selectable property:
     The dense gather + masked reduction (``agg=None`` in the layers).
 
 ``layout="bcsr_kernel"``
-    Full-graph aggregation through the hand-written BCSR SpMM
-    (:func:`repro_torch.kernels.spmm.spmm_bcsr`) with an unnormalized-
-    adjacency operand (symmetric, so the backward reuses the same tiles);
-    the GAT softmax-aggregate routes through the fused edge-softmax kernel.
+    Full-graph aggregation through the hand-written SpMM
+    (:func:`repro_torch.kernels.spmm.spmm_csr`) with an unnormalized-
+    adjacency operand (symmetric, so the backward reuses the same
+    operands); the GAT softmax-aggregate routes through the fused
+    edge-softmax kernel.  The name is the JAX package's, whose kernel takes
+    block-sparse tiles; on the card the operands are CSR.
 
 ``layout="csr"``
     The edge-centric segment-sum path of the JAX package.  Not ported yet:
@@ -50,16 +52,19 @@ _CSR_NOT_PORTED = ("the 'csr' aggregation layout is not ported yet "
 
 @dataclasses.dataclass(frozen=True)
 class BCSROps:
-    """Device-resident BCSR tiles of the UNnormalized adjacency.
+    """Device-resident CSR operands of the UNnormalized adjacency, for the
+    ``bcsr_kernel`` layout.
 
     Normalization is applied outside the kernel as row/column scalings
     (mean = ``diag(1/deg)·A``, sym = ``diag(nrm)·A·diag(nrm)``), so ONE
-    tile inventory serves every aggregate op and — A being symmetric — the
+    operand set serves every aggregate op and — A being symmetric — the
     backward pass reuses the same operands as the forward.
     """
 
-    cols: torch.Tensor        # (n_rb, max_t) int32
-    vals: torch.Tensor        # (n_rb, max_t, BM, BN) f32
+    indptr: torch.Tensor      # (N+1,) int32
+    indices: torch.Tensor     # (nnz,) int32
+    values: torch.Tensor      # (nnz,) f32
+    items: Optional[torch.Tensor]   # (2, n_items) int32 row split, or None
     inv_deg: torch.Tensor     # (N,) f32 — 1/max(deg,1)
 
 
@@ -81,19 +86,19 @@ def _graph_cache(graph: CSRGraph) -> dict:
     return cache
 
 
-def bcsr_operands(graph: CSRGraph, device, block_m: int = 8,
-                  block_n: int = 128) -> BCSROps:
-    """The graph's unnormalized BCSR tiles + degree scaling, cached."""
-    from repro_torch.kernels.ops import bcsr_device_operands
+def bcsr_operands(graph: CSRGraph, device) -> BCSROps:
+    """The graph's unnormalized CSR operands + degree scaling, cached."""
+    from repro_torch.kernels.ops import csr_device_operands
     device = torch.device(device)
-    cols, vals, _ = bcsr_device_operands(graph, device, block_m, block_n,
-                                         "none")
+    indptr, indices, values, items = csr_device_operands(graph, device,
+                                                         "none")
     cache = _graph_cache(graph)
-    key = ("bcsr", str(device), block_m, block_n)
+    key = ("bcsr", str(device))
     ops = cache.get(key)
     if ops is None:
         deg = np.maximum(graph.degrees(), 1).astype(np.float32)
-        ops = BCSROps(cols=cols, vals=vals,
+        ops = BCSROps(indptr=indptr, indices=indices, values=values,
+                      items=items,
                       inv_deg=torch.from_numpy(1.0 / deg).to(device))
         cache[key] = ops
     return ops
@@ -138,31 +143,33 @@ def choose_layout(layout: str, *, num_nodes: int, num_edges: int,
 
 
 # --------------------------------------------------------------------------
-# BCSR primitives (bcsr_kernel layout)
+# SpMM primitives (bcsr_kernel layout)
 # --------------------------------------------------------------------------
 class _BCSRMatvec(torch.autograd.Function):
-    """``A @ x`` through the BCSR SpMM.  A is symmetric, so the backward is
-    the SAME kernel on the SAME tiles applied to the cotangent; the tiles
-    are structural operands and get no gradient."""
+    """``A @ x`` through the CSR SpMM.  A is symmetric, so the backward is
+    the SAME kernel on the SAME operands applied to the cotangent; the
+    operands are structural and get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, cols, vals):
-        from repro_torch.kernels.spmm import spmm_bcsr
-        ctx.save_for_backward(cols, vals)
+    def forward(ctx, x, ops):
+        from repro_torch.kernels.spmm import spmm_csr
+        ctx.ops = ops
         ctx.x_dtype = x.dtype
-        return spmm_bcsr(cols, vals, x.float())[: x.shape[0]]
+        return spmm_csr(ops.indptr, ops.indices, ops.values, x.float(),
+                        ops.items)
 
     @staticmethod
     def backward(ctx, g):
-        from repro_torch.kernels.spmm import spmm_bcsr
-        cols, vals = ctx.saved_tensors
-        gx = spmm_bcsr(cols, vals, g.float())[: g.shape[0]]
-        return gx.to(ctx.x_dtype), None, None
+        from repro_torch.kernels.spmm import spmm_csr
+        ops = ctx.ops
+        gx = spmm_csr(ops.indptr, ops.indices, ops.values, g.float(),
+                      ops.items)
+        return gx.to(ctx.x_dtype), None
 
 
 def bcsr_matvec(h: torch.Tensor, ops: BCSROps) -> torch.Tensor:
-    """``A @ h`` through the BCSR SpMM, dtype-preserving."""
-    return _BCSRMatvec.apply(h, ops.cols, ops.vals).to(h.dtype)
+    """``A @ h`` through the CSR SpMM, dtype-preserving."""
+    return _BCSRMatvec.apply(h, ops).to(h.dtype)
 
 
 def bcsr_mean_aggregate(h: torch.Tensor, ops: BCSROps) -> torch.Tensor:

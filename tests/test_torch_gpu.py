@@ -18,7 +18,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.edge_softmax import edge_softmax
 from repro_torch.kernels.linear_scan import linear_scan_chunked
 from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
-from repro_torch.kernels.spmm import spmm_bcsr
+from repro_torch.graph.csr import CSRGraph
+from repro_torch.kernels.spmm import SEGMENT, spmm_csr
 
 # edge softmax: weights ≤ 1 on unit-scale values, f32 sums over ≤ F slots
 ESM_TOL = 1e-5
@@ -42,6 +43,20 @@ def graph():
                       num_classes=5, seed=3).graph
 
 
+@pytest.fixture(scope="module")
+def hub_graph():
+    """A 3,000-node R-MAT graph (with empty rows) plus two hubs far above
+    the kernel's row split, each joined to 700 random nodes."""
+    rng = np.random.default_rng(5)
+    base = rmat_graph(num_nodes=3000, num_edges=9000, feature_dim=4,
+                      num_classes=2, seed=4).graph
+    src, dst = base.to_edges()
+    hubs = np.repeat([7, 1234], 700)
+    return CSRGraph.from_edges(3000, np.concatenate([src, hubs]),
+                               np.concatenate([dst, rng.integers(0, 3000,
+                                                                 1400)]))
+
+
 def _esm_inputs(n, f, d, seed):
     rng = np.random.default_rng(seed)
     s = rng.standard_normal((n, f)).astype(np.float32)
@@ -52,18 +67,28 @@ def _esm_inputs(n, f, d, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [8, 64, 100])
-def test_spmm_kernel_matches_plain_on_card(graph, cuda, d):
-    cols, vals, n_pad = ops.bcsr_device_operands(graph, cuda,
-                                                 normalization="none")
-    h = torch.randn(graph.num_nodes, d, device=cuda)
-    before = spmm_bcsr.launches
-    out = spmm_bcsr(cols, vals, h)
-    assert spmm_bcsr.launches == before + 1
-    plain = ref.spmm_bcsr_ref(cols, vals, torch.nn.functional.pad(
-        h, (0, 0, 0, n_pad - graph.num_nodes)))
+@pytest.mark.parametrize("which", ["slice", "hub"])
+@pytest.mark.parametrize("d", [8, 30, 64, 100, 128, 256])
+def test_spmm_kernel_matches_plain_on_card(graph, hub_graph, cuda, d, which):
+    """The CSR kernel at float4 (D % 4 == 0) and scalar widths, one and two
+    column slabs, on a graph with empty rows and one whose hubs take the
+    row split."""
+    g = graph if which == "slice" else hub_graph
+    indptr, indices, values, items = ops.csr_device_operands(
+        g, cuda, normalization="none")
+    assert (items is not None) == (g.max_degree() > SEGMENT)
+    h = torch.randn(g.num_nodes, d, device=cuda)
+    before = spmm_csr.launches
+    out = spmm_csr(indptr, indices, values, h, items)
+    assert spmm_csr.launches == before + 1
+    plain = ref.spmm_csr_ref(indptr, indices, values, h)
     # f32 sums of ≤ max-degree unit-scale terms in another order
     torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-4)
+    # the same order every run: no atomics on the sums
+    assert torch.equal(out, spmm_csr(indptr, indices, values, h, items))
+    if items is not None:         # one group per row gives the same result
+        torch.testing.assert_close(spmm_csr(indptr, indices, values, h),
+                                   plain, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -80,14 +105,14 @@ def test_edge_softmax_kernel_matches_plain_on_card(cuda, n, f, d):
 
 @pytest.mark.gpu
 def test_spmm_backward_launches_the_kernel_on_card(graph, cuda):
-    """The BCSR aggregation's backward is the same kernel on the
+    """The SpMM aggregation's backward is the same kernel on the
     cotangent: one launch forward, one backward."""
     from repro_torch.models.gnn import agg
     ops_ = agg.bcsr_operands(graph, cuda)
     x = torch.randn(graph.num_nodes, 16, device=cuda, requires_grad=True)
-    before = spmm_bcsr.launches
+    before = spmm_csr.launches
     agg.bcsr_mean_aggregate(x, ops_).sum().backward()
-    assert spmm_bcsr.launches == before + 2
+    assert spmm_csr.launches == before + 2
     xc = x.detach().cpu().requires_grad_(True)
     agg.bcsr_mean_aggregate(xc, agg.bcsr_operands(graph, "cpu")).sum() \
         .backward()
@@ -142,11 +167,14 @@ def test_halo_fill_drops_padded_slots_on_card(cuda):
     (2, 64, 8, 16, 16, False), (3, 128, 16, 24, 32, True),
     (4, 256, 64, 64, 64, True), (5, 77, 64, 64, 64, False),
     (3, 50, 32, 48, 16, True), (2, 33, 64, 64, 1, True),
-    (128, 192, 64, 64, 64, False)])
+    (3, 70, 20, 30, 24, True), (2, 61, 64, 64, 64, False),
+    (128, 192, 64, 64, 64, False), (128, 77, 64, 64, 64, False),
+    (512, 2048, 64, 64, 64, True), (224, 1024, 64, 64, 64, True)])
 def test_linear_scan_kernel_matches_plain_on_card(cuda, bh, t, dk, dv, chunk,
                                                   with_h0, strict):
-    """Both conventions, ragged T (padded by ``ops.linear_scan``) and
-    chunks below 64, against the plain chunked form on the card."""
+    """Both conventions, ragged T (masked in the kernel), odd widths, one
+    and two dv slabs, chunks below 64 and chip_smoke.py's four shapes,
+    against the plain chunked form on the card."""
     rng = np.random.default_rng(bh * 1000 + t)
     f = lambda *shape: torch.from_numpy(
         rng.standard_normal(shape).astype(np.float32)).to(cuda)
@@ -172,6 +200,30 @@ def test_linear_scan_kernel_matches_plain_on_card(cuda, bh, t, dk, dv, chunk,
                                chunk=chunk, strict=strict,
                                u=None if u is None else u.cpu())
     torch.testing.assert_close(y.cpu(), y_c, rtol=SCAN_TOL, atol=SCAN_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay,finite", [(1.0, True), (1.5, False)])
+def test_linear_scan_kernel_overflows_where_the_reference_does(cuda, decay,
+                                                               finite):
+    """P⁻¹ = 1/P overflows f32 where the reference's exp(−cumsum log_w)
+    does: finite at −1.0 per step over a 64-step chunk, not at −1.5."""
+    rng = np.random.default_rng(3)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    q, k, v = f(2, 128, 64), f(2, 128, 64), f(2, 128, 64)
+    lw = torch.full_like(q, -decay)
+    u = f(2, 64) * 0.3
+    y, h = linear_scan_chunked(q, k, v, lw, u=u, chunk=64, strict=True)
+    y_r, _ = ref.chunked_scan_ref(q, k, v, lw, chunk=64, strict=True, u=u)
+    assert bool(torch.isfinite(y).all()) is finite
+    assert bool(torch.isfinite(y_r).all()) is finite
+
+
+@pytest.mark.gpu
+def test_linear_scan_kernel_fits_two_ctas_per_sm(cuda):
+    from repro_torch.kernels.linear_scan import ctas_per_sm
+    assert ctas_per_sm(True) >= 2 and ctas_per_sm(False) >= 2
 
 
 @pytest.mark.gpu

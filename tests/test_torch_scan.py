@@ -103,6 +103,27 @@ def test_ragged_strict_scan_matches_jax_chunked_scan(t, chunk, with_h0):
     _close(h_t, h_j)
 
 
+@pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
+@pytest.mark.parametrize("t,chunk", [(77, 64), (50, 16)])
+def test_ragged_kernel_wrapper_matches_jax_op(t, chunk, strict):
+    """The kernel wrapper's ragged mode (the kernel masks the last chunk;
+    on the CPU the wrapper pads for the plain version) against the JAX
+    op, which leaves its Pallas kernel for the oracle at a ragged T; and
+    without ``ragged`` the wrapper still takes whole chunks only."""
+    q, k, v, lw, h0, u = _inputs(3, t, 32, 48, 7 + t, h0=True)
+    u = u if strict else None
+    y_j, h_j = jops.linear_scan(_j(q), _j(k), _j(v), _j(lw), _j(h0),
+                                chunk=chunk, strict=strict, u=_j(u))
+    y_t, h_t = linear_scan_chunked(_t(q), _t(k), _t(v), _t(lw), _t(h0),
+                                   u=_t(u), chunk=chunk, strict=strict,
+                                   ragged=True)
+    assert y_t.shape == (3, t, 48)
+    _close(y_t, y_j)
+    _close(h_t, h_j)
+    with pytest.raises(ValueError, match="chunk"):
+        linear_scan_chunked(_t(q), _t(k), _t(v), _t(lw), chunk=chunk)
+
+
 def test_decode_step_continues_the_scan():
     """Prefill T−1 steps with the chunked scan, then one decode step: the
     same y_T and h_T as the whole scan, in both conventions."""
