@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port: build, check and drive it on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -10,11 +10,15 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at one larger shape, and time kernel,
    plain version and (where one exists) a library call with CUDA events.
-   The int8 quantize/dequantize kernels must be bit-equal to theirs; the
-   SpMM runs on the slice graph, a 16,384-node SBM graph and the same with
-   16 hubs of 4,096 neighbors; the chunked linear scan is checked in both
-   conventions (RWKV6's strict one at the serving shapes, ragged and large;
-   the plain one at Mamba2 widths) and must fit two CTAs on each SM.
+   The int8 quantize/dequantize kernels must be bit-equal to theirs, at
+   every averaging shape of config C (8 machines × each leaf's size, with
+   uniforms), config D's halo buffer (round-half-up) and (65536, 256) both
+   ways; the edge softmax runs at config B's four shapes and two large
+   ones; the SpMM runs on the slice graph, a 16,384-node SBM graph and the
+   same with 16 hubs of 4,096 neighbors; the chunked linear scan is
+   checked in both conventions (RWKV6's strict one at the serving shapes,
+   ragged and large; the plain one at Mamba2 widths) and must fit two CTAs
+   on each SM.
 3. Drive the trainer — ``build_trainer(data, model, plan).run()`` on the
    paper's ``reddit`` setting for 3 rounds — in four configurations:
    A (``llcg_plan``, arch SBSBS, server correction through the CSR SpMM
@@ -25,10 +29,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    SBSBS, the halo exchange executed with int8 halo compression: one
    quantize and one dequantize launch per round).  Launch counts are reset
    just before each run and read just after; each config must launch its
-   kernels, C and D exactly as many times as stated.  The History must be
-   finite, its bytes must equal the trainer's accounting, and its losses
-   must agree with the same run on the CPU (plain versions, same
-   stochastic-rounding uniforms).
+   kernels, B, C and D exactly as many times as stated (B: (K local steps
+   + S correction steps + 1 evaluation) × 2 GAT layers per round).  The
+   History must be finite, its bytes must equal the trainer's accounting,
+   and its losses must agree with the same run on the CPU (plain versions,
+   same stochastic-rounding uniforms).
 4. Serve rwkv6-1.6b at full width (config E): random weights from a seed,
    drawn once on the CPU.  E1 serves 8 greedy requests (4 prompts of 192
    tokens, 4 of 77, 32 new tokens each; two waves of 4) through
@@ -41,6 +46,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    E2 runs the f32 model on the card and on the CPU on one 77-token
    prompt: prefill logits, every layer's state and 4 teacher-forced
    decode steps must agree within the same tolerance.
+
+With ``--baseline DIR`` (DIR: the root of an unpacked earlier commit, its
+``src/repro_torch`` beside this script's), a last phase times the quantize,
+dequantize and edge-softmax wrappers of both packages at phase 2's shapes,
+each in a process of its own, in turns: earlier, this, this, earlier.
 
 Prints the card (``nvidia-smi`` name and power limit) and one JSON line of
 per-kernel numbers, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -208,12 +218,20 @@ def _hub_graph(base, hubs: int = 16, fan: int = 4096, seed: int = 2):
                                np.concatenate([dst, hub_dst]))
 
 
-def _esm_case(n: int, f: int, d: int, label: str, seed: int) -> dict:
+def _quant_inputs(r: int, c: int, with_u: bool, seed: int) -> tuple:
     import numpy as np
     import torch
-    from repro_torch.kernels.edge_softmax import edge_softmax
-    from repro_torch.kernels.ref import edge_softmax_ref
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((r, c)) * 3.0).astype(
+        np.float32)).cuda()
+    u = (torch.from_numpy(rng.random((r, c)).astype(np.float32)).cuda()
+         if with_u else None)
+    return x, u
 
+
+def _esm_inputs(n: int, f: int, d: int, seed: int) -> tuple:
+    import numpy as np
+    import torch
     rng = np.random.default_rng(seed)
     scores = torch.from_numpy(rng.standard_normal((n, f)).astype(
         np.float32)).cuda()
@@ -222,6 +240,15 @@ def _esm_case(n: int, f: int, d: int, label: str, seed: int) -> dict:
     mask[: max(1, n // 64)] = 0.0                 # fully masked rows
     vals = torch.from_numpy(rng.standard_normal((n, f, d)).astype(
         np.float32)).cuda()
+    return scores, mask, vals
+
+
+def _esm_case(n: int, f: int, d: int, label: str, seed: int) -> dict:
+    import torch
+    from repro_torch.kernels.edge_softmax import edge_softmax
+    from repro_torch.kernels.ref import edge_softmax_ref
+
+    scores, mask, vals = _esm_inputs(n, f, d, seed)
     out = edge_softmax(scores, mask, vals)
     ref = edge_softmax_ref(scores, mask, vals)
     torch.cuda.synchronize()
@@ -246,17 +273,12 @@ def _quant_case(r: int, c: int, with_u: bool, label: str,
                 seed: int) -> tuple:
     """Quantize then dequantize ``(r, c)`` rows on the card, bit-compared
     with the plain versions; one result row per kernel."""
-    import numpy as np
     import torch
     from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
     from repro_torch.kernels.ref import (dequantize_int8_rows_ref,
                                          quantize_int8_rows_ref)
 
-    rng = np.random.default_rng(seed)
-    x = torch.from_numpy((rng.standard_normal((r, c)) * 3.0).astype(
-        np.float32)).cuda()
-    u = (torch.from_numpy(rng.random((r, c)).astype(np.float32)).cuda()
-         if with_u else None)
+    x, u = _quant_inputs(r, c, with_u, seed)
     q, s = quantize_rows(x, u)
     deq = dequantize_rows(q, s)
     qr, sr = quantize_int8_rows_ref(x, u)
@@ -368,6 +390,62 @@ def _scan_case(bh: int, t: int, d: int, strict: bool, with_h0: bool,
     return case
 
 
+def _wrapper_times(src: str, cases: dict) -> dict:
+    """Eager and CUDA-graph ms per call of the quantize, dequantize and
+    edge-softmax wrappers of the ``repro_torch`` package under ``src``, at
+    ``cases["quant"]`` ((r, c, with_u) triples) and ``cases["esm"]`` ((n,
+    f, d) triples), on the inputs phase 2 draws for them."""
+    import torch
+    sys.path.insert(0, src)
+    from repro_torch.kernels.edge_softmax import edge_softmax
+    from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
+
+    times = {}
+
+    def timed(name, fn):
+        # eager: the host's cost per call, the least of 5 windows of 50
+        # calls (a shared host's other work only ever adds to a window)
+        times[name] = {"ms": min(_time_ms(fn, iters=50) for _ in range(5)),
+                       "device_ms": _graph_ms(fn)}
+
+    for r, c, with_u in cases["quant"]:
+        x, u = _quant_inputs(r, c, with_u, 0)
+        q, s = quantize_rows(x, u)
+        shape = f"({r}, {c}) {'u' if with_u else 'u=None'}"
+        timed(f"quantize_rows {shape}", lambda: quantize_rows(x, u))
+        timed(f"dequantize_rows {shape}", lambda: dequantize_rows(q, s))
+    for n, f, d in cases["esm"]:
+        scores, mask, vals = _esm_inputs(n, f, d, 0)
+        timed(f"edge_softmax ({n}, {f}, {d})",
+              lambda: edge_softmax(scores, mask, vals))
+    torch.cuda.synchronize()
+    return times
+
+
+def _compare(baseline: pathlib.Path, cases: dict) -> None:
+    """The wrappers of the package under ``baseline/src`` against this
+    checkout's, each timed in a process of its own, in turns: earlier,
+    this, this, earlier.  Prints one JSON line per turn and one per call
+    shape with the four device and eager times."""
+    turns = []
+    for which in ("baseline", "this", "this", "baseline"):
+        src = baseline / "src" if which == "baseline" else ROOT / "src"
+        run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--wrapper-times", str(src),
+                              json.dumps(cases)],
+                             capture_output=True, text=True, timeout=600)
+        _check(run.returncode == 0, f"timing the {which} wrappers failed: "
+               f"{run.stderr[-2000:]}")
+        turns.append((which, json.loads(run.stdout.strip().splitlines()[-1])))
+        print(f"compare turn {len(turns)} ({which}, {src}): "
+              f"{json.dumps(turns[-1][1])}")
+    for name in turns[0][1]:
+        row = {"call": name}
+        for key in ("device_ms", "ms"):
+            row[key] = [(which, t[name][key]) for which, t in turns]
+        print(f"compare {json.dumps(row)}")
+
+
 # --------------------------------------------------------------------------
 # phase 3: the main path
 # --------------------------------------------------------------------------
@@ -446,7 +524,7 @@ def _drive(name: str, data, model, plan, kernels) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    # warm-up: loads the built library and compiles Triton specializations
+    # warm-up: loads the built libraries (the host's first calls run slower)
     build_trainer(data, model, one_round).run()
     torch.cuda.synchronize()
     for k in kernels:
@@ -705,7 +783,7 @@ def _config_e(kernels) -> dict:
     return counts
 
 
-def main() -> int:
+def main(argv) -> int:
     try:
         import torch
     except ImportError as e:
@@ -714,8 +792,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    if argv[:1] == ["--wrapper-times"]:         # one turn of _compare
+        src, cases = argv[1], json.loads(argv[2])
+        if not (pathlib.Path(src) / "repro_torch").is_dir():
+            print(f"chip_smoke: no repro_torch under {src}", file=sys.stderr)
+            return 2
+        print(json.dumps(_wrapper_times(src, cases)))
+        return 0
+    baseline = None
+    if argv[:1] == ["--baseline"] and len(argv) == 2:
+        baseline = pathlib.Path(argv[1]).resolve()
+    elif argv:
+        print("usage: chip_smoke.py [--baseline DIR]", file=sys.stderr)
+        return 2
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    if baseline is not None and not (baseline / "src" / "repro_torch"
+                                     ).is_dir():
+        print(f"chip_smoke: no src/repro_torch under {baseline}",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
@@ -759,21 +855,29 @@ def main() -> int:
         # degree skew: 16 hubs of 4,096 neighbors each on the large graph
         spmm_cases.append(_spmm_case(_hub_graph(big.graph), 64, "large hubs",
                                      12))
-        esm_cases = [_esm_case(n_loc, smp.fanout, 64, "slice local", 20),
-                     _esm_case(n_loc, smp.fanout, 8, "slice local", 21),
-                     _esm_case(n_full, f_full, 64, "slice full", 22),
-                     _esm_case(n_full, f_full, 8, "slice full", 23),
-                     _esm_case(65536, 10, 64, "large", 24),
-                     _esm_case(65536, big.graph.max_degree(), 64, "large",
-                               25)]
-        # averaging: (P, leaf numel) rows, the widest leaf 64x64; halo:
-        # (P·max_send, feature_dim) rows, round-half-up
-        quant_cases = [_quant_case(cfg.num_machines, 4096, True,
-                                   "averaging", 30),
-                       _quant_case(n_send, data.feature_dim, False, "halo",
-                                   31),
-                       _quant_case(65536, 256, True, "large", 32),
-                       _quant_case(65536, 256, False, "large", 33)]
+        esm_shapes = [(n_loc, smp.fanout, 64, "slice local"),
+                      (n_loc, smp.fanout, 8, "slice local"),
+                      (n_full, f_full, 64, "slice full"),
+                      (n_full, f_full, 8, "slice full"),
+                      (65536, 10, 64, "large"),
+                      (65536, big.graph.max_degree(), 64, "large")]
+        esm_cases = [_esm_case(n, f, d, label, 20 + i)
+                     for i, (n, f, d, label) in enumerate(esm_shapes)]
+        # averaging: (P, leaf numel) rows for every leaf size of config C,
+        # widest first (64x64); halo: (P·max_send, feature_dim) rows,
+        # round-half-up
+        import numpy as np
+        leaf_sizes = sorted({int(np.prod(leaf.shape))
+                             for layer in plans["C"][0].init_numpy(0).values()
+                             for leaf in layer.values()}, reverse=True)
+        quant_shapes = [(cfg.num_machines, c, True, "averaging")
+                        for c in leaf_sizes]
+        quant_shapes += [(n_send, data.feature_dim, False, "halo"),
+                         (65536, 256, True, "large"),
+                         (65536, 256, False, "large")]
+        quant_cases = [_quant_case(r, c, with_u, label, 30 + i)
+                       for i, (r, c, with_u, label)
+                       in enumerate(quant_shapes)]
         # RWKV6 serving: batch 4 × 32 heads, prompts of 192 and 77 (two
         # chunks, the second ragged) tokens; a larger strict case with a
         # carried state; the
@@ -803,8 +907,13 @@ def main() -> int:
                   for name in plans}
         _check(counts["A"]["spmm_csr"] > 0,
                "config A launched no SpMM kernel")
-        _check(counts["B"]["edge_softmax"] > 0,
-               "config B launched no edge-softmax kernel")
+        # B: every GAT layer's aggregation in K local steps, S correction
+        # steps and one evaluation per round (14 for the reddit setting)
+        gat_layers = len(plans["B"][0].init_numpy(0))
+        want = ROUNDS * (cfg.local_k + cfg.correction_steps + 1) * gat_layers
+        _check(counts["B"]["edge_softmax"] == want,
+               f"config B launched edge_softmax "
+               f"{counts['B']['edge_softmax']} times, not {want}")
         leaves = sum(len(layer)            # 13 for SBSBS: one launch each
                      for layer in plans["C"][0].init_numpy(0).values())
         for name, want in (("C", leaves * ROUNDS), ("D", ROUNDS)):
@@ -813,6 +922,10 @@ def main() -> int:
                        f"config {name} launched {k} {counts[name][k]} "
                        f"times, not {want}")
         counts["E"] = _config_e(all_kernels)
+        if baseline is not None:
+            _compare(baseline, {
+                "quant": [list(s[:3]) for s in quant_shapes],
+                "esm": [list(s[:3]) for s in esm_shapes]})
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -831,8 +944,8 @@ def main() -> int:
     kernels = [
         row("spmm_csr", "cuda", "src/repro_torch/kernels/csrc/spmm_csr.cu",
             "src/repro/kernels/spmm.py:127", spmm_cases[1], "A"),
-        row("edge_softmax", "triton",
-            "src/repro_torch/kernels/edge_softmax.py",
+        row("edge_softmax", "cuda",
+            "src/repro_torch/kernels/csrc/edge_softmax.cu",
             "src/repro/kernels/edge_softmax.py:49", esm_cases[0], "B"),
         row("quantize_rows", "cuda", quant_src,
             "src/repro/kernels/quantize.py:51", quant_cases[0][0], "C"),
@@ -851,4 +964,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

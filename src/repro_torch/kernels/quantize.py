@@ -8,17 +8,21 @@ rounded to int8 as ``clip(floor(x/scale + u), -127, 127)``; ``u`` holds the
 caller's uniforms (stochastic rounding) or is ``None`` for a constant 0.5
 (round-half-up).  Dequantize is ``q·scale``.
 
-The kernels (``csrc/quantize_rows.cu``) run one CTA per row for quantize and
-a (row, column chunk) grid for dequantize; both divisions are correctly rounded
-(``__fdiv_rn``), so on the card ``q``, ``scale`` and the dequantized values
-are bit-equal to the plain versions in :mod:`repro_torch.kernels.ref`.  On a
-CPU tensor the wrappers run those plain versions; on a CUDA tensor they
-launch the kernel or raise.  Each wrapper counts its launches.
+The quantize kernel (``csrc/quantize_rows.cu``) covers a row with a group
+of lanes, a CTA or a cluster of CTAs, as :func:`geometry` picks from (R,
+C), with 16-byte loads held in registers from the row max to the rounding;
+dequantize runs a (row, column chunk) grid.  Both divisions are correctly
+rounded (``__fdiv_rn``), so on the card ``q``, ``scale`` and the dequantized
+values are bit-equal to the plain versions in
+:mod:`repro_torch.kernels.ref`.  On a CPU tensor the wrappers run those
+plain versions; on a CUDA tensor they launch the kernel or raise.  Each
+wrapper counts its launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,8 +30,92 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (dequantize_int8_rows_ref,
                                      quantize_int8_rows_ref)
 
-#: Pointer operands of each C entry; every entry then takes (R, C, stream).
-_POINTERS = {"quantize_rows_f32": 4, "dequantize_rows_f32": 3}
+#: SMs of an H100 SXM: the card the geometry fills.
+SMS = 132
+#: A row of at most this many loads is narrow: one warp covers it with at
+#: most two loads a lane (C <= 256 on the float4 path), so a group of lanes
+#: per row and shuffles within the group are all it needs.  With more, a
+#: lone warp's chain of correctly rounded divisions shows: at (8, 512) four
+#: loads a lane ran slower on the card than a CTA of 128 threads with one.
+NARROW_LOADS = 64
+#: A row of at most this many loads fits one CTA of <= 256 threads with one
+#: load each; only longer rows are split over a cluster.
+CTA_LOADS = 256
+#: Loads per thread held in registers from the max to the quantize step:
+#: x and u are 2 x 8 float4s, 64 registers, which keeps a 512-thread CTA
+#: within the 128 registers a thread may have.
+MAX_SLOTS = 8
+#: The portable thread-block cluster size.
+MAX_CLUSTER = 8
+
+
+class Geometry(NamedTuple):
+    """How the quantize kernel covers an (R, C) buffer.
+
+    Thread ``t`` of CTA ``b`` serves row ``(b // cluster) * cta_rows +
+    t // (lanes * row_warps)`` as its lane ``l = (b % cluster) * lanes *
+    row_warps + t % (lanes * row_warps)`` of ``L = cluster * lanes *
+    row_warps``, and takes the row's loads ``l, l + L, ...`` of ``vec``
+    floats; the first ``slots`` of them stay in registers.
+    """
+    vec: int          # floats per load: 4 (16-byte loads) or 1
+    lanes: int        # lanes of a warp per row; divides 32
+    row_warps: int    # warps of a CTA per row
+    cta_rows: int     # rows per CTA
+    cluster: int      # CTAs per row (a thread-block cluster above 1)
+    slots: int        # loads per thread kept in registers: 1, 2, 4 or 8
+    grid: int         # CTAs
+
+    @property
+    def threads(self) -> int:
+        return self.cta_rows * self.lanes * self.row_warps
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+@functools.lru_cache(maxsize=1024)
+def geometry(r: int, c: int, vec4: bool = True) -> Geometry:
+    """The quantize kernel's geometry for ``r`` rows of ``c`` floats;
+    ``vec4=False`` (a pointer not 16-byte aligned) forces scalar loads.
+
+    - Narrow rows (at most ``NARROW_LOADS`` loads): ``lanes`` = the loads
+      rounded up to a power of two, at most 32, and up to two loads a lane.
+      CTAs of one warp while the warps number under ``SMS``, to spread
+      them over the SMs; above that, up to 8 warps a CTA (fewer, larger
+      CTAs cost less to schedule once every SM has work).
+    - Wide rows: a CTA of up to 256 threads per row, one load each where
+      the row allows (up to 512 threads and 8 loads a thread for longer
+      rows).  Rows longer than ``CTA_LOADS`` loads, fewer than ``SMS`` of
+      them: each row is split over a cluster of up to ``MAX_CLUSTER`` CTAs
+      so the grid reaches the SMs; (8, 4096) runs on 64 CTAs of 128
+      threads, one float4 of x and one of u a thread.
+    """
+    vec = 4 if vec4 and c % 4 == 0 else 1
+    n = -(-c // vec)                                  # loads per row
+    if n <= NARROW_LOADS:
+        lanes = min(32, _pow2(n))
+        slots = _pow2(-(-n // lanes))
+        warps = -(-r * lanes // 32)
+        cta_warps = min(8, max(1, -(-warps // SMS)))
+        cta_rows = cta_warps * 32 // lanes
+        return Geometry(vec, lanes, 1, cta_rows, 1, slots,
+                        max(1, -(-r // cta_rows)))
+    cluster = 1 if r >= SMS or n <= CTA_LOADS else \
+        min(MAX_CLUSTER, _pow2(-(-SMS // r)))
+    per_cta = -(-n // cluster)
+    threads = min(256, -(-per_cta // 32) * 32)
+    if -(-per_cta // threads) > MAX_SLOTS:
+        threads = min(512, -(-per_cta // (32 * MAX_SLOTS)) * 32)
+    slots = min(MAX_SLOTS, _pow2(-(-per_cta // threads)))
+    return Geometry(vec, 32, threads // 32, 1, cluster, slots,
+                    max(1, r) * cluster)
+
+
+#: (pointer, int) operands of each C entry, which then takes the stream:
+#: quantize's ints are R, C and the seven fields of its Geometry.
+_OPERANDS = {"quantize_rows_f32": (4, 9), "dequantize_rows_f32": (3, 2)}
 _ENTRIES = {}
 
 
@@ -36,27 +124,24 @@ def _kernel(name: str):
     fn = _ENTRIES.get(name)
     if fn is None:
         fn = getattr(build.load("quantize_rows"), name)
-        fn.argtypes = [ctypes.c_void_p] * _POINTERS[name] + \
-            [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        pointers, ints = _OPERANDS[name]
+        fn.argtypes = [ctypes.c_void_p] * pointers + \
+            [ctypes.c_int] * ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _ENTRIES[name] = fn
     return fn
 
 
-def _launch(name: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(name)(*args, stream)
+def _check_err(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
 
 
-def _check_cuda(name: str, *tensors) -> None:
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: operands must share a device")
+def _dense(*tensors):
+    """The operands as contiguous tensors, copying only those that are
+    not."""
+    return tuple(t if t is None or t.is_contiguous() else t.contiguous()
+                 for t in tensors)
 
 
 def quantize_rows(x: torch.Tensor, u: Optional[torch.Tensor] = None
@@ -72,23 +157,32 @@ def quantize_rows(x: torch.Tensor, u: Optional[torch.Tensor] = None
     if u is not None and u.shape != x.shape:
         raise ValueError(f"u {tuple(u.shape)} does not match x "
                          f"{tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"quantize_rows runs on cpu or cuda, not "
+                             f"{x.device}")
         return quantize_int8_rows_ref(x, u)
-    _check_cuda("quantize_rows", x, *([] if u is None else [u]))
-    if x.dtype != torch.float32 or (u is not None
-                                    and u.dtype != torch.float32):
+    # get_device(): the CUDA index, -1 on the CPU (cheaper than .device)
+    dev = x.get_device()
+    if u is not None and u.get_device() != dev:
+        raise ValueError("quantize_rows: x and u must share a device")
+    if x.dtype is not torch.float32 or (u is not None
+                                        and u.dtype is not torch.float32):
         raise ValueError("quantize_rows takes float32 x and u, got "
                          f"{x.dtype}/{None if u is None else u.dtype}")
     r, c = x.shape
-    q = torch.empty((r, c), dtype=torch.int8, device=x.device)
-    scale = torch.empty((r, 1), dtype=torch.float32, device=x.device)
+    q = x.new_empty((r, c), dtype=torch.int8)
+    scale = x.new_empty((r, 1))
     if r == 0:
         return q, scale
-    x = x.contiguous()
-    u = None if u is None else u.contiguous()
-    _launch("quantize_rows_f32", x.device, x.data_ptr(),
-            None if u is None else u.data_ptr(), q.data_ptr(),
-            scale.data_ptr(), r, c)
+    x, u = _dense(x, u)
+    x_ptr = x.data_ptr()
+    u_ptr = None if u is None else u.data_ptr()
+    g = geometry(r, c, x_ptr % 16 == 0 and (u_ptr or 0) % 16 == 0)
+    _check_err("quantize_rows", build.launch_on(
+        dev, _kernel("quantize_rows_f32"), x_ptr, u_ptr, q.data_ptr(),
+        scale.data_ptr(), r, c, g.vec, g.lanes, g.row_warps, g.cta_rows,
+        g.cluster, g.slots, g.grid))
     quantize_rows.launches += 1
     return q, scale
 
@@ -102,19 +196,25 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     if q.dim() != 2 or scale.shape != (q.shape[0], 1):
         raise ValueError(f"q must be (R, C) and scale (R, 1), got "
                          f"{tuple(q.shape)} and {tuple(scale.shape)}")
-    if q.device.type == "cpu":
+    if not q.is_cuda:
+        if q.device.type != "cpu":
+            raise ValueError(f"dequantize_rows runs on cpu or cuda, not "
+                             f"{q.device}")
         return dequantize_int8_rows_ref(q, scale)
-    _check_cuda("dequantize_rows", q, scale)
-    if q.dtype != torch.int8 or scale.dtype != torch.float32:
+    dev = q.get_device()
+    if scale.get_device() != dev:
+        raise ValueError("dequantize_rows: q and scale must share a device")
+    if q.dtype is not torch.int8 or scale.dtype is not torch.float32:
         raise ValueError("dequantize_rows takes int8 q and float32 scale, "
                          f"got {q.dtype}/{scale.dtype}")
     r, c = q.shape
-    out = torch.empty((r, c), dtype=torch.float32, device=q.device)
+    out = scale.new_empty((r, c))
     if r == 0 or c == 0:
         return out
-    q, scale = q.contiguous(), scale.contiguous()
-    _launch("dequantize_rows_f32", q.device, q.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), r, c)
+    q, scale = _dense(q, scale)
+    _check_err("dequantize_rows", build.launch_on(
+        dev, _kernel("dequantize_rows_f32"), q.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), r, c))
     dequantize_rows.launches += 1
     return out
 

@@ -29,7 +29,7 @@ from repro.models.gnn.model import build_model as ref_build_model
 
 from repro_torch.comm import compress as comp
 from repro_torch.configs.gnn_datasets import SETTINGS
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, quantize
 from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
 from repro_torch.models.gnn.model import build_model
 from repro_torch.utils.pytree import tree_leaves, tree_map
@@ -133,6 +133,59 @@ def test_wrappers_count_no_launch_on_cpu_and_reject_bad_shapes():
         quantize_rows(torch.randn(9))
     with pytest.raises(ValueError):
         dequantize_rows(q, s[:2])
+
+
+def _geometry_cover(g, r, c):
+    """How many times the quantize kernel's threads take each element of an
+    (r, c) buffer under geometry ``g`` (the mapping ``quantize.Geometry``
+    documents; loads past ``slots`` are the streamed ones)."""
+    span = g.lanes * g.row_warps
+    step = g.cluster * span
+    n = -(-c // g.vec)
+    b = np.arange(g.grid)[:, None, None]
+    t = np.arange(g.threads)[None, :, None]
+    i = np.arange(-(-n // step))[None, None, :]
+    row = (b // g.cluster) * g.cta_rows + t // span
+    load = (b % g.cluster) * span + t % span + i * step
+    row, load = np.broadcast_arrays(row, load)
+    ok = (row < r) & (load < n)
+    elems = (row[ok][:, None] * c + load[ok][:, None] * g.vec
+             + np.arange(g.vec)[None, :])
+    return np.bincount(elems.ravel(), minlength=r * c)
+
+
+@pytest.mark.parametrize("c", [1, 7, 8, 33, 64, 65, 128, 256, 512, 513, 1000,
+                               2048, 4096, 65536])
+def test_quantize_geometry_covers_every_element_once(c):
+    """Every (r, c), float4 or scalar loads: each element exactly once, a
+    cluster of at most 8 CTAs, lanes per row dividing 32, and the launch
+    limits the C entry checks."""
+    rows = [1, 3, 8, 131, 800] + ([65536] if c == 256 else [])
+    for r in rows if c < 65536 else [1, 8]:
+        for vec4 in (True, False):
+            g = quantize.geometry(r, c, vec4)
+            assert g.vec == (4 if vec4 and c % 4 == 0 else 1)
+            assert 1 <= g.cluster <= quantize.MAX_CLUSTER
+            assert 32 % g.lanes == 0
+            assert g.slots in (1, 2, 4, 8)
+            assert g.threads % 32 == 0 and g.threads <= 512
+            assert g.grid % g.cluster == 0
+            if g.row_warps > 1 or g.cluster > 1:
+                assert g.lanes == 32 and g.cta_rows == 1
+            cover = _geometry_cover(g, r, c)
+            assert cover.shape == (r * c,) and (cover == 1).all(), (r, c, g)
+
+
+def test_quantize_geometry_fills_the_card_at_the_averaging_shapes():
+    """(8, 4096) and (8, 2048) split each row over a cluster of 8 (64
+    CTAs); narrow rows take shuffles within a group of lanes."""
+    for c in (4096, 2048):
+        g = quantize.geometry(8, c)
+        assert g.cluster == 8 and g.grid >= 64 and g.slots == 1
+    for r, c in ((800, 32), (8, 64), (8, 8)):
+        g = quantize.geometry(r, c)
+        assert g.cluster == 1 and g.row_warps == 1 and g.lanes < 32
+        assert g.lanes * g.slots * g.vec >= c
 
 
 def test_stochastic_rounding_is_unbiased():

@@ -1,4 +1,4 @@
-"""The CUDA and Triton kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 The int8 quantize/dequantize kernels are held bit-equal (correctly rounded
 divisions on both sides); the SpMM, edge softmax and chunked linear scan
@@ -92,15 +92,27 @@ def test_spmm_kernel_matches_plain_on_card(graph, hub_graph, cuda, d, which):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,f,d", [(13, 5, 7), (800, 10, 64), (800, 57, 8)])
-def test_edge_softmax_kernel_matches_plain_on_card(cuda, n, f, d):
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("n,f,d", [
+    (13, 5, 7), (800, 10, 64), (800, 10, 8), (800, 57, 64), (800, 57, 8),
+    (50, 200, 64), (30, 200, 8), (40, 20, 100), (9, 3, 256)])
+def test_edge_softmax_kernel_matches_plain_on_card(cuda, n, f, d, aligned):
+    """Config B's four shapes, F past the 64 slots whose weights stay in
+    registers, D of 7 and 100 (idle lanes) and 256 (two column slabs),
+    and vals whose data does not start 16-byte aligned (the scalar
+    path)."""
     s, m, v = (torch.from_numpy(a).to(cuda) for a in _esm_inputs(n, f, d, 7))
+    if not aligned:                  # the same values one float further on
+        v = torch.cat([v.new_zeros(1), v.flatten()])[1:].view(n, f, d)
     before = edge_softmax.launches
     out = edge_softmax(s, m, v)
     assert edge_softmax.launches == before + 1
     torch.testing.assert_close(out, ref.edge_softmax_ref(s, m, v),
                                rtol=ESM_TOL, atol=ESM_TOL)
     assert float(out[: max(1, n // 8)].abs().max()) == 0.0
+    # a fixed order of sums: the same bits on every call
+    assert torch.equal(out, edge_softmax(s, m, v))
+    assert edge_softmax.launches == before + 2
 
 
 @pytest.mark.gpu
@@ -122,8 +134,13 @@ def test_spmm_backward_launches_the_kernel_on_card(graph, cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("with_u", [True, False], ids=["u", "half_up"])
 @pytest.mark.parametrize("r,c", [(1, 7), (5, 33), (37, 128), (130, 65),
-                                 (8, 4096), (800, 32), (3, 1000)])
+                                 (8, 4096), (8, 2048), (8, 512), (8, 64),
+                                 (8, 8), (800, 32), (3, 1000), (65536, 256),
+                                 (2, 300000), (3, 70001)])
 def test_quantize_kernels_bit_equal_plain_on_card(cuda, r, c, with_u):
+    """Every averaging shape of the main path, the halo shape, scalar
+    widths, and rows longer than the loads held in registers ((2, 300000);
+    (3, 70001) on scalar loads), whose excess is streamed."""
     rng = np.random.default_rng(r * 1000 + c)
     x = torch.from_numpy((rng.standard_normal((r, c)) * 3.0).astype(
         np.float32)).to(cuda)
@@ -142,6 +159,27 @@ def test_quantize_kernels_bit_equal_plain_on_card(cuda, r, c, with_u):
     qc, sc = ref.quantize_int8_rows_ref(x.cpu(), None if u is None
                                         else u.cpu())
     assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_u", [True, False], ids=["u", "half_up"])
+@pytest.mark.parametrize("r,c", [(8, 4096), (800, 32), (8, 64)])
+def test_quantize_kernel_bit_equal_on_unaligned_views_on_card(cuda, r, c,
+                                                              with_u):
+    """x and u starting one float past a 16-byte boundary take the scalar
+    loads (quantize.geometry with vec4=False), still bit-equal."""
+    rng = np.random.default_rng(c)
+    base = torch.from_numpy((rng.standard_normal(r * c + 1) * 3.0).astype(
+        np.float32)).to(cuda)
+    x = base[1:].view(r, c)
+    u = (torch.from_numpy(rng.random(r * c + 1).astype(np.float32)).to(cuda)
+         [1:].view(r, c) if with_u else None)
+    assert x.data_ptr() % 16 != 0
+    before = quantize_rows.launches
+    q, s = quantize_rows(x, u)
+    assert quantize_rows.launches == before + 1
+    qr, sr = ref.quantize_int8_rows_ref(x, u)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
 
 
 @pytest.mark.gpu

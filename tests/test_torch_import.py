@@ -67,6 +67,16 @@ def test_no_reference_module_is_loaded(probe):
 
 
 def test_kernels_do_not_import_triton_at_import_time(probe):
-    # triton is imported inside the launcher, so hosts without it (and the
-    # CPU tests) can import every module
+    # the port's kernels are CUDA C++ built with nvcc: no module needs
+    # triton, so hosts without it (and the CPU tests) import every module
     assert probe["triton_loaded"] is False
+
+
+def test_port_sources_import_no_triton():
+    """Not at import time, nor inside a launcher: every kernel of the port
+    is a CUDA source under ``kernels/csrc``."""
+    import re
+    pattern = re.compile(r"^\s*(import|from)\s+triton\b", re.M)
+    found = [str(p) for p in (SRC / "repro_torch").rglob("*.py")
+             if pattern.search(p.read_text())]
+    assert found == []

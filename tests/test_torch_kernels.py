@@ -224,6 +224,16 @@ def test_wrappers_reject_bad_shapes():
         spmm_csr(indptr, indices, torch.ones(3), torch.zeros(2, 4))
 
 
+def test_edge_softmax_wrapper_refuses_non_f32_and_other_devices():
+    s, m, v = (torch.from_numpy(a) for a in _esm_inputs(6, 4, 8, 0))
+    assert edge_softmax(s, m, v).shape == (6, 8)
+    for args in ((s.double(), m, v), (s, m.bool(), v), (s, m, v.half())):
+        with pytest.raises(ValueError, match="float32"):
+            edge_softmax(*args)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        edge_softmax(s.to("meta"), m.to("meta"), v.to("meta"))
+
+
 def test_csr_wrapper_refuses_wrong_indptr_and_dtypes():
     indptr = torch.tensor([0, 1, 2], dtype=torch.int32)
     indices = torch.tensor([1, 0], dtype=torch.int32)
