@@ -13,7 +13,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    The int8 quantize/dequantize kernels must be bit-equal to theirs, at
    every averaging shape of config C (8 machines × each leaf's size, with
    uniforms), config D's halo buffer (round-half-up) and (65536, 256) both
-   ways; the edge softmax runs at config B's four shapes and two large
+   ways, and the grouped dequantize on C's whole round table (one launch),
+   segments of rows of 1, 8, 17 and 33 values, unaligned and
+   non-contiguous views, empty segments and more segments than a launch's
+   table holds; ``torch.mul(q, s)`` (``torch._foreach_mul`` for a table)
+   is the dequantize's library yardstick; the edge softmax runs at config
+   B's four shapes and two large
    ones; the SpMM runs on the slice graph, a 16,384-node SBM graph and the
    same with 16 hubs of 4,096 neighbors; the chunked linear scan is
    checked in both conventions (RWKV6's strict one at the serving shapes,
@@ -25,7 +30,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    kernel, the ``bcsr_kernel`` layout), B (the same on a fused GAT, every
    aggregation through the edge-softmax kernel), C (config A with int8
    error-feedback compressed averaging: 13 parameter leaves, one quantize
-   and one dequantize launch each per round) and D (``ggs_plan``, arch
+   launch each and one grouped dequantize launch for all of them per
+   round) and D (``ggs_plan``, arch
    SBSBS, the halo exchange executed with int8 halo compression: one
    quantize and one dequantize launch per round).  Launch counts are reset
    just before each run and read just after; each config must launch its
@@ -50,7 +56,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 With ``--baseline DIR`` (DIR: the root of an unpacked earlier commit, its
 ``src/repro_torch`` beside this script's), a last phase times the quantize,
 dequantize and edge-softmax wrappers of both packages at phase 2's shapes,
-each in a process of its own, in turns: earlier, this, this, earlier.
+and ``comm.compress.decompress_tree`` on config C's round table, each
+package in a process of its own, in turns: earlier, this, this, earlier.
 
 Prints the card (``nvidia-smi`` name and power limit) and one JSON line of
 per-kernel numbers, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -291,23 +298,107 @@ def _quant_case(r: int, c: int, with_u: bool, label: str,
     _check(q_err <= QUANT_TOL and s_err <= QUANT_TOL,
            f"quantize_rows {name}: q differs by {q_err}, scale by {s_err}")
     _check(d_err <= QUANT_TOL, f"dequantize_rows {name}: differs by {d_err}")
+    # the library yardstick: int8 times f32 promotes to f32, one exact
+    # conversion and one multiply, as the plain version
+    library = lambda: torch.mul(q, s)
+    _check(torch.equal(library(), dr), f"torch.mul disagrees at {name}")
     n = r * c
     rows = []
-    for kernel, fn, plain, nbytes, ops, err in (
+    for kernel, fn, plain, nbytes, ops, err, lib in (
             ("quantize_rows", lambda: quantize_rows(x, u),
              lambda: quantize_int8_rows_ref(x, u),
              n * (4 + (4 if with_u else 0) + 1) + 4 * r, 6.0 * n,
-             max(q_err, s_err)),
+             max(q_err, s_err), None),
             ("dequantize_rows", lambda: dequantize_rows(q, s),
              lambda: dequantize_int8_rows_ref(q, s), n * (1 + 4) + 4 * r,
-             2.0 * n, d_err)):
+             2.0 * n, d_err, library)):
         bound_ms, bound_by = _bound(nbytes, ops)
         rows.append({"kernel": kernel, "label": label, "shape": name,
                      "max_abs_err": err, "tol": QUANT_TOL,
                      "ms": _time_ms(fn), "device_ms": _graph_ms(fn),
-                     "plain_ms": _time_ms(plain), "library_ms": None,
+                     "plain_ms": _time_ms(plain),
+                     "library_ms": None if lib is None else _time_ms(lib),
+                     "library_device_ms": (None if lib is None
+                                           else _graph_ms(lib)),
                      "bound_ms": bound_ms, "bound_by": bound_by})
     return tuple(rows)
+
+
+def _grouped_case(label: str, qs: list, ss: list) -> dict:
+    """The grouped dequantize over the segments ``(qs[i], ss[i])``: each
+    result bit-equal to the plain version, exactly one launch per
+    ``MAX_SEGMENTS`` non-empty segments; timed against the plain version
+    per segment and ``torch._foreach_mul``, one PyTorch call that computes
+    the same list."""
+    import torch
+    from repro_torch.kernels.quantize import (MAX_SEGMENTS, dequantize_rows,
+                                              dequantize_rows_many)
+    from repro_torch.kernels.ref import dequantize_int8_rows_ref
+
+    shapes = [tuple(q.shape) for q in qs]
+    want = -(-sum(1 for r, c in shapes if r * c) // MAX_SEGMENTS)
+    before = dequantize_rows.launches
+    outs = dequantize_rows_many(qs, ss)
+    launches = dequantize_rows.launches - before
+    plain = lambda: [dequantize_int8_rows_ref(q, s) for q, s in zip(qs, ss)]
+    refs = plain()
+    torch.cuda.synchronize()
+    _check(launches == want, f"dequantize_rows_many {label}: {launches} "
+           f"launches, not {want}")
+    err = 0.0
+    for q, out, ref in zip(qs, outs, refs):
+        _check(out.shape == q.shape and out.is_contiguous(),
+               f"dequantize_rows_many {label}: a result is not a "
+               f"contiguous {tuple(q.shape)}")
+        if out.numel():
+            err = max(err, float((out - ref).abs().max()))
+    _check(err <= QUANT_TOL, f"dequantize_rows_many {label}: differs by "
+           f"{err}")
+    library = lambda: torch._foreach_mul(qs, ss)
+    _check(all(torch.equal(a, b) for a, b in zip(library(), refs)),
+           f"torch._foreach_mul disagrees at {label}")
+    fn = lambda: dequantize_rows_many(qs, ss)
+    n, r = sum(q.numel() for q in qs), sum(q.shape[0] for q in qs)
+    bound_ms, bound_by = _bound(n * (1 + 4) + 4 * r, 2.0 * n)
+    return {"kernel": "dequantize_rows", "label": label,
+            "shape": f"{len(shapes)} segments {shapes[:6]}"
+                     f"{'...' if len(shapes) > 6 else ''}, {n} values",
+            "launches": launches, "max_abs_err": err, "tol": QUANT_TOL,
+            "ms": _time_ms(fn), "device_ms": _graph_ms(fn),
+            "plain_ms": _time_ms(plain), "library_ms": _time_ms(library),
+            "library_device_ms": _graph_ms(library),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _grouped_cases(round_table: list) -> list:
+    """The grouped dequantize's phase-2 cases: config C's round table (the
+    quantize outputs of its 13 leaves), rows of 1, 8, 17 and 33 values, an
+    unaligned and a non-contiguous view, empty segments, and more segments
+    than one launch's table holds."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(50)
+
+    def operands(shapes):
+        qs = [torch.from_numpy(rng.integers(-127, 128, (r, c)).astype(
+            np.int8)).cuda() for r, c in shapes]
+        ss = [torch.from_numpy((rng.random((r, 1)) * 3e-2 + 1e-9).astype(
+            np.float32)).cuda() for r, _ in shapes]
+        return qs, ss
+
+    cases = [_grouped_case("C round", *map(list, zip(*round_table)))]
+    cases.append(_grouped_case("awkward", *operands(
+        [(8, 1), (8, 8), (8, 17), (8, 33), (800, 17), (5, 1)])))
+    qs, ss = operands([(8, 4097), (1, 4096), (3, 33)])
+    odd = torch.cat([qs[2].new_zeros(1), qs[2].flatten()])[1:].view(3, 33)
+    _check(odd.data_ptr() % 16 != 0, "the offset view is aligned")
+    cases.append(_grouped_case("unaligned",
+                               [qs[0][:, 1:], qs[1][:, 1:], odd], ss))
+    cases.append(_grouped_case("empty", *operands(
+        [(0, 64), (8, 64), (3, 0), (0, 0), (8, 8)])))
+    cases.append(_grouped_case("split", *operands(
+        [(8, 8 + 24 * i) for i in range(40)])))
+    return cases
 
 
 def _scan_ops(bh: int, t: int, chunk: int, dk: int, dv: int, strict: bool,
@@ -394,7 +485,8 @@ def _wrapper_times(src: str, cases: dict) -> dict:
     """Eager and CUDA-graph ms per call of the quantize, dequantize and
     edge-softmax wrappers of the ``repro_torch`` package under ``src``, at
     ``cases["quant"]`` ((r, c, with_u) triples) and ``cases["esm"]`` ((n,
-    f, d) triples), on the inputs phase 2 draws for them."""
+    f, d) triples), on the inputs phase 2 draws for them, and of its
+    ``decompress_tree`` on ``cases["tree"]`` (machines, leaf sizes)."""
     import torch
     sys.path.insert(0, src)
     from repro_torch.kernels.edge_softmax import edge_softmax
@@ -418,6 +510,15 @@ def _wrapper_times(src: str, cases: dict) -> dict:
         scores, mask, vals = _esm_inputs(n, f, d, 0)
         timed(f"edge_softmax ({n}, {f}, {d})",
               lambda: edge_softmax(scores, mask, vals))
+    # config C's round: the 13 leaves' (machines, numel) payloads
+    from repro_torch.comm.compress import decompress_tree
+    machines, sizes = cases["tree"]
+    payload, scales = {}, {}
+    for i, c in enumerate(sizes):
+        x, u = _quant_inputs(machines, c, True, 60 + i)
+        payload[f"leaf{i:02d}"], scales[f"leaf{i:02d}"] = quantize_rows(x, u)
+    timed(f"decompress_tree C round ({len(sizes)} leaves)",
+          lambda: decompress_tree(payload, scales, "int8_ef"))
     torch.cuda.synchronize()
     return times
 
@@ -822,7 +923,8 @@ def main(argv) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.edge_softmax import edge_softmax
     from repro_torch.kernels.linear_scan import linear_scan_chunked
-    from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
+    from repro_torch.kernels.quantize import (MAX_SEGMENTS, dequantize_rows,
+                                              quantize_rows)
     from repro_torch.kernels.linear_scan import ctas_per_sm
     from repro_torch.kernels.spmm import spmm_csr
     all_kernels = (spmm_csr, edge_softmax, quantize_rows, dequantize_rows,
@@ -878,6 +980,15 @@ def main(argv) -> int:
         quant_cases = [_quant_case(r, c, with_u, label, 30 + i)
                        for i, (r, c, with_u, label)
                        in enumerate(quant_shapes)]
+        # config C's round table: each of the 13 leaves (tree_leaves order)
+        # quantized over 8 machines, then dequantized in one grouped call
+        from repro_torch.utils.pytree import tree_leaves
+        round_sizes = [int(np.prod(leaf.shape)) for leaf in
+                       tree_leaves(plans["C"][0].init_numpy(0))]
+        round_table = [quantize_rows(*_quant_inputs(cfg.num_machines, c,
+                                                    True, 60 + i))
+                       for i, c in enumerate(round_sizes)]
+        grouped_cases = _grouped_cases(round_table)
         # RWKV6 serving: batch 4 × 32 heads, prompts of 192 and 77 (two
         # chunks, the second ragged) tokens; a larger strict case with a
         # carried state; the
@@ -895,6 +1006,8 @@ def main(argv) -> int:
         for pair in quant_cases:
             for c in pair:
                 print(f"{c['kernel']} {json.dumps(c)}")
+        for c in grouped_cases:
+            print(f"dequantize_rows grouped {json.dumps(c)}")
         for c in scan_cases:
             print(f"linear_scan_chunked {json.dumps(c)}")
         occ = {conv: ctas_per_sm(conv == "strict")
@@ -914,18 +1027,25 @@ def main(argv) -> int:
         _check(counts["B"]["edge_softmax"] == want,
                f"config B launched edge_softmax "
                f"{counts['B']['edge_softmax']} times, not {want}")
-        leaves = sum(len(layer)            # 13 for SBSBS: one launch each
-                     for layer in plans["C"][0].init_numpy(0).values())
-        for name, want in (("C", leaves * ROUNDS), ("D", ROUNDS)):
-            for k in ("quantize_rows", "dequantize_rows"):
-                _check(counts[name][k] == want,
-                       f"config {name} launched {k} {counts[name][k]} "
-                       f"times, not {want}")
+        # C: a quantize launch per parameter leaf (13 for SBSBS) and one
+        # grouped dequantize launch per MAX_SEGMENTS leaves, each round;
+        # D: one of each per round
+        leaves = len(round_sizes)
+        for name, k, want in (
+                ("C", "quantize_rows", ROUNDS * leaves),
+                ("C", "dequantize_rows",
+                 ROUNDS * -(-leaves // MAX_SEGMENTS)),
+                ("D", "quantize_rows", ROUNDS),
+                ("D", "dequantize_rows", ROUNDS)):
+            _check(counts[name][k] == want,
+                   f"config {name} launched {k} {counts[name][k]} "
+                   f"times, not {want}")
         counts["E"] = _config_e(all_kernels)
         if baseline is not None:
             _compare(baseline, {
                 "quant": [list(s[:3]) for s in quant_shapes],
-                "esm": [list(s[:3]) for s in esm_shapes]})
+                "esm": [list(s[:3]) for s in esm_shapes],
+                "tree": [cfg.num_machines, round_sizes]})
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -950,7 +1070,7 @@ def main(argv) -> int:
         row("quantize_rows", "cuda", quant_src,
             "src/repro/kernels/quantize.py:51", quant_cases[0][0], "C"),
         row("dequantize_rows", "cuda", quant_src,
-            "src/repro/kernels/quantize.py:77", quant_cases[0][1], "C"),
+            "src/repro/kernels/quantize.py:77", grouped_cases[0], "C"),
         row("linear_scan_chunked", "cuda",
             "src/repro_torch/kernels/csrc/linear_scan.cu",
             "src/repro/kernels/linear_scan.py:108", scan_cases[0], "E"),

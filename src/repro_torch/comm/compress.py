@@ -50,7 +50,9 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.ops import dequantize_int8_rows, quantize_int8_rows
+from repro_torch.kernels.ops import (dequantize_int8_rows,
+                                     dequantize_int8_rows_many,
+                                     quantize_int8_rows)
 from repro_torch.utils.pytree import (tree_leaves, tree_map,
                                       tree_unflatten)
 
@@ -161,18 +163,24 @@ def compress_tree(delta: Any, compression: str,
 def decompress_tree(payload: Any, scales: Optional[Any],
                     compression: str) -> Any:
     """Inverse of :func:`compress_tree` — an f32 tree (rows are read off the
-    scale leaf, so a stacked payload dequantizes per machine)."""
+    scale leaf, so a stacked payload dequantizes per machine).  Every leaf
+    dequantizes in one grouped call, in :func:`tree_leaves` order: one
+    kernel launch on the card."""
     if compression == "none":
         return payload
     if compression == "bf16":
         return tree_map(lambda x: x.float(), payload)
-
-    def leaf(q, s):
-        rows = s.numel()
-        out = dequantize_int8_rows(q.reshape(rows, -1), s.reshape(rows, 1))
-        return out.reshape(q.shape)
-
-    return tree_map(leaf, payload, scales)
+    qs, ss = tree_leaves(payload), tree_leaves(scales)
+    # a stacked leaf (P, …) with its (P, 1) scales goes as it is: row p is
+    # machine p's slice; anything else is reshaped to rows first
+    rows = [(q, s) if q.dim() and s.shape == (q.shape[0], 1)
+            else (q.reshape(s.numel(), -1), s.reshape(-1, 1))
+            for q, s in zip(qs, ss)]
+    outs = dequantize_int8_rows_many([q for q, _ in rows],
+                                     [s for _, s in rows])
+    return tree_unflatten(payload, [o if o.shape == q.shape
+                                    else o.reshape(q.shape)
+                                    for o, q in zip(outs, qs)])
 
 
 # --------------------------------------------------------------------------

@@ -50,8 +50,27 @@
 // Every thread of a row computes the same scale from the same max; the one
 // thread with l == 0 writes it.
 //
-// Dequantize runs a (row, column chunk) grid, so each thread knows its row
-// without dividing its index.
+// Design (dequantize).  Reads 1 byte and writes 4 per value, one multiply:
+// bound by memory traffic at (65536, 256); at the averaging shapes by the
+// launch, of which config C used to make one per parameter leaf.  So one
+// launch serves a table of up to 32 segments (q, scale, out, R, C), passed
+// by value as a __grid_constant__ parameter (no copy to the device): each
+// CTA finds its segment in the table's prefix of per-segment tile counts
+// (uniform over the CTA) and covers one tile of 2,048 values with 128
+// threads, so a small segment takes one CTA or part of one, an averaging
+// leaf of (8, 4096) 16 CTAs on as many SMs, and (65536, 256) 8,192 CTAs.  A warp takes a span of 512 contiguous values: each lane
+// loads 16 of them with one 16-byte load, the warp passes them through
+// shared memory, and each lane then writes four float4 stores, each of the
+// warp's stores 512 contiguous bytes (four whole 128-byte lines).  A
+// store's four values take their row from their index in the segment: at
+// most one row change among them when C >= 4, so one division and two
+// scale loads per four values, all issued with the 16-byte load (one round
+// trip to memory, not two).  A q that is not 16-byte aligned, a segment's
+// last partial span and rows of 1-3 values take byte loads and scalar
+// stores, a lane a value, every load before the first store.  The host builds
+// the table (quantize.segment_table) and its flat output, each segment's
+// output 16-byte aligned.  float(q) * scale is one exact conversion and one
+// correctly rounded multiply, as in the plain version: bit-equal.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -253,19 +272,108 @@ int launch_mode(const QuantArgs& a, int mode, int slots, int threads,
   }
 }
 
-__global__ void dequantize_rows_kernel(const int8_t* __restrict__ q,
-                                       const float* __restrict__ scale,
-                                       float* __restrict__ out, int c) {
-  const long long base = (long long)blockIdx.x * c;
-  const float s = scale[blockIdx.x];
-  for (int j = blockIdx.y * blockDim.x + threadIdx.x; j < c;
-       j += gridDim.y * blockDim.x) {
-    out[base + j] = static_cast<float>(q[base + j]) * s;
-  }
+// ---- dequantize: one launch over a table of segments
+constexpr int kDeqThreads = 128;
+constexpr int kChunk = 16;                   // int8 values a 16-byte load brings
+constexpr unsigned kSpan = 32 * kChunk;      // a warp's 16-byte loads: 512 values
+constexpr unsigned kTile = kDeqThreads * kChunk;  // a CTA's: 2,048 values
+constexpr int kMaxSegments = 32;
+
+// One dequantize: out (r, c) f32 = q (r, c) int8 * scale (r, 1) f32, all
+// contiguous; out 16-byte aligned, q any alignment.
+struct Segment {
+  const int8_t* q;
+  const float* scale;
+  float* out;
+  int r, c;
+};
+
+// The launch's segments, passed by value: CTA b serves segment s where
+// start[s] <= b < start[s + 1], as its tile b - start[s] of kTile values
+// (the last tile cut at r * c).
+struct SegmentTable {
+  Segment seg[kMaxSegments];
+  int start[kMaxSegments + 1];
+  int count;
+};
+static_assert(sizeof(SegmentTable) <= 4096,
+              "a kernel's parameters are limited to 4 KB");
+
+// value k (0..3) of the four packed little-endian in w, sign-extended
+__device__ __forceinline__ float byte_at(int w, int k) {
+  return static_cast<float>(static_cast<int8_t>(w >> (8 * k)));
 }
 
-// threads per CTA for a row of c values: whole warps, at most 256
-int row_threads(int c) { return c >= 256 ? 256 : ((c + 31) / 32) * 32; }
+__global__ void __launch_bounds__(kDeqThreads)
+dequantize_rows_kernel(const __grid_constant__ SegmentTable tab) {
+  __shared__ int4 stage[kDeqThreads];
+  const int b = blockIdx.x;
+  int s = 0;                                   // the same for the whole CTA
+  while (s + 1 < tab.count && b >= tab.start[s + 1]) ++s;
+  const Segment& g = tab.seg[s];
+  const unsigned c = static_cast<unsigned>(g.c);
+  const unsigned n = static_cast<unsigned>(g.r) * c;  // < 2^31 (host check)
+  const unsigned lane = threadIdx.x % 32;
+  // warp w of the CTA takes values base .. base + 511 of its segment
+  const unsigned base =
+      static_cast<unsigned>(b - tab.start[s]) * kTile + threadIdx.x / 32 * kSpan;
+  if (base >= n) return;                       // the warp has nothing
+  if ((reinterpret_cast<uintptr_t>(g.q) & 15) != 0 || base + kSpan > n ||
+      c < 4) {
+    // unaligned q, the segment's last partial span or rows of 1-3 values:
+    // a lane a value, every load issued before the first store
+    int8_t qv[kChunk];
+    float sv[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (base + 32 * j >= n) break;           // the same for the whole warp
+      const unsigned i = base + 32 * j + lane;
+      qv[j] = 0;
+      sv[j] = 0.f;
+      if (i < n) {
+        qv[j] = g.q[i];
+        sv[j] = __ldg(g.scale + i / c);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (base + 32 * j >= n) break;
+      const unsigned i = base + 32 * j + lane;
+      if (i < n) g.out[i] = static_cast<float>(qv[j]) * sv[j];
+    }
+    return;
+  }
+  const int4 w = __ldg(reinterpret_cast<const int4*>(g.q + base) + lane);
+  // this lane's store m writes values base + 4 (32 m + lane) .. + 3: at most
+  // one row change among them (C >= 4), after `left[m]` of the four; their
+  // scales are loaded while the 16-byte load is in flight (straight-line
+  // code, so no branch holds them back behind the shared-memory store)
+  float s0[4], s1[4];
+  unsigned left[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const unsigned i = base + 4 * (32 * m + lane);
+    const unsigned row = i / c;
+    left[m] = c - (i - row * c);
+    s0[m] = __ldg(g.scale + row);
+    s1[m] = __ldg(g.scale + row + (left[m] < 4 ? 1 : 0));
+  }
+  // lane v / 4 loaded the four values of word v % 4 of its 16 bytes
+  stage[threadIdx.x] = w;
+  __syncwarp();
+  const int* words = reinterpret_cast<const int*>(stage + threadIdx.x / 32 * 32);
+  float4* out = reinterpret_cast<float4*>(g.out + base);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const unsigned v = 32 * m + lane;
+    const int word = words[v];
+    float sc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[j] = j < left[m] ? s0[m] : s1[m];
+    out[v] = make_float4(byte_at(word, 0) * sc[0], byte_at(word, 1) * sc[1],
+                         byte_at(word, 2) * sc[2], byte_at(word, 3) * sc[3]);
+  }
+}
 
 }  // namespace
 
@@ -296,14 +404,36 @@ extern "C" int quantize_rows_f32(const float* x, const float* u, int8_t* q,
                   : launch_mode<1>(a, mode, slots, threads, grid, s);
 }
 
-extern "C" int dequantize_rows_f32(const int8_t* q, const float* scale,
-                                   float* out, int r, int c, void* stream) {
-  if (r == 0 || c == 0) return 0;
-  const int threads = row_threads(c);
-  int chunks = (c + threads - 1) / threads;
-  if (chunks > 65535) chunks = 65535;          // grid.y limit; the loop covers
-  dequantize_rows_kernel<<<dim3(r, chunks), threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(q, scale, out,
-                                                                c);
+// One launch over `count` (1..32) segments.  Segment s is q = ptrs[3s],
+// scale = ptrs[3s + 1], out = ptrs[3s + 2] (16-byte aligned), r = dims[2s],
+// c = dims[2s + 1], with r * c in [1, 2^31); start holds the prefix of the
+// segments' tiles of 2,048 values (quantize.segment_table), checked here.
+extern "C" int dequantize_rows_grouped_f32(const void* const* ptrs,
+                                           const int* dims, const int* start,
+                                           int count, void* stream) {
+  if (count < 1 || count > kMaxSegments || start[0] != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  SegmentTable tab = {};
+  tab.count = count;
+  for (int s = 0; s < count; ++s) {
+    const int r = dims[2 * s], c = dims[2 * s + 1];
+    const long long n = static_cast<long long>(r) * c;
+    const Segment g{static_cast<const int8_t*>(ptrs[3 * s]),
+                    static_cast<const float*>(ptrs[3 * s + 1]),
+                    static_cast<float*>(const_cast<void*>(ptrs[3 * s + 2])),
+                    r, c};
+    if (r < 1 || c < 1 || n >= (1LL << 31) || g.q == nullptr ||
+        g.scale == nullptr || g.out == nullptr ||
+        (reinterpret_cast<uintptr_t>(g.out) & 15) != 0 ||
+        start[s + 1] - start[s] != (n + kTile - 1) / kTile) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    tab.seg[s] = g;
+    tab.start[s] = start[s];
+  }
+  tab.start[count] = start[count];
+  dequantize_rows_kernel<<<start[count], kDeqThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(tab);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,14 +9,15 @@ interpret mode.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels.edge_softmax import edge_softmax
 from repro_torch.kernels.linear_scan import linear_scan_chunked
-from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
+from repro_torch.kernels.quantize import (dequantize_rows,
+                                         dequantize_rows_many, quantize_rows)
 from repro_torch.kernels.ref import edge_softmax_alpha
 from repro_torch.kernels.spmm import build_csr, row_split, spmm_csr
 
@@ -68,22 +69,29 @@ class _EdgeSoftmaxAggregate(torch.autograd.Function):
     Σ_f α gv)`` — the same cotangents as the JAX package's oracle VJP
     (masked slots and fully masked rows get zero, as there), written as
     explicit torch ops.  The mask gets no gradient.
+
+    As in the JAX op, the kernel computes in f32 on f32 copies of the
+    operands (a no-op for f32 ones), the output comes back in
+    ``vals.dtype`` and each cotangent in its primal's dtype.
     """
 
     @staticmethod
     def forward(ctx, scores, mask, vals):
-        ctx.save_for_backward(scores, mask, vals)
-        return edge_softmax(scores, mask, vals)
+        scores32, mask32, vals32 = scores.float(), mask.float(), vals.float()
+        ctx.save_for_backward(scores32, mask32, vals32)
+        ctx.dtypes = (scores.dtype, vals.dtype)
+        return edge_softmax(scores32, mask32, vals32).to(vals.dtype)
 
     @staticmethod
     def backward(ctx, g):
         scores, mask, vals = ctx.saved_tensors
+        scores_dtype, vals_dtype = ctx.dtypes
         alpha = edge_softmax_alpha(scores, mask)              # (N, F) f32
         g = g.float()
-        gv = torch.einsum("nfd,nd->nf", vals.float(), g)
+        gv = torch.einsum("nfd,nd->nf", vals, g)
         ds = alpha * (gv - (alpha * gv).sum(dim=-1, keepdim=True))
         dv = alpha[:, :, None] * g[:, None, :]
-        return ds.to(scores.dtype), None, dv.to(vals.dtype)
+        return ds.to(scores_dtype), None, dv.to(vals_dtype)
 
 
 def edge_softmax_aggregate_trainable(scores: torch.Tensor, mask: torch.Tensor,
@@ -113,6 +121,16 @@ def dequantize_int8_rows(vals: torch.Tensor,
                          scale: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`quantize_int8_rows`: f32 (R, C) ← q·scale."""
     return dequantize_rows(vals, scale.float())
+
+
+def dequantize_int8_rows_many(vals: List[torch.Tensor],
+                              scales: List[torch.Tensor]
+                              ) -> List[torch.Tensor]:
+    """:func:`dequantize_int8_rows` of each ``(vals[i] (R, …), scales[i]
+    (R, 1))``, in ``vals[i]``'s shape, all in one kernel launch on the card
+    (up to 32 pairs a launch)."""
+    return dequantize_rows_many(
+        vals, [s if s.dtype is torch.float32 else s.float() for s in scales])
 
 
 # --------------------------------------------------------------------------

@@ -10,8 +10,11 @@ caller's uniforms (stochastic rounding) or is ``None`` for a constant 0.5
 
 The quantize kernel (``csrc/quantize_rows.cu``) covers a row with a group
 of lanes, a CTA or a cluster of CTAs, as :func:`geometry` picks from (R,
-C), with 16-byte loads held in registers from the row max to the rounding;
-dequantize runs a (row, column chunk) grid.  Both divisions are correctly
+C), with 16-byte loads held in registers from the row max to the rounding.
+Dequantize serves a whole table of (q, scale) segments in one launch
+(:func:`dequantize_rows_many`, laid out by :func:`segment_table`), 16 int8
+values a 16-byte load; config C's averaging round of 13 parameter leaves is
+one launch.  Both divisions are correctly
 rounded (``__fdiv_rn``), so on the card ``q``, ``scale`` and the dequantized
 values are bit-equal to the plain versions in
 :mod:`repro_torch.kernels.ref`.  On a CPU tensor the wrappers run those
@@ -20,9 +23,11 @@ wrapper counts its launches.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+import math
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -113,9 +118,98 @@ def geometry(r: int, c: int, vec4: bool = True) -> Geometry:
                     max(1, r) * cluster)
 
 
-#: (pointer, int) operands of each C entry, which then takes the stream:
-#: quantize's ints are R, C and the seven fields of its Geometry.
-_OPERANDS = {"quantize_rows_f32": (4, 9), "dequantize_rows_f32": (3, 2)}
+#: Dequantize: a CTA's threads and the int8 values of one 16-byte load; a
+#: CTA covers one tile of ``TILE`` values of one segment (the kernel checks
+#: the table's tile counts against its own constants).
+DEQ_THREADS = 128
+CHUNK = 16
+TILE = DEQ_THREADS * CHUNK
+#: Segments one launch's table holds (a kernel parameter of < 4 KB).
+MAX_SEGMENTS = 32
+
+
+class SegmentTable(NamedTuple):
+    """How :func:`dequantize_rows_many` lays out and launches its segments.
+
+    Segment ``i`` of shape ``(R, C)`` writes floats ``offsets[i] ..
+    offsets[i] + R·C`` of one flat f32 buffer of ``size`` floats; every
+    offset is a multiple of 4 (16 bytes).  Each entry of ``launches`` is
+    one launch: ``(segments, start)``, the indices of up to
+    ``MAX_SEGMENTS`` non-empty segments and the prefix of their tiles.  CTA
+    ``b`` of that launch serves segment ``segments[s]`` where ``start[s] <=
+    b < start[s + 1]``, as its tile ``b - start[s]``: its warp ``w`` takes
+    the ``32 · CHUNK`` values from ``tile · TILE + w · 32 · CHUNK`` on, cut
+    at R·C.
+    """
+    offsets: Tuple[int, ...]
+    size: int
+    launches: Tuple[Tuple[Tuple[int, ...], Tuple[int, ...]], ...]
+
+
+@functools.lru_cache(maxsize=256)
+def segment_table(shapes: Tuple[Tuple[int, int], ...]) -> SegmentTable:
+    """The :class:`SegmentTable` of segments of ``(R, C)`` ``shapes``:
+    outputs packed in order, each rounded up to 16 bytes; empty segments
+    take no CTA and enter no launch; ``MAX_SEGMENTS`` segments a launch."""
+    offsets, size = [], 0
+    for r, c in shapes:
+        offsets.append(size)
+        size += -(-(r * c) // 4) * 4
+    live = [i for i, (r, c) in enumerate(shapes) if r * c > 0]
+    launches = []
+    for k in range(0, len(live), MAX_SEGMENTS):
+        segs = tuple(live[k:k + MAX_SEGMENTS])
+        start = [0]
+        for i in segs:
+            r, c = shapes[i]
+            start.append(start[-1] + -(-(r * c) // TILE))
+        launches.append((segs, tuple(start)))
+    return SegmentTable(tuple(offsets), size, tuple(launches))
+
+
+class _Plan(NamedTuple):
+    """What a call of :func:`dequantize_rows_many` needs of its q shapes
+    alone, built once per shape set: the table, each output's shape and
+    strides, and per launch its segments and the ctypes arrays of their
+    dims and tile prefix."""
+    table: SegmentTable
+    views: Tuple[Tuple[Tuple[int, ...], Tuple[int, ...], int], ...]
+    launches: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(qshapes: Tuple[Tuple[int, ...], ...],
+          sshapes: Tuple[Tuple[int, ...], ...]) -> _Plan:
+    """The :class:`_Plan` of q shapes ``qshapes`` with scales of
+    ``sshapes``; raises ``ValueError`` where they do not pair up."""
+    if len(qshapes) != len(sshapes):
+        raise ValueError(f"{len(qshapes)} q tensors but {len(sshapes)} "
+                         f"scales")
+    for qs, ss in zip(qshapes, sshapes):
+        if len(qs) == 0 or tuple(ss) != (qs[0], 1):
+            raise ValueError(f"q must be (R, ...) and scale (R, 1), got "
+                             f"{tuple(qs)} and {tuple(ss)}")
+    rc = tuple((s[0], math.prod(s[1:])) for s in qshapes)
+    if any(r * c >= 2 ** 31 for r, c in rc):
+        raise ValueError(f"dequantize_rows takes segments of < 2^31 values, "
+                         f"got {rc}")
+    table = segment_table(rc)
+    views = tuple((s, tuple(math.prod(s[d + 1:]) for d in range(len(s))), o)
+                  for s, o in zip(qshapes, table.offsets))
+    launches = []
+    for segs, start in table.launches:
+        dims = [d for i in segs for d in rc[i]]
+        launches.append((segs, (ctypes.c_int * len(dims))(*dims),
+                         (ctypes.c_int * len(start))(*start)))
+    return _Plan(table, views, tuple(launches))
+
+
+#: argtypes of each C entry, which then takes the stream: quantize's ints
+#: are R, C and the seven fields of its Geometry; dequantize takes the
+#: pointer, dims and tile-prefix arrays of a table and its segment count.
+_ARGTYPES = {
+    "quantize_rows_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9,
+    "dequantize_rows_grouped_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int]}
 _ENTRIES = {}
 
 
@@ -124,9 +218,7 @@ def _kernel(name: str):
     fn = _ENTRIES.get(name)
     if fn is None:
         fn = getattr(build.load("quantize_rows"), name)
-        pointers, ints = _OPERANDS[name]
-        fn.argtypes = [ctypes.c_void_p] * pointers + \
-            [ctypes.c_int] * ints + [ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _ENTRIES[name] = fn
     return fn
@@ -187,36 +279,75 @@ def quantize_rows(x: torch.Tensor, u: Optional[torch.Tensor] = None
     return q, scale
 
 
+def dequantize_rows_many(qs: Sequence[torch.Tensor],
+                         scales: Sequence[torch.Tensor]
+                         ) -> List[torch.Tensor]:
+    """``[q_i·scale_i]`` in f32 of ``q_i``'s shape ← ``q_i int8 (R_i, …)``
+    (row ``r`` is ``q_i[r]`` flattened; ``(R_i, C_i)`` in the 2-D case) and
+    ``scale_i f32 (R_i, 1)``, all on one device.
+
+    CPU tensors take the plain version per segment.  On CUDA tensors the
+    results are contiguous views of one flat f32 buffer, written by one
+    kernel launch per ``MAX_SEGMENTS`` non-empty segments, each counted in
+    ``dequantize_rows.launches``.  A segment holds fewer than 2^31 values.
+    """
+    # shapes are checked once per shape set, with the plan they key
+    plan = _plan(tuple([q.shape for q in qs]),
+                 tuple([scale.shape for scale in scales]))
+    if not qs:
+        return []
+    # get_device(): the CUDA index, -1 on the CPU (cheaper than .device)
+    dev = qs[0].get_device()
+    for q, scale in zip(qs, scales):
+        if q.get_device() != dev or scale.get_device() != dev:
+            raise ValueError("dequantize_rows: every q and scale must share "
+                             "a device")
+        if dev >= 0 and (q.dtype is not torch.int8
+                         or scale.dtype is not torch.float32):
+            raise ValueError(f"dequantize_rows takes int8 q and float32 "
+                             f"scale, got {q.dtype}/{scale.dtype}")
+    if dev < 0:
+        if qs[0].device.type != "cpu":
+            raise ValueError(f"dequantize_rows runs on cpu or cuda, not "
+                             f"{qs[0].device}")
+        return [dequantize_int8_rows_ref(
+                    q.reshape(q.shape[0], math.prod(q.shape[1:])),
+                    scale).view(q.shape)
+                for q, scale in zip(qs, scales)]
+    flat = scales[0].new_empty(plan.table.size)
+    outs = [torch.as_strided(flat, shape, strides, offset)
+            for shape, strides, offset in plan.views]
+    out_ptr = flat.data_ptr()
+    kernel = _kernel("dequantize_rows_grouped_f32")
+    copies = []            # of non-contiguous operands, kept to the launch
+    for segs, dims, start in plan.launches:
+        ptrs = array.array("Q")
+        for i in segs:
+            q, scale = qs[i], scales[i]
+            if not q.is_contiguous():
+                q = q.contiguous()
+                copies.append(q)
+            if not scale.is_contiguous():
+                scale = scale.contiguous()
+                copies.append(scale)
+            ptrs.extend((q.data_ptr(), scale.data_ptr(),
+                         out_ptr + 4 * plan.table.offsets[i]))
+        _check_err("dequantize_rows", build.launch_on(
+            dev, kernel, ptrs.buffer_info()[0], dims, start, len(segs)))
+        dequantize_rows.launches += 1
+    return outs
+
+
 def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``q·scale`` as f32 ``(R, C)`` ← ``q int8 (R, C)``, ``scale (R, 1)``.
+    """``q·scale`` as f32 ``(R, C)`` ← ``q int8 (R, C)``, ``scale (R, 1)``:
+    the one-segment case of :func:`dequantize_rows_many`.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     counted in ``dequantize_rows.launches``.
     """
-    if q.dim() != 2 or scale.shape != (q.shape[0], 1):
-        raise ValueError(f"q must be (R, C) and scale (R, 1), got "
-                         f"{tuple(q.shape)} and {tuple(scale.shape)}")
-    if not q.is_cuda:
-        if q.device.type != "cpu":
-            raise ValueError(f"dequantize_rows runs on cpu or cuda, not "
-                             f"{q.device}")
-        return dequantize_int8_rows_ref(q, scale)
-    dev = q.get_device()
-    if scale.get_device() != dev:
-        raise ValueError("dequantize_rows: q and scale must share a device")
-    if q.dtype is not torch.int8 or scale.dtype is not torch.float32:
-        raise ValueError("dequantize_rows takes int8 q and float32 scale, "
-                         f"got {q.dtype}/{scale.dtype}")
-    r, c = q.shape
-    out = scale.new_empty((r, c))
-    if r == 0 or c == 0:
-        return out
-    q, scale = _dense(q, scale)
-    _check_err("dequantize_rows", build.launch_on(
-        dev, _kernel("dequantize_rows_f32"), q.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), r, c))
-    dequantize_rows.launches += 1
-    return out
+    if q.dim() != 2:
+        raise ValueError(f"q must be (R, C), got {tuple(q.shape)}")
+    return dequantize_rows_many((q,), (scale,))[0]
 
 
 #: Kernel launches since the last reset (the plain CPU path never counts).

@@ -30,6 +30,7 @@ from repro.models.gnn.model import build_model as ref_build_model
 from repro_torch.comm import compress as comp
 from repro_torch.configs.gnn_datasets import SETTINGS
 from repro_torch.kernels import ops, quantize
+from repro_torch.kernels import ref as ref_k_torch
 from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
 from repro_torch.models.gnn.model import build_model
 from repro_torch.utils.pytree import tree_leaves, tree_map
@@ -186,6 +187,132 @@ def test_quantize_geometry_fills_the_card_at_the_averaging_shapes():
         g = quantize.geometry(r, c)
         assert g.cluster == 1 and g.row_warps == 1 and g.lanes < 32
         assert g.lanes * g.slots * g.vec >= c
+
+
+def _table_cover(table, shapes):
+    """How many times the dequantize kernel's warps write each float of
+    the flat output under ``table`` (the mapping ``quantize.SegmentTable``
+    documents, the segment found as the kernel finds it; a warp's span of
+    ``32 · CHUNK`` values is written once whichever path takes it)."""
+    cover = np.zeros(table.size, np.int64)
+    warps = quantize.DEQ_THREADS // 32
+    span = 32 * quantize.CHUNK
+    for segs, start in table.launches:
+        b = np.arange(start[-1])
+        s = (np.asarray(start[1:len(segs)])[None, :] <= b[:, None]).sum(1)
+        tile = b - np.asarray(start)[s]
+        w = np.arange(warps)[None, :, None]
+        j = np.arange(span)[None, None, :]
+        value = tile[:, None, None] * quantize.TILE + w * span + j
+        n = np.asarray([shapes[segs[i]][0] * shapes[segs[i]][1]
+                        for i in s])[:, None, None]
+        offset = np.asarray([table.offsets[segs[i]] for i in s])[:, None, None]
+        value, n, offset = np.broadcast_arrays(value, n, offset)
+        ok = value < n
+        np.add.at(cover, (offset + value)[ok], 1)
+    return cover
+
+
+# C's round (8 machines x the 13 leaves of SBSBS at hidden 64), rows of
+# 1, 8, 17 and 33 values, empty segments, more segments than a table holds
+_TABLES = {
+    "round": [(8, 4096)] * 2 + [(8, 2048)] * 2 + [(8, 512)] * 2
+             + [(8, 64)] * 6 + [(8, 8)],
+    "awkward": [(5, 1), (8, 8), (3, 17), (7, 33), (1, 1), (700, 300)],
+    "empty": [(0, 5), (3, 0), (4, 17), (0, 0), (2, 16)],
+    "split": [(i % 5 + 1, 3 + 7 * i) for i in range(70)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_TABLES))
+def test_segment_table_covers_every_value_once(name):
+    """Each value of each segment written exactly once, nothing between
+    them; outputs 16-byte aligned; empty segments in no launch; at most
+    ``MAX_SEGMENTS`` segments a launch."""
+    shapes = tuple(_TABLES[name])
+    table = quantize.segment_table(shapes)
+    sizes = [r * c for r, c in shapes]
+    live = [i for i, n in enumerate(sizes) if n]
+    assert all(o % 4 == 0 for o in table.offsets)
+    assert [i for segs, _ in table.launches for i in segs] == live
+    assert len(table.launches) == -(-len(live) // quantize.MAX_SEGMENTS)
+    for segs, start in table.launches:
+        assert 1 <= len(segs) <= quantize.MAX_SEGMENTS
+        assert start[0] == 0 and len(start) == len(segs) + 1
+        # the tile counts the C entry checks
+        assert [b - a for a, b in zip(start, start[1:])] == \
+            [-(-sizes[i] // quantize.TILE) for i in segs]
+    want = np.zeros(table.size, np.int64)
+    for o, n in zip(table.offsets, sizes):
+        assert want[o:o + n].sum() == 0             # no overlap
+        want[o:o + n] = 1
+    assert table.size < sum(sizes) + 4 * len(shapes)
+    np.testing.assert_array_equal(_table_cover(table, shapes), want)
+
+
+def test_segment_table_constants_are_the_kernels():
+    """The tile geometry the host lays out is the one the kernel runs."""
+    import re
+    src = (quantize.build.CSRC / "quantize_rows.cu").read_text()
+    for name, value in (("kDeqThreads", quantize.DEQ_THREADS),
+                        ("kChunk", quantize.CHUNK),
+                        ("kMaxSegments", quantize.MAX_SEGMENTS)):
+        found = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert found and int(found.group(1)) == value, name
+
+
+def test_grouped_dequantize_on_cpu_equals_plain_per_segment():
+    """The grouped wrapper on the CPU: the plain version per segment, bit
+    for bit, empty segments included, and no launch counted."""
+    rng = np.random.default_rng(9)
+    shapes = _TABLES["awkward"] + _TABLES["empty"] + _TABLES["split"]
+    qs = [torch.from_numpy(rng.integers(-127, 128, (r, c)).astype(np.int8))
+          for r, c in shapes]
+    ss = [torch.from_numpy(rng.random((r, 1)).astype(np.float32) + 1e-3)
+          for r, _ in shapes]
+    before = dequantize_rows.launches
+    outs = quantize.dequantize_rows_many(qs, ss)
+    assert dequantize_rows.launches == before
+    assert len(outs) == len(shapes)
+    for q, s, out in zip(qs, ss, outs):
+        assert out.dtype == torch.float32 and out.shape == q.shape
+        assert torch.equal(out, ref_k_torch.dequantize_int8_rows_ref(q, s))
+        assert torch.equal(dequantize_rows(q, s), out)
+    assert quantize.dequantize_rows_many([], []) == []
+    with pytest.raises(ValueError):
+        quantize.dequantize_rows_many(qs[:2], ss[:1])
+    with pytest.raises(ValueError):
+        quantize.dequantize_rows_many(qs[:2], [ss[0], ss[0]])
+
+
+@pytest.mark.parametrize("stacked", [True, False],
+                         ids=["stacked", "one_machine"])
+def test_decompress_tree_on_config_c_leaves_equals_jax_exactly(stacked):
+    """Config C's parameter leaves (SBSBS, 32 features, 8 classes, hidden
+    64) stacked over 8 machines (one scale per machine), or one machine's
+    leaves with one scale each: the same int8 payload and scales
+    dequantize to the same floats in both packages."""
+    P = 8 if stacked else 1
+    lead = (P,) if stacked else ()
+    rparams = ref_build_model("SBSBS", 32, 8, hidden_dim=64).init(0)
+    rng = np.random.default_rng(12)
+    payload = jax.tree_util.tree_map(
+        lambda a: rng.integers(-127, 128, lead + a.shape).astype(np.int8),
+        rparams)
+    scales = jax.tree_util.tree_map(
+        lambda a: (rng.random((P, 1)) * 1e-3 + 1e-6).astype(np.float32),
+        rparams)
+    assert len(jax.tree_util.tree_leaves(payload)) == 13
+    jd = ref_comp.decompress_tree(
+        jax.tree_util.tree_map(jnp.asarray, payload),
+        jax.tree_util.tree_map(jnp.asarray, scales), "int8_ef")
+    td = comp.decompress_tree(tree_map(torch.from_numpy, payload),
+                              tree_map(torch.from_numpy, scales), "int8_ef")
+    ours, theirs = tree_leaves(td), jax.tree_util.tree_leaves(jd)
+    assert len(ours) == len(theirs) == 13
+    for a, b in zip(ours, theirs):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_stochastic_rounding_is_unbiased():

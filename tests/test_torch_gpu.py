@@ -182,6 +182,85 @@ def test_quantize_kernel_bit_equal_on_unaligned_views_on_card(cuda, r, c,
     assert torch.equal(q, qr) and torch.equal(s, sr)
 
 
+def _grouped_operands(shapes, cuda, seed):
+    """int8 payloads in [-127, 127] and positive f32 scales for (R, C)
+    ``shapes``, on the card."""
+    rng = np.random.default_rng(seed)
+    qs = [torch.from_numpy(rng.integers(-127, 128, (r, c)).astype(np.int8))
+          .to(cuda) for r, c in shapes]
+    ss = [torch.from_numpy((rng.random((r, 1)) * 3e-2 + 1e-9).astype(
+        np.float32)).to(cuda) for r, _ in shapes]
+    return qs, ss
+
+
+# config C's round (8 machines x 13 leaves), rows of 1, 8, 17 and 33
+# values, empty segments, and more segments than a launch's table holds
+_GROUPED = {
+    "round": [(8, 4096)] * 2 + [(8, 2048)] * 2 + [(8, 512)] * 2
+             + [(8, 64)] * 6 + [(8, 8)],
+    "awkward": [(5, 1), (8, 8), (3, 17), (7, 33), (1, 1), (700, 300),
+                (65536, 256)],
+    "empty": [(0, 5), (3, 0), (4, 17), (0, 0), (2, 16)],
+    "split": [(i % 5 + 1, 3 + 7 * i) for i in range(70)],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(_GROUPED))
+def test_grouped_dequantize_bit_equal_plain_on_card(cuda, name):
+    """One launch per MAX_SEGMENTS non-empty segments (1 for C's 13-leaf
+    round), each result bit-equal to the plain version and contiguous."""
+    from repro_torch.kernels import quantize
+    shapes = _GROUPED[name]
+    qs, ss = _grouped_operands(shapes, cuda, len(shapes))
+    live = sum(1 for r, c in shapes if r * c)
+    want = -(-live // quantize.MAX_SEGMENTS)
+    assert want == (1 if name != "split" else 3)
+    before = dequantize_rows.launches
+    outs = quantize.dequantize_rows_many(qs, ss)
+    assert dequantize_rows.launches == before + want
+    for q, s, out in zip(qs, ss, outs):
+        assert out.shape == q.shape and out.is_contiguous()
+        assert torch.equal(out, ref.dequantize_int8_rows_ref(q, s))
+
+
+@pytest.mark.gpu
+def test_grouped_dequantize_bit_equal_on_unaligned_views_on_card(cuda):
+    """A q starting one byte past a 16-byte boundary (byte loads), a
+    non-contiguous q[:, 1:] (copied first) and aligned ones in one call."""
+    from repro_torch.kernels import quantize
+    qs, ss = _grouped_operands([(8, 4097), (9, 40), (3, 33)], cuda, 3)
+    flat = torch.cat([qs[0].new_zeros(1), qs[2].flatten()])
+    odd = flat[1:].view(3, 33)
+    assert odd.data_ptr() % 16 != 0 and torch.equal(odd, qs[2])
+    views = [qs[0][:, 1:], qs[1], odd]
+    before = dequantize_rows.launches
+    outs = quantize.dequantize_rows_many(views, ss)
+    assert dequantize_rows.launches == before + 1
+    for q, s, out in zip(views, ss, outs):
+        assert torch.equal(out, ref.dequantize_int8_rows_ref(q, s))
+
+
+@pytest.mark.gpu
+def test_grouped_dequantize_raises_on_a_refused_launch(cuda, monkeypatch):
+    """A table whose tile counts do not match its segments is refused by
+    the C entry; the wrapper raises and counts nothing."""
+    import ctypes
+    from repro_torch.kernels import quantize
+    qs, ss = _grouped_operands([(8, 4096), (8, 64)], cuda, 4)
+    quantize.dequantize_rows_many(qs, ss)            # built and loaded
+    plan = quantize._plan((qs[0].shape, qs[1].shape),
+                          (ss[0].shape, ss[1].shape))
+    bad = plan._replace(launches=(((0, 1), (ctypes.c_int * 4)(8, 4096, 8, 64),
+                                   (ctypes.c_int * 3)(0, 1, 2)),))
+    # 8 x 4096 values take 8 tiles, not 1
+    monkeypatch.setattr(quantize, "_plan", lambda *args: bad)
+    before = dequantize_rows.launches
+    with pytest.raises(RuntimeError, match="dequantize_rows kernel launch"):
+        quantize.dequantize_rows_many(qs, ss)
+    assert dequantize_rows.launches == before
+
+
 @pytest.mark.gpu
 def test_halo_fill_drops_padded_slots_on_card(cuda):
     """The padded destinations point one past the buffer: the sink row

@@ -214,6 +214,29 @@ def test_edge_softmax_backward_matches_jax_vjp(n, f, d):
     _close(tv.grad, jv)
 
 
+def test_edge_softmax_trainable_in_bf16_matches_jax():
+    """bf16 operands through the fused GAT op: f32 inside, bf16 out and
+    bf16 cotangents, as the JAX op; forward and both gradients within
+    bf16's 2e-2 (masked slots and fully masked rows included)."""
+    n, f, d = 16, 5, 8
+    s, m, v = _esm_inputs(n, f, d, 160)
+    g = np.random.default_rng(161).standard_normal((n, d)).astype(np.float32)
+    jb = lambda a: jnp.asarray(a, jnp.bfloat16)
+    jout, vjp = jax.vjp(ref_ops.edge_softmax_aggregate_trainable,
+                        jb(s), jb(m), jb(v))
+    js, _, jv = vjp(jb(g))
+    assert jout.dtype == js.dtype == jv.dtype == jnp.bfloat16
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    ts, tv = tb(s).requires_grad_(True), tb(v).requires_grad_(True)
+    out = ops.edge_softmax_aggregate_trainable(ts, tb(m), tv)
+    out.backward(tb(g))
+    assert out.dtype == ts.grad.dtype == tv.grad.dtype == torch.bfloat16
+    f32 = lambda a: np.asarray(jnp.asarray(a, jnp.float32))
+    for port, ref in ((out, jout), (ts.grad, js), (tv.grad, jv)):
+        _close(port.detach().float(), f32(ref), tol=2e-2)
+    assert float(out.detach()[: n // 8].abs().max()) == 0.0
+
+
 def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         edge_softmax(torch.zeros(4, 3), torch.zeros(4, 2),
