@@ -23,7 +23,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    same with 16 hubs of 4,096 neighbors; the chunked linear scan is
    checked in both conventions (RWKV6's strict one at the serving shapes,
    ragged and large; the plain one at Mamba2 widths) and must fit two CTAs
-   on each SM.
+   on each SM.  The ``csr`` aggregation layout (plain PyTorch, no kernel
+   of its own) is timed at config A's shape and on config F3's graph,
+   forward and forward + backward, eager and CUDA-graph replay, against
+   the SpMM (mean) and the padded fused edge-softmax route (GAT), and held
+   against them.
 3. Drive the trainer — ``build_trainer(data, model, plan).run()`` on the
    paper's ``reddit`` setting for 3 rounds — in four configurations:
    A (``llcg_plan``, arch SBSBS, server correction through the CSR SpMM
@@ -52,6 +56,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    E2 runs the f32 model on the card and on the CPU on one 77-token
    prompt: prefill logits, every layer's state and 4 teacher-forced
    decode steps must agree within the same tolerance.
+
+Between 3 and 4, configs F1–F3 run the server correction through the
+``csr`` layout, each through ``_drive``'s gates: F1 is config A's plan
+with ``server_agg_layout="csr"`` (exactly 0 SpMM launches, and A's
+trajectory within the CPU tolerance), F2 config B's GAT, not fused, with
+csr (exactly 0 edge-softmax launches), F3 ``server_agg_layout="auto"`` on
+a degree-skewed R-MAT graph of 16,384 nodes, which must resolve to csr.
+Phase P then drives the paper runner (``benchmarks/torch/
+paper_experiments.py``) on the card and on the CPU: ``fig2_and_fig4`` for
+3 rounds (all four ``run_*`` shims, each History held against the CPU's),
+``estimate_discrepancies`` on ``kappa_vs_gap``'s setting (random
+partition), ``run_subgraph_approx`` on fig11's for 3 rounds, and
+``run_llcg`` with ``server_agg_layout="bcsr_kernel"``, whose SpMM launches
+must be exactly rounds × S × (2 × aggregating layers − 1).
 
 With ``--baseline DIR`` (DIR: the root of an unpacked earlier commit, its
 ``src/repro_torch`` beside this script's), a last phase times the quantize,
@@ -100,6 +118,11 @@ SCAN_TOL = 2e-4
 # layers, × max(1, max|cpu|)
 LM_TOL = 1e-3
 E_SEED = 0
+# config F3: a degree-skewed R-MAT graph (8,933 of its nodes have no edge)
+F3_NODES = 16384
+F3_EDGES = 32768
+# phase P: rounds of each paper-runner call
+P_ROUNDS = 3
 E_PROMPTS = (192,) * 4 + (77,) * 4
 E_NEW_TOKENS = 32
 E_DECODE_STEPS = 4
@@ -132,14 +155,15 @@ def _time_ms(fn, iters: int = 20, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _graph_ms(fn, iters: int = 20) -> float:
+def _graph_ms(fn, iters: int = 20, warmup: int = 1) -> float:
     """Device time per launch: ``iters`` launches captured in one CUDA graph
     and replayed, so the host's launch cost drops out of the timing."""
     import torch
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        fn()                                        # warm-up off the graph
+        for _ in range(warmup):                     # warm-up off the graph
+            fn()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -481,6 +505,84 @@ def _scan_case(bh: int, t: int, d: int, strict: bool, with_h0: bool,
     return case
 
 
+def _csr_case(graph, label: str, seed: int, d: int = 64,
+              iters: int = 20) -> dict:
+    """The ``csr`` layout's aggregates (plain PyTorch: ``index_add`` and
+    ``scatter_reduce``, no kernel of their own) against the routes of the
+    ``bcsr_kernel`` layout at the same shapes: mean aggregation against
+    the SpMM (``bcsr_mean_aggregate``), the GAT softmax-aggregate from
+    (z, scores) against the padded table through the fused edge-softmax
+    op.  Forward and forward + backward, eager and CUDA-graph replay; each
+    csr result held against the kernel route's."""
+    import numpy as np
+    import torch
+    from repro_torch.graph.csr import build_neighbor_table
+    from repro_torch.kernels.ops import edge_softmax_aggregate_trainable
+    from repro_torch.models.gnn import agg
+    from repro_torch.models.gnn.layers import _gather
+
+    edges = agg.edge_operands(graph, device="cuda")
+    spmm_ops = agg.bcsr_operands(graph, "cuda")
+    table, mask = (torch.from_numpy(a).cuda()
+                   for a in build_neighbor_table(graph))
+    n, e = graph.num_nodes, graph.num_edges
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).cuda()
+    h, z, src, dst = f(n, d), f(n, d), f(n), f(n)
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(
+        np.float32)).cuda()
+
+    def fused_gat(z, src, dst):
+        # the GAT layer's fused route: index_select gathers (an index_add
+        # backward), scores, then the edge-softmax op
+        e_ = torch.nn.functional.leaky_relu(
+            src[:, None] + _gather(dst[None], table[None])[0], 0.2)
+        return edge_softmax_aggregate_trainable(
+            e_, mask, _gather(z[None], table[None])[0])
+
+    routes = {
+        "mean csr": (lambda h: agg.csr_mean_aggregate(h, edges), (h,)),
+        "mean spmm": (lambda h: agg.bcsr_mean_aggregate(h, spmm_ops), (h,)),
+        "gat csr": (lambda z, s, t: agg.csr_gat_aggregate(z, s, t, edges),
+                    (z, src, dst)),
+        "gat fused": (fused_gat, (z, src, dst)),
+    }
+    outs = {name: fn(*args) for name, (fn, args) in routes.items()}
+    torch.cuda.synchronize()
+    errs = {}
+    for op in ("mean", "gat"):
+        ref = outs[f"{op} {'spmm' if op == 'mean' else 'fused'}"]
+        err = float((outs[f"{op} csr"] - ref).abs().max())
+        tol = SPMM_TOL * max(1.0, float(ref.abs().max()))
+        _check(math.isfinite(err) and err <= tol, f"csr {op} {label}: max "
+               f"|csr - kernel route| {err} > {tol}")
+        errs[op] = err
+    times = {}
+    for name, (fn, args) in routes.items():
+        fwd = lambda: fn(*args)
+
+        def both():
+            # fresh leaves on the calling stream: a leaf used before on
+            # another stream would tie the captured backward to that stream
+            xs = [a.detach().requires_grad_(True) for a in args]
+            return torch.autograd.grad(fn(*xs), xs, g)
+        times[name] = {
+            "fwd_ms": _time_ms(fwd, iters=iters, warmup=min(10, iters)),
+            "fwd_device_ms": _graph_ms(fwd, iters=iters),
+            "fwd_bwd_ms": _time_ms(both, iters=iters,
+                                   warmup=min(10, iters)),
+            "fwd_bwd_device_ms": _graph_ms(both, iters=iters, warmup=3)}
+    # the csr mean's work: seg, nbr (int64) and the weight per edge, h read
+    # and out written once; an FMA per edge and column
+    bound_ms, bound_by = _bound(20 * e + 8 * n * d, 2.0 * e * d)
+    deg = graph.degrees()
+    return {"label": label, "shape": f"N {n}, E {e}, D {d}, max degree "
+            f"{int(deg.max())}, zero-degree rows {int((deg == 0).sum())}",
+            "max_abs_err": errs, "tol_rel": SPMM_TOL, "times": times,
+            "mean_csr_bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def _wrapper_times(src: str, cases: dict) -> dict:
     """Eager and CUDA-graph ms per call of the quantize, dequantize and
     edge-softmax wrappers of the ``repro_torch`` package under ``src``, at
@@ -609,7 +711,10 @@ def _device_busy_share(run) -> str:
             f"{host_s})")
 
 
-def _drive(name: str, data, model, plan, kernels) -> dict:
+def _drive(name: str, data, model, plan, kernels) -> tuple:
+    """Run ``plan`` on the card through ``build_trainer``: launch counts of
+    the counted run, round times, busy share, and the gates (finite,
+    accounting, agreement with the CPU run).  Returns ``(counts, hist)``."""
     import itertools
 
     import torch
@@ -687,6 +792,177 @@ def _drive(name: str, data, model, plan, kernels) -> dict:
     _check(hist.steps_cum == cpu.steps_cum
            and hist.bytes_cum == cpu.bytes_cum,
            f"config {name}: accounting differs from the CPU run")
+    return counts, hist
+
+
+def _same_trajectory(label: str, hist, ref, one_node: float) -> None:
+    """Gate two runs of the same math: losses within TRAJ_RTOL relative,
+    F1 within one eval node, byte and step accounting equal."""
+    series = lambda h, key: (h.train_loss if key == "train_loss"
+                             else h.meta.get(key, []))
+    for key in ("train_loss", "local_loss", "corr_loss"):
+        a, b = series(hist, key), series(ref, key)
+        _check(len(a) == len(b), f"{label}: {len(a)} {key} values, not "
+               f"{len(b)}")
+        for x, y in zip(a, b):
+            _check(math.isfinite(x) and abs(x - y)
+                   <= TRAJ_RTOL * max(1.0, abs(y)),
+                   f"{label}: {key} {x} vs {y}")
+    for x, y in zip(hist.val_score, ref.val_score):
+        _check(abs(x - y) <= one_node + 1e-6, f"{label}: F1 {x} vs {y}")
+    _check(hist.bytes_cum == ref.bytes_cum
+           and hist.steps_cum == ref.steps_cum,
+           f"{label}: accounting {hist.bytes_cum} {hist.steps_cum} vs "
+           f"{ref.bytes_cum} {ref.steps_cum}")
+
+
+def _f3_setting():
+    """Config F3: the reddit setting's model and plan on a degree-skewed
+    R-MAT graph, where ``server_agg_layout="auto"`` resolves to csr."""
+    from repro_torch.graph.datasets import rmat_graph
+    from repro_torch.models.gnn.model import build_model
+    data = rmat_graph(num_nodes=F3_NODES, num_edges=F3_EDGES,
+                      feature_dim=32, num_classes=8, seed=0)
+    model = build_model("SBSBS", data.feature_dim, data.num_classes,
+                        hidden_dim=64)
+    return data, model
+
+
+def _configs_f(data, cfg, plans, f3, hist_a, kernels) -> dict:
+    """Configs F1–F3: the server correction through the ``csr`` layout.
+    F1 (config A's plan) must launch no SpMM and follow A's trajectory;
+    F2 (config B's GAT, not fused) no edge softmax; F3 resolves ``auto``
+    to csr on F3's graph.  Each also passes ``_drive``'s gates."""
+    from repro_torch.core.plan import llcg_plan
+    from repro_torch.models.gnn.model import build_model
+
+    csr_cfg = dataclasses.replace(cfg, server_agg_layout="csr")
+    gat = build_model("GAT", data.feature_dim, data.num_classes,
+                      hidden_dim=64)
+    f3_data, f3_model = f3
+    f3_cfg = dataclasses.replace(cfg, server_agg_layout="auto")
+    counts = {}
+    counts["F1"], hist_f1 = _drive("F1", data, plans["A"][0],
+                                   llcg_plan(csr_cfg), kernels)
+    counts["F2"], _ = _drive("F2", data, gat, llcg_plan(csr_cfg), kernels)
+    counts["F3"], hist_f3 = _drive("F3", f3_data, f3_model,
+                                   llcg_plan(f3_cfg), kernels)
+    _check(hist_f1.meta["corr_agg_layout"] == "csr",
+           f"config F1 ran {hist_f1.meta['corr_agg_layout']}")
+    _check(counts["F1"]["spmm_csr"] == 0, f"config F1 launched spmm_csr "
+           f"{counts['F1']['spmm_csr']} times, not 0")
+    _check(counts["F2"]["edge_softmax"] == 0, f"config F2 launched "
+           f"edge_softmax {counts['F2']['edge_softmax']} times, not 0")
+    _check(hist_f3.meta["corr_agg_layout"] == "csr",
+           f"config F3: auto resolved to {hist_f3.meta['corr_agg_layout']}")
+    _same_trajectory("config F1 vs A", hist_f1, hist_a,
+                     1.0 / len(data.val_nodes))
+    return counts
+
+
+def _paper_phase(kernels) -> dict:
+    """Phase P: the paper runner (``benchmarks/torch/paper_experiments``)
+    on the card, each result held against the same call on the CPU:
+    ``fig2_and_fig4`` (all four ``run_*`` shims), κ² on ``kappa_vs_gap``'s
+    setting, ``run_subgraph_approx`` on fig11's, and ``run_llcg`` with the
+    SpMM carrying the correction (an exact launch count)."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from benchmarks.torch import paper_experiments as paper
+    from repro_torch.core import (DistConfig, estimate_discrepancies,
+                                  run_llcg)
+    from repro_torch.core.subgraph_approx import run_subgraph_approx
+    from repro_torch.graph import partition_graph, sbm_graph
+    from repro_torch.kernels.spmm import spmm_csr
+    from repro_torch.models.gnn import build_model
+
+    # fig2: record each shim's History as the runner calls it
+    shims = ("run_psgd_pa", "run_llcg", "run_ggs", "run_single_machine")
+    runs = {}
+    for role, dev in (("card", "cuda"), ("cpu", "cpu")):
+        hists = runs[role] = []
+        originals = {name: getattr(paper, name) for name in shims}
+
+        def recording(fn):
+            def run(*args, **kw):
+                hists.append(fn(*args, **kw))
+                return hists[-1]
+            return run
+        for name, fn in originals.items():
+            setattr(paper, name, recording(fn))
+        try:
+            t0 = time.perf_counter()
+            rows = paper.fig2_and_fig4(rounds=P_ROUNDS, device=dev)
+            if role == "card":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for name, fn in originals.items():
+                setattr(paper, name, fn)
+        print(f"phase P fig2_and_fig4 on {dev}: {len(rows)} rows in "
+              f"{wall:.3f} s")
+    one_node = 1.0 / len(paper._dataset().val_nodes)
+    _check(len(runs["card"]) == len(shims) == len(runs["cpu"]),
+           f"phase P: fig2 ran {len(runs['card'])} strategies")
+    for name, a, b in zip(shims, runs["card"], runs["cpu"]):
+        _check(a.meta["device"] == "cuda", f"phase P {name} ran on "
+               f"{a.meta['device']}")
+        _same_trajectory(f"phase P {name}", a, b, one_node)
+        print(f"phase P {name}: val_f1 {a.val_score} train_loss "
+              f"{a.train_loss} bytes_cum {a.bytes_cum}")
+
+    # κ² on kappa_vs_gap's setting, one partition method
+    ds = paper._dataset(seed=4)
+    model = build_model("GG", ds.feature_dim, ds.num_classes, hidden_dim=32)
+    part = partition_graph(ds.graph, 4, method="random")
+    est = {role: estimate_discrepancies(ds, part, model,
+                                        model.init(0, device=dev), fanout=8,
+                                        num_sampling_trials=3)
+           for role, dev in (("card", "cuda"), ("cpu", "cpu"))}
+    for field in dataclasses.fields(est["cpu"]):
+        a = getattr(est["card"], field.name)
+        b = getattr(est["cpu"], field.name)
+        _check(abs(a - b) <= TRAJ_RTOL * abs(b) + 1e-7,
+               f"phase P estimate_discrepancies {field.name}: {a} vs {b}")
+    print(f"phase P estimate_discrepancies (random): card {est['card']}, "
+          f"cpu {est['cpu']}")
+
+    # subgraph approximation on fig11's setting, first seed
+    ds11 = sbm_graph(num_nodes=480, num_classes=4, feature_dim=16,
+                     feature_snr=0.08, homophily=0.96, avg_degree=14, seed=6)
+    m11 = build_model("GG", ds11.feature_dim, ds11.num_classes,
+                      hidden_dim=32)
+    cfg11 = paper._base_cfg(rounds=P_ROUNDS, local_k=2, correction_steps=1,
+                            seed=6)
+    apx = {role: run_subgraph_approx(ds11, m11, cfg11, device=dev)
+           for role, dev in (("card", "cuda"), ("cpu", "cpu"))}
+    _same_trajectory("phase P run_subgraph_approx", apx["card"], apx["cpu"],
+                     1.0 / len(ds11.val_nodes))
+    print(f"phase P run_subgraph_approx: val_f1 {apx['card'].val_score} "
+          f"storage {apx['card'].meta['storage_overhead_bytes']} bytes")
+
+    # LLCG with the correction through the SpMM: per correction step, one
+    # forward launch per aggregating layer and one backward launch for each
+    # but the first, whose input (the features) takes no gradient
+    cfg = dataclasses.replace(paper._base_cfg(rounds=P_ROUNDS),
+                              server_agg_layout="bcsr_kernel")
+    gg = build_model("GG", ds.feature_dim, ds.num_classes, hidden_dim=32)
+    data2 = paper._dataset()
+    run_llcg(data2, gg, cfg, device="cuda")              # warm-up
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    hist = run_llcg(data2, gg, cfg, device="cuda")
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in kernels}
+    n_agg = sum(op in "GS" for op in gg.arch)
+    want = P_ROUNDS * cfg.correction_steps * (2 * n_agg - 1)
+    _check(counts["spmm_csr"] == want, f"phase P run_llcg launched "
+           f"spmm_csr {counts['spmm_csr']} times, not {want}")
+    _same_trajectory("phase P run_llcg bcsr_kernel", hist,
+                     run_llcg(data2, gg, cfg, device="cpu"), one_node)
+    print(f"phase P run_llcg bcsr_kernel: launches {counts}; val_f1 "
+          f"{hist.val_score}")
     return counts
 
 
@@ -1010,14 +1286,22 @@ def main(argv) -> int:
             print(f"dequantize_rows grouped {json.dumps(c)}")
         for c in scan_cases:
             print(f"linear_scan_chunked {json.dumps(c)}")
+        # the csr layout at config A's shape and on F3's graph
+        f3 = _f3_setting()
+        for c in (_csr_case(data.graph, "slice", 70),
+                  _csr_case(f3[0].graph, "F3", 71, iters=5)):
+            print(f"csr_layout {json.dumps(c)}")
         occ = {conv: ctas_per_sm(conv == "strict")
                for conv in ("strict", "plain")}
         print(f"linear_scan_chunked: CTAs per SM {occ} (two per batch·head)")
         _check(min(occ.values()) >= 2, f"linear_scan_chunked fits "
                f"{occ} CTAs per SM, not 2")
 
-        counts = {name: _drive(name, data, *plans[name], all_kernels)
-                  for name in plans}
+        hists = {}
+        counts = {}
+        for name in plans:
+            counts[name], hists[name] = _drive(name, data, *plans[name],
+                                               all_kernels)
         _check(counts["A"]["spmm_csr"] > 0,
                "config A launched no SpMM kernel")
         # B: every GAT layer's aggregation in K local steps, S correction
@@ -1040,6 +1324,9 @@ def main(argv) -> int:
             _check(counts[name][k] == want,
                    f"config {name} launched {k} {counts[name][k]} "
                    f"times, not {want}")
+        counts.update(_configs_f(data, cfg, plans, f3, hists["A"],
+                                 all_kernels))
+        counts["P"] = _paper_phase(all_kernels)
         counts["E"] = _config_e(all_kernels)
         if baseline is not None:
             _compare(baseline, {

@@ -11,10 +11,13 @@ elementwise — updates the stack at once.  The K steps are a Python loop.
 :func:`halo_fill` is the per-step half of the engine's ``halo`` round mode:
 it splices the exchanged cut-node features into every machine's extended
 feature rows (:class:`repro_torch.graph.halo.HaloProgram` supplies the
-index tables).
+index tables).  :func:`make_machine_step` is the single-step building
+block of one machine, which the subgraph-approximation baseline and
+differential tests drive.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Sequence
 
 import torch
@@ -24,6 +27,15 @@ from repro_torch.models.gnn.model import (GNNModel, cross_entropy_on_batch,
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
                                           masked_update)
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class MachineStep:
+    """One machine's step functions (the JAX package's jitted pair, run
+    eagerly on the tensors' device)."""
+
+    local_step: Callable
+    loss_and_grad: Callable
 
 
 def make_loss_fn(model: GNNModel) -> Callable:
@@ -99,6 +111,35 @@ def make_local_round(model: GNNModel, optimizer: Optimizer,
         return p, o, torch.stack(losses)
 
     return local_round
+
+
+def make_machine_step(model: GNNModel, optimizer: Optimizer) -> MachineStep:
+    """The SGD step of Algorithm 1/2 lines 6-8 on ONE machine's view.
+
+    Inputs per call (unstacked, no machine axis):
+      feats  (N, d)    local (padded) features
+      table  (N, F)    this step's sampled neighbor table
+      mask   (N, F)    validity
+      batch  (B,)      mini-batch node indices (local)
+      labels (N,)      local labels
+      bmask  (B,)      1.0 for real batch entries (padding-safe)
+    """
+    loss_fn = make_loss_fn(model)
+
+    def loss_and_grad(params, feats, table, mask, batch, labels, bmask):
+        loss, grads = value_and_grad(
+            loss_fn, tree_map(lambda x: x[None], params), feats[None],
+            table[None], mask[None], batch[None], labels[None], bmask[None])
+        return loss[0], tree_map(lambda g: g[0], grads)
+
+    def local_step(params, opt_state, feats, table, mask, batch, labels,
+                   bmask):
+        loss, grads = loss_and_grad(params, feats, table, mask, batch,
+                                    labels, bmask)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    return MachineStep(local_step=local_step, loss_and_grad=loss_and_grad)
 
 
 def halo_fill(feats: torch.Tensor, gathered_flat: torch.Tensor,

@@ -28,8 +28,7 @@ halo features, and every byte count prices the compressed wire format.
 
 Not ported yet, and refused with the ROADMAP item that brings them:
 checkpointing (Queue 1 item 9), device-placed sampling and prefetch
-(item 10), the device-per-machine backend (item 12) and the ``csr``
-aggregation layout (item 5).
+(item 10) and the device-per-machine backend (item 12).
 """
 from __future__ import annotations
 
@@ -46,7 +45,7 @@ from repro_torch.core.engine import (
     EngineConfig, EngineState, History, RoundInputs, RoundProgram,
     run_schedule,
 )
-from repro_torch.core.machine import make_eval_fn
+from repro_torch.core.machine import make_eval_fn, make_machine_step
 from repro_torch.core.schedules import KBucketing, local_epoch_schedule
 from repro_torch.data.graph_loader import make_shard_loaders, sample_round
 from repro_torch.graph.csr import build_neighbor_table
@@ -106,8 +105,9 @@ class LocalSpec:
         _check(self.agg_layout in ("padded", "auto"),
                f"LocalSpec.agg_layout {self.agg_layout!r} is not available: "
                "local rounds train on sampled neighbor tables, which the "
-               "full-graph layouts cannot represent; put 'bcsr_kernel' on "
-               "ServerSpec.agg_layout for the full-neighbor correction")
+               "full-graph layouts cannot represent; put 'csr' or "
+               "'bcsr_kernel' on ServerSpec.agg_layout for the "
+               "full-neighbor correction")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,14 +129,12 @@ class ServerSpec:
         _check(self.agg_layout in AGG_LAYOUTS,
                f"unknown agg_layout {self.agg_layout!r}; "
                f"choose one of {AGG_LAYOUTS}")
-        _check(self.agg_layout != "csr",
-               _not_ported("the 'csr' aggregation layout",
-                           "5, the csr layout"))
         _check(not (self.correction_sampling
-                    and self.agg_layout == "bcsr_kernel"),
+                    and self.agg_layout in ("csr", "bcsr_kernel")),
                "correction_sampling draws per-step subsampled tables, which "
-               "the 'bcsr_kernel' layout cannot represent (it encodes the "
-               "full edge set) — use agg_layout='padded' or 'auto'")
+               f"the {self.agg_layout!r} layout cannot represent (it "
+               "encodes the full edge set) — use agg_layout='padded' or "
+               "'auto' with the sampling-at-correction ablation")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -496,6 +494,7 @@ class RoundSampler:
         self.labels = self._dev(labels)
 
         self.opt = make_optimizer(loc.optimizer, loc.lr)
+        self.step = make_machine_step(model, self.opt)
         server_lr = srv.server_lr if srv.server_lr is not None else loc.lr
         self.server_opt = make_optimizer(loc.optimizer, server_lr)
         self.eval_fn = make_eval_fn(model)
@@ -591,6 +590,14 @@ class RoundSampler:
             halo_dest_idx=self._dev(hp.dest_idx),
             halo_recv_valid=self._dev(hp.recv_valid))
         self._halo_built = True
+
+    # ---------------------------------------------------------------- local
+    def local_batch(self, p: int):
+        """One mini-batch of machine ``p``'s train nodes (numpy), drawn
+        from the shared RNG, and its all-ones validity mask."""
+        batch = sample_minibatch(self.loaders[p].train_nodes,
+                                 self.batch_size, self.rng).astype(np.int32)
+        return batch, _f32_mask(self.batch_size)
 
     # --------------------------------------------------------------- server
     def correction_operands(self):

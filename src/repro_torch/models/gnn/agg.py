@@ -18,8 +18,13 @@ This module makes the layout a selectable property:
     block-sparse tiles; on the card the operands are CSR.
 
 ``layout="csr"``
-    The edge-centric segment-sum path of the JAX package.  Not ported yet:
-    asking for it raises (ROADMAP Queue 1 item 5).
+    The edge-centric path: a segment sum over the graph's edge list costs
+    ``E·d`` with no padding.  The mean/sym reductions go through
+    :func:`edge_weighted_sum`, an ``autograd.Function`` whose backward is
+    the transposed scatter-add over edges, never a dense-table gradient;
+    the GAT softmax is a per-edge, segment-max-stabilized softmax.  Plain
+    PyTorch (``index_add`` / ``scatter_reduce``), as the JAX package
+    computes it outside any Pallas kernel.
 
 ``layout="auto"``
     :func:`choose_layout` picks per (graph, table width, sampling) with the
@@ -45,9 +50,21 @@ LAYOUTS = ("padded", "csr", "bcsr_kernel", "auto")
 #: work.
 AUTO_THRESHOLD = 2.0
 
-_CSR_NOT_PORTED = ("the 'csr' aggregation layout is not ported yet "
-                   "(ROADMAP Queue 1 item 5, the csr layout); use 'padded' or "
-                   "'bcsr_kernel'")
+
+@dataclasses.dataclass(frozen=True)
+class EdgeCSR:
+    """Edge-list operands of one graph for the ``csr`` layout, on a device.
+
+    ``seg[e]`` is the owning (destination) row of edge ``e`` and ``nbr[e]``
+    the neighbor gathered from; both are int64, torch's index dtype.  A
+    single graph has no padding edge, so ``emask`` is all ones.
+    """
+
+    seg: torch.Tensor         # (E,) int64 — owner row per edge
+    nbr: torch.Tensor         # (E,) int64 — neighbor row per edge
+    w_mean: torch.Tensor      # (E,) f32 — 1/max(deg,1)[seg]
+    emask: torch.Tensor       # (E,) f32 — 1 on every real edge
+    num_segments: int         # output row count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +91,8 @@ class AggOperands:
     ``GNNModel.apply`` down to the aggregate ops.  ``None`` anywhere in the
     stack means the padded path."""
 
-    layout: str               # "bcsr_kernel"
+    layout: str               # "csr" | "bcsr_kernel"
+    edges: Optional[EdgeCSR] = None
     bcsr: Optional[BCSROps] = None
 
 
@@ -84,6 +102,28 @@ def _graph_cache(graph: CSRGraph) -> dict:
         cache = {}
         object.__setattr__(graph, "_agg_operand_cache", cache)
     return cache
+
+
+def edge_operands(graph: CSRGraph, num_segments: Optional[int] = None,
+                  device="cuda") -> EdgeCSR:
+    """One graph's :class:`EdgeCSR` on ``device``, built once per (row
+    count, device) and cached on the graph."""
+    ns = graph.num_nodes if num_segments is None else int(num_segments)
+    device = torch.device(device)
+    cache = _graph_cache(graph)
+    key = ("edges", ns, str(device))
+    ops = cache.get(key)
+    if ops is not None:
+        return ops
+    src, dst = graph.to_edges()
+    deg = np.maximum(graph.degrees(), 1).astype(np.float32)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    ops = EdgeCSR(seg=dev(src.astype(np.int64)), nbr=dev(dst.astype(np.int64)),
+                  w_mean=dev((1.0 / deg)[src].astype(np.float32)),
+                  emask=dev(np.ones(src.shape[0], np.float32)),
+                  num_segments=ns)
+    cache[key] = ops
+    return ops
 
 
 def bcsr_operands(graph: CSRGraph, device) -> BCSROps:
@@ -111,7 +151,7 @@ def build_agg_operands(graph: CSRGraph, layout: str,
     if layout in (None, "padded"):
         return None
     if layout == "csr":
-        raise ValueError(_CSR_NOT_PORTED)
+        return AggOperands("csr", edges=edge_operands(graph, device=device))
     if layout == "bcsr_kernel":
         return AggOperands("bcsr_kernel", bcsr=bcsr_operands(graph, device))
     raise ValueError(f"unknown aggregation layout {layout!r}; "
@@ -140,6 +180,89 @@ def choose_layout(layout: str, *, num_nodes: int, num_edges: int,
     if padded_work >= threshold * max(int(num_edges), 1):
         return "csr"
     return "padded"
+
+
+# --------------------------------------------------------------------------
+# Edge-centric primitives (csr layout)
+# --------------------------------------------------------------------------
+class _EdgeWeightedSum(torch.autograd.Function):
+    """``out[i] = Σ_{e: seg[e]=i} w[e]·x[nbr[e]]``.  The backward is the
+    transposed scatter-add over edges (the JAX package's ``_ews_bwd``):
+    ``x̄[j] = Σ_{e: nbr[e]=j} w[e]·ḡ[seg[e]]``, and ``w̄`` only where it is
+    asked for; the index operands get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, seg, nbr, num_segments):
+        ctx.save_for_backward(x, w, seg, nbr)
+        ctx.num_segments = num_segments
+        return x.new_zeros((num_segments, x.shape[1])).index_add_(
+            0, seg, x.index_select(0, nbr) * w[:, None])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, seg, nbr = ctx.saved_tensors
+        ns = ctx.num_segments
+        ge = g.index_select(0, seg.clamp_max(ns - 1))
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.zeros_like(x).index_add_(0, nbr, ge * w[:, None])
+        if ctx.needs_input_grad[1]:
+            gw = torch.where(seg < ns, (ge * x.index_select(0, nbr)).sum(-1),
+                             0.0).to(w.dtype)
+        return gx, gw, None, None, None
+
+
+def edge_weighted_sum(h: torch.Tensor, seg: torch.Tensor, nbr: torch.Tensor,
+                      w: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``out[i] = Σ_{e: seg[e]=i} w[e]·h[nbr[e]]`` — E·d work, no padding;
+    ``w`` is taken in ``h``'s dtype."""
+    return _EdgeWeightedSum.apply(h, w.to(h.dtype), seg, nbr,
+                                  int(num_segments))
+
+
+def csr_mean_aggregate(h: torch.Tensor, edges: EdgeCSR) -> torch.Tensor:
+    """Edge-centric mean aggregation: the 1/deg normalization is folded
+    into the per-edge weights."""
+    return edge_weighted_sum(h, edges.seg, edges.nbr, edges.w_mean,
+                             edges.num_segments)
+
+
+def csr_sym_aggregate(h: torch.Tensor, edges: EdgeCSR,
+                      normalizers: torch.Tensor) -> torch.Tensor:
+    """Edge-centric ``Σ_j h_j · nrm_i · nrm_j`` for any runtime normalizer
+    vector."""
+    nrm = normalizers.to(h.dtype)
+    segc = edges.seg.clamp_max(edges.num_segments - 1)
+    w = (edges.emask.to(h.dtype) * nrm.index_select(0, segc)
+         * nrm.index_select(0, edges.nbr))
+    return edge_weighted_sum(h, edges.seg, edges.nbr, w, edges.num_segments)
+
+
+def csr_gat_aggregate(z: torch.Tensor, src_score: torch.Tensor,
+                      dst_score: torch.Tensor, edges: EdgeCSR,
+                      negative_slope: float = 0.2) -> torch.Tensor:
+    """Edge-centric masked GAT softmax-aggregate.
+
+    Per-edge scores, a segment-max-stabilized softmax over each node's
+    real edges, then the weighted segment sum — all E-sized.  The max is a
+    constant shift per segment (its gradient cancels), so it is detached;
+    rows with no edge keep the −1e30 fill, so their numerators sum to 0
+    and the output row is exactly 0, as on the padded path.
+    """
+    seg, nbr, emask, ns = edges.seg, edges.nbr, edges.emask, edges.num_segments
+    segc = seg.clamp_max(ns - 1)
+    e = src_score.index_select(0, segc) + dst_score.index_select(0, nbr)
+    e = torch.nn.functional.leaky_relu(e, negative_slope)
+    neg = -1e30
+    with torch.no_grad():
+        m = torch.full((ns,), neg, dtype=e.dtype, device=e.device)
+        m = m.scatter_reduce(0, seg, torch.where(emask > 0, e, neg), "amax",
+                             include_self=False)
+    num = torch.exp(e - m.index_select(0, segc)) * emask.to(e.dtype)
+    den = num.new_zeros(ns).index_add(0, seg, num)
+    out = z.new_zeros((ns, z.shape[1])).index_add(
+        0, seg, num[:, None] * z.index_select(0, nbr))
+    return out / den.clamp_min(1e-30)[:, None]
 
 
 # --------------------------------------------------------------------------

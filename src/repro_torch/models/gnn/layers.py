@@ -13,9 +13,10 @@ the flattened ``(B·N, d)`` rows + a masked mean.  A single graph is the
 B = 1 stack (:meth:`repro_torch.models.gnn.model.GNNModel.apply`).
 
 Aggregate ops also accept prebuilt :class:`repro_torch.models.gnn.agg.
-AggOperands` (``agg=``, one graph, B = 1): ``bcsr_kernel`` routes the mean
-aggregation through the BCSR SpMM kernel and the GAT softmax-aggregate
-through the fused edge-softmax kernel.
+AggOperands` (``agg=``, one graph, B = 1): ``csr`` replaces the
+``N·fanout·d`` dense gather with an ``E·d`` edge-centric segment sum;
+``bcsr_kernel`` routes the mean aggregation through the BCSR SpMM kernel
+and the GAT softmax-aggregate through the fused edge-softmax kernel.
 """
 from __future__ import annotations
 
@@ -24,7 +25,10 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.gnn.agg import AggOperands, bcsr_mean_aggregate
+from repro_torch.models.gnn.agg import (
+    AggOperands, bcsr_mean_aggregate, bcsr_sym_aggregate, csr_gat_aggregate,
+    csr_mean_aggregate, csr_sym_aggregate,
+)
 
 
 def _flat_index(table: torch.Tensor, n: int) -> torch.Tensor:
@@ -61,12 +65,30 @@ def mean_aggregate(h: torch.Tensor, table: torch.Tensor, mask: torch.Tensor,
                    agg: Optional[AggOperands] = None) -> torch.Tensor:
     """(1/|Ñ(v)|) Σ_{j∈Ñ(v)} h_j — the paper's mean aggregation."""
     if agg is not None:
+        _single_graph(h)
+        if agg.layout == "csr":
+            return csr_mean_aggregate(h[0], agg.edges)[None]
         if agg.layout == "bcsr_kernel":
-            _single_graph(h)
             return bcsr_mean_aggregate(h[0], agg.bcsr)[None]
         raise ValueError(f"unsupported aggregation layout {agg.layout!r}")
     s = torch.einsum("bnfd,bnf->bnd", _gather(h, table), mask)
     return s / mask.sum(-1, keepdim=True).clamp_min(1.0)
+
+
+def sym_aggregate(h: torch.Tensor, table: torch.Tensor, mask: torch.Tensor,
+                  normalizers: torch.Tensor,
+                  agg: Optional[AggOperands] = None) -> torch.Tensor:
+    """Σ_j h_j / sqrt(deg_i · deg_j) — GCN symmetric-Laplacian aggregation;
+    ``normalizers`` is (B, N), one vector per graph."""
+    if agg is not None:
+        _single_graph(h)
+        if agg.layout == "csr":
+            return csr_sym_aggregate(h[0], agg.edges, normalizers[0])[None]
+        if agg.layout == "bcsr_kernel":
+            return bcsr_sym_aggregate(h[0], agg.bcsr, normalizers[0])[None]
+        raise ValueError(f"unsupported aggregation layout {agg.layout!r}")
+    coef = mask * _gather(normalizers, table) * normalizers[..., None]
+    return torch.einsum("bnfd,bnf->bnd", _gather(h, table), coef)
 
 
 def gcn_layer(params: Dict, h: torch.Tensor, table: torch.Tensor,
@@ -94,26 +116,34 @@ def gat_layer(params: Dict, h: torch.Tensor, table: torch.Tensor,
 
     ``fused=True`` — or ``agg`` with the ``bcsr_kernel`` layout — routes the
     softmax-aggregate through the edge-softmax kernel with its analytic
-    backward; the (B·N, F) rows of every graph go to one launch.
+    backward; the (B·N, F) rows of every graph go to one launch.  The
+    ``csr`` layout computes per-edge scores and an edge-centric segment
+    softmax instead of the padded (N, fanout) slots.
     """
-    if agg is not None and agg.layout != "bcsr_kernel":
+    if agg is not None and agg.layout not in ("csr", "bcsr_kernel"):
         raise ValueError(f"unsupported aggregation layout {agg.layout!r}")
     z = h @ params["w"]                                   # (B, N, d')
     src_score = torch.einsum("bnd,bd->bn", z, params["a_src"])
     dst_score = torch.einsum("bnd,bd->bn", z, params["a_dst"])
-    e = src_score[:, :, None] + _gather(dst_score, table)  # (B, N, F)
-    e = F.leaky_relu(e, negative_slope)
-    zt = _gather(z, table)                                # (B, N, F, d')
-    if fused or agg is not None:
-        from repro_torch.kernels.ops import edge_softmax_aggregate_trainable
-        b, n, f = e.shape
-        out = edge_softmax_aggregate_trainable(
-            e.reshape(b * n, f), mask.reshape(b * n, f),
-            zt.reshape(b * n, f, -1)).reshape(b, n, -1)
+    if agg is not None and agg.layout == "csr":
+        _single_graph(h)
+        out = csr_gat_aggregate(z[0], src_score[0], dst_score[0], agg.edges,
+                                negative_slope)[None]
     else:
-        e = torch.where(mask > 0, e, torch.full_like(e, -1e30))
-        alpha = torch.softmax(e, dim=-1) * mask          # all-pad rows → 0
-        out = torch.einsum("bnf,bnfd->bnd", alpha, zt)
+        e = src_score[:, :, None] + _gather(dst_score, table)  # (B, N, F)
+        e = F.leaky_relu(e, negative_slope)
+        zt = _gather(z, table)                            # (B, N, F, d')
+        if fused or agg is not None:
+            from repro_torch.kernels.ops import (
+                edge_softmax_aggregate_trainable)
+            b, n, f = e.shape
+            out = edge_softmax_aggregate_trainable(
+                e.reshape(b * n, f), mask.reshape(b * n, f),
+                zt.reshape(b * n, f, -1)).reshape(b, n, -1)
+        else:
+            e = torch.where(mask > 0, e, torch.full_like(e, -1e30))
+            alpha = torch.softmax(e, dim=-1) * mask      # all-pad rows → 0
+            out = torch.einsum("bnf,bnfd->bnd", alpha, zt)
     out = _bias(out, params)
     return activation(out) if activation is not None else out
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List
 
+import torch
+
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` leafwise over one or more dicts of the same structure."""
@@ -49,3 +51,29 @@ def tree_bytes(tree: Any) -> int:
         else:                                   # numpy array
             total += int(x.size * x.dtype.itemsize)
     return total
+
+
+def tree_sub(a: Any, b: Any) -> Any:
+    """a - b, leafwise."""
+    return tree_map(lambda x, y: x - y, a, b)
+
+
+def tree_dot(a: Any, b: Any) -> float:
+    """<a, b> summed over every leaf in :func:`tree_leaves` order, as a
+    Python float: each leaf's f32 dot product added to an f32 total, as
+    ``float(tree_dot(...))`` gives in the JAX package."""
+    total = None
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = torch.vdot(x.reshape(-1).float(), y.reshape(-1).float())
+        total = d if total is None else total + d
+    return 0.0 if total is None else float(total)
+
+
+def tree_average(trees: List[Any]) -> Any:
+    """Average a list of trees — the paper's line 12 parameter averaging:
+    the leafwise sum in list order, times ``1 / len(trees)``."""
+    acc = trees[0]
+    for t in trees[1:]:
+        acc = tree_map(lambda x, y: x + y, acc, t)
+    scale = 1.0 / len(trees)
+    return tree_map(lambda x: x * scale, acc)

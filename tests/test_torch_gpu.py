@@ -375,3 +375,86 @@ def test_rwkv6_prefill_on_card_matches_cpu(cuda):
     lg, _ = model.decode_step(p_gpu, sg, tok.to(cuda), 77, max_seq=128)
     lc, _ = model.decode_step(p_cpu, sc, tok, 77, max_seq=128)
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["mean", "sym", "gat"])
+def test_csr_aggregates_on_card_match_cpu(graph, cuda, op):
+    """The csr layout's edge-centric ops (index_add / scatter_reduce, with
+    atomics on the card) against the same call on the CPU, forward and
+    gradient."""
+    from repro_torch.graph.csr import symmetric_normalizers
+    from repro_torch.models.gnn import agg
+    rng = np.random.default_rng(11)
+    n = graph.num_nodes
+    arrays = (rng.standard_normal((n, 16)).astype(np.float32),
+              rng.standard_normal(n).astype(np.float32),
+              rng.standard_normal(n).astype(np.float32),
+              symmetric_normalizers(graph).astype(np.float32))
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        z, s, d, nrm = (torch.from_numpy(a).to(dev).requires_grad_(True)
+                        for a in arrays)
+        edges = agg.edge_operands(graph, device=dev)
+        out = {"mean": lambda: agg.csr_mean_aggregate(z, edges),
+               "sym": lambda: agg.csr_sym_aggregate(z, edges, nrm),
+               "gat": lambda: agg.csr_gat_aggregate(z, s, d, edges)}[op]()
+        grads = torch.autograd.grad((out ** 2).sum(), (z, s, d, nrm),
+                                    allow_unused=True)
+        results.append([out] + [g for g in grads if g is not None])
+    for a, b in zip(*results):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_edge_operands_land_on_the_requested_device(graph, cuda):
+    from repro_torch.models.gnn import agg
+    edges = agg.edge_operands(graph, device=cuda)
+    assert all(t.is_cuda for t in (edges.seg, edges.nbr, edges.w_mean,
+                                   edges.emask))
+    assert agg.build_agg_operands(graph, "csr", cuda).edges is edges
+    assert not agg.edge_operands(graph, device="cpu").seg.is_cuda
+
+
+@pytest.mark.gpu
+def test_run_llcg_on_card_keeps_its_tensors_there(cuda, monkeypatch):
+    """``run_llcg(..., device="cuda")`` with the csr correction: no tensor
+    is copied off the card while it runs, the final parameters are CUDA
+    tensors, and the History agrees with the CPU run's."""
+    from repro_torch.core import DistConfig, run_llcg
+    from repro_torch.graph.datasets import sbm_graph
+    from repro_torch.models.gnn import build_model
+    from repro_torch.utils.pytree import tree_leaves
+    data = sbm_graph(num_nodes=240, num_classes=4, feature_dim=16, seed=0)
+    model = build_model("GG", 16, 4, hidden_dim=16)
+    cfg = DistConfig(num_machines=4, rounds=3, local_k=2, fanout=8,
+                     correction_steps=2, partition_method="random",
+                     server_agg_layout="csr")
+    cpu_hist = run_llcg(data, model, cfg, device="cpu")
+    moved = []
+    to, cpu = torch.Tensor.to, torch.Tensor.cpu
+
+    def spy_to(self, *args, **kw):
+        out = to(self, *args, **kw)
+        if self.is_cuda and not out.is_cuda:
+            moved.append(tuple(self.shape))
+        return out
+
+    def spy_cpu(self, *args, **kw):
+        if self.is_cuda:
+            moved.append(tuple(self.shape))
+        return cpu(self, *args, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "to", spy_to)
+    monkeypatch.setattr(torch.Tensor, "cpu", spy_cpu)
+    hist = run_llcg(data, model, cfg, device="cuda")
+    monkeypatch.undo()
+    assert moved == []
+    assert hist.meta["device"] == "cuda" and hist.meta["corr_agg_layout"] \
+        == "csr"
+    assert all(x.is_cuda for x in tree_leaves(hist.meta["final_params"]))
+    np.testing.assert_allclose(hist.train_loss, cpu_hist.train_loss,
+                               rtol=1e-3, atol=1e-3)
+    assert hist.bytes_cum == cpu_hist.bytes_cum
+    assert hist.steps_cum == cpu_hist.steps_cum

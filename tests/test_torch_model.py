@@ -47,7 +47,7 @@ CASES = [("SBSBS", {}), ("GG", {}), ("GAT", {"fused_gat": True}),
 @pytest.mark.parametrize("arch,kw", CASES,
                          ids=[a + ("-fused" if k.get("fused_gat") else "")
                               for a, k in CASES])
-@pytest.mark.parametrize("layout", ["padded", "bcsr_kernel"])
+@pytest.mark.parametrize("layout", ["padded", "bcsr_kernel", "csr"])
 def test_logits_and_grads_match(data, arch, kw, layout):
     r, p, table, mask, batch = data
     rm = ref_build(arch, 12, 5, hidden_dim=16, **kw)
@@ -96,9 +96,3 @@ def test_stacked_apply_equals_per_graph_apply(data):
                                atol=1e-6)
     torch.testing.assert_close(out[1], model.apply(pb, f.flip(0), t, m),
                                rtol=0, atol=1e-6)
-
-
-def test_csr_layout_is_refused_with_its_roadmap_item(data):
-    _, p, *_ = data
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 5"):
-        agg.build_agg_operands(p.graph, "csr", "cpu")

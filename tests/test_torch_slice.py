@@ -197,7 +197,6 @@ _REFUSED = {
     "overlap": lambda: P.SamplerSpec(overlap=True),
     "shard_map": lambda: P.build_trainer(
         None, None, P.llcg_plan(P.DistConfig()), backend="shard_map"),
-    "csr_layout": lambda: P.DistConfig(server_agg_layout="csr"),
 }
 
 
