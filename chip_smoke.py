@@ -71,6 +71,30 @@ partition), ``run_subgraph_approx`` on fig11's for 3 rounds, and
 ``run_llcg`` with ``server_agg_layout="bcsr_kernel"``, whose SpMM launches
 must be exactly rounds × S × (2 × aggregating layers − 1).
 
+After P, phase K checkpoints config C's plan (int8_ef: the snapshot
+carries the error-feedback residual and the stochastic-rounding uniform
+stream) every round with the async writer: the uninterrupted run twice
+(the distance between them is the resumed runs' gate, 0 if they agree bit
+for bit), resumes from steps 1 and 2 and ``run_or_resume`` on a directory
+holding step 1, each with its exact quantize / dequantize / SpMM launches;
+the same again under ``torch.use_deterministic_algorithms(True)``, where
+the two runs and the three resumes must agree bit for bit; one SIGKILL
+trial of ``repro_torch.checkpoint.chaos`` on the card; the card's checkpoint resumed on the CPU must follow the CPU's run; the
+caller-thread cost of ``save()`` is printed.  Phase S serves through
+``repro_torch.serving.gnn``: S1 trains config B's fused GAT 3 rounds with
+``checkpoint_dir`` and serves 64 requests (half at full width, half at
+fanout 10) through ``GNNServingEngine.from_plan`` with the int8 halo codec
+(per wave one quantize, one dequantize and one edge-softmax launch per GAT
+layer), S2 the same with 2 serve-time correction steps (stored params
+unchanged), S3 config A's SAGE stack without its batch norms (serving
+refuses batch statistics) through stacked csr operands, wave and slot,
+against the single-machine full-graph forward, S4 F3's graph with
+``agg_layout="auto"`` (must resolve to csr); S1, S2 and S4 agree with the
+CPU's serve (predictions equal, logits within 1e-4 × max(1, max|cpu|)).
+After E1, E3 serves E1's 8 requests through ``scheduler="slot"``: a
+batch-1 prefill per request (24 scan launches each, 192 in all) and the
+same tokens as E1's waves.
+
 With ``--baseline DIR`` (DIR: the root of an unpacked earlier commit, its
 ``src/repro_torch`` beside this script's), a last phase times the quantize,
 dequantize and edge-softmax wrappers of both packages at phase 2's shapes,
@@ -123,6 +147,12 @@ F3_NODES = 16384
 F3_EDGES = 32768
 # phase P: rounds of each paper-runner call
 P_ROUNDS = 3
+# phase S: requests of S1 (half at full width, half at fanout 10), the
+# correction steps of S2, and the served logits' tolerance against the CPU
+# (f32 in another order over two layers), × max(1, max|cpu|)
+S_REQUESTS = 64
+S2_STEPS = 2
+SERVE_TOL = 1e-4
 E_PROMPTS = (192,) * 4 + (77,) * 4
 E_NEW_TOKENS = 32
 E_DECODE_STEPS = 4
@@ -966,6 +996,382 @@ def _paper_phase(kernels) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase K: checkpoint and exact resume on the card
+# --------------------------------------------------------------------------
+def _hist_series(hist) -> dict:
+    """Every History series a resume must reproduce, and the params."""
+    from repro_torch.utils.pytree import tree_leaves
+    out = {k: list(getattr(hist, k)) for k in ("rounds", "steps_cum",
+                                               "val_score", "train_loss",
+                                               "bytes_cum")}
+    for k in ("local_loss", "corr_loss", "corr_rounds", "num_retraces",
+              "num_corr_retraces", "masked_steps"):
+        out[k] = hist.meta[k]
+    out["params"] = [x.detach().cpu() for x in
+                     tree_leaves(hist.meta["final_params"])]
+    return out
+
+
+def _distance(a: dict, b: dict) -> float:
+    """Largest absolute difference between two runs' series and params;
+    inf if their counts or accounting differ."""
+    worst = 0.0
+    for k in a:
+        if k == "params":
+            for x, y in zip(a[k], b[k]):
+                worst = max(worst, float((x - y).abs().max()))
+        elif k in ("val_score", "train_loss", "local_loss", "corr_loss"):
+            worst = max([worst] + [abs(x - y) for x, y in zip(a[k], b[k])])
+            if len(a[k]) != len(b[k]):
+                return math.inf
+        elif a[k] != b[k]:
+            return math.inf
+    return worst
+
+
+def _phase_k(data, plans, kernels, card: str) -> dict:
+    """Phase K: config C's plan (int8_ef: the snapshot carries a residual
+    and the uniform stream) with ``CheckpointSpec(every=1, async_=True)``
+    on the card.  The uninterrupted run twice; resumes from steps 1 and 2
+    and ``run_or_resume`` on a directory holding step 1, each with its
+    exact quantize / dequantize / SpMM launches; the same under
+    ``torch.use_deterministic_algorithms``, bit for bit; one chaos trial;
+    the card's checkpoint resumed on the CPU; the caller-thread cost of
+    ``save()``."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import manager as M
+    from repro_torch.core.plan import CheckpointSpec, build_trainer
+    from repro_torch.launch.train import resume, run_or_resume
+
+    model, base = plans["C"]
+    leaves = sum(len(layer) for layer in model.init_numpy(0).values())
+    n_agg = sum(op in "GS" for op in model.arch)
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="phase_k_",
+                                         dir=ROOT / "build"))
+    spec = lambda d: dataclasses.replace(base, checkpoint=CheckpointSpec(
+        dir=str(root / d), every=1, async_=True))
+    save_s = []
+    orig_save = M.CheckpointManager.save
+
+    def timed_save(self, *a, **kw):
+        t0 = time.perf_counter()
+        orig_save(self, *a, **kw)
+        save_s.append(time.perf_counter() - t0)
+    M.CheckpointManager.save = timed_save
+    try:
+        runs = []
+        for d in ("u1", "u2"):
+            for k in kernels:
+                k.launches = 0
+            runs.append(_hist_series(build_trainer(data, model,
+                                                   spec(d)).run()))
+            torch.cuda.synchronize()
+        full_counts = {k.__name__: k.launches for k in kernels}
+        n_saves = len(save_s)
+    finally:
+        M.CheckpointManager.save = orig_save
+    d12 = _distance(runs[0], runs[1])
+    bitwise = d12 == 0.0
+    print(f"phase K: two uninterrupted runs on the card "
+          f"{'agree bit for bit' if bitwise else f'differ by {d12:.3e}'}; "
+          f"launches of one run {full_counts}; save() on the caller thread "
+          f"{[round(x * 1e3, 3) for x in save_s]} ms for {n_saves} saves "
+          f"(mean {sum(save_s) / n_saves * 1e3:.3f} ms per round; {card})")
+    _check(n_saves == 2 * ROUNDS, f"phase K: {n_saves} saves, not "
+           f"{2 * ROUNDS}")
+
+    def gate(label, got, counts, rounds_run, ref, limit):
+        dist = _distance(ref, got)
+        _check(dist <= limit, f"phase K {label}: resumed run {dist:.3e} from "
+               f"the uninterrupted one, beyond {limit:.3e} (the distance of "
+               "two uninterrupted runs)")
+        want = {"quantize_rows": rounds_run * leaves,
+                "dequantize_rows": rounds_run,
+                "spmm_csr": rounds_run * base.server.correction_steps
+                * (2 * n_agg - 1)}
+        for name, n in want.items():
+            _check(counts[name] == n, f"phase K {label}: {name} launched "
+                   f"{counts[name]} times, not {n}")
+        print(f"phase K {label}: distance {dist:.3e}; launches {counts}")
+
+    def resumes(src: str, ref: dict, limit: float, key: str,
+                mode: str) -> dict:
+        """Resumes from steps 1 and 2 of ``src``'s checkpoints and
+        ``run_or_resume`` on a directory holding step 1, each gated at
+        ``limit`` from ``ref``; returns their launch counts."""
+        out = {}
+        for step in (1, 2):
+            for k in kernels:
+                k.launches = 0
+            got = _hist_series(build_trainer(data, model, base).run(
+                resume_from=str(root / src), resume_step=step))
+            torch.cuda.synchronize()
+            counts = {k.__name__: k.launches for k in kernels}
+            gate(f"{mode}resume from step {step}", got, counts,
+                 ROUNDS - step, ref, limit)
+            out[f"{key}{step}"] = counts
+        dst = root / f"{src}_r"
+        dst.mkdir()
+        for f in ("ckpt_1.npz", "ckpt_1.json"):
+            shutil.copy(root / src / f, dst / f)
+        for k in kernels:
+            k.launches = 0
+        got = _hist_series(run_or_resume(data, model, spec(dst.name)))
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in kernels}
+        gate(f"{mode}run_or_resume on step 1", got, counts, ROUNDS - 1, ref,
+             limit)
+        out[f"{key}_run_or_resume"] = counts
+        return out
+
+    all_counts = resumes("u1", runs[0], d12, "K", "")
+
+    # the same under torch.use_deterministic_algorithms (index_add_ — the
+    # gathers' backward, float atomics by default — takes its sorted,
+    # deterministic path): two uninterrupted runs that must agree bit for
+    # bit, and the three resumes, which must equal them bit for bit; the
+    # round time in each mode
+    def rounds_ms(plan) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build_trainer(data, model, plan).run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / ROUNDS * 1e3
+
+    default_ms = min(rounds_ms(base) for _ in range(TIMING_REPS))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det_ms = min(rounds_ms(base) for _ in range(TIMING_REPS))
+        det = [_hist_series(build_trainer(data, model, spec(d)).run())
+               for d in ("d1", "d2")]
+        d_det = _distance(det[0], det[1])
+        print(f"phase K with torch.use_deterministic_algorithms(True): two "
+              f"uninterrupted runs differ by {d_det:.3e}; {det_ms:.3f} ms "
+              f"per round of a run() against {default_ms:.3f} without "
+              f"({card})")
+        _check(d_det == 0.0, "phase K deterministic: two uninterrupted runs "
+               f"differ by {d_det:.3e}")
+        all_counts.update(resumes("d1", det[0], 0.0, "Kdet",
+                                  "deterministic "))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # one SIGKILL chaos trial on the card: its children run deterministic
+    from repro_torch.checkpoint.chaos import run_chaos
+    t0 = time.perf_counter()
+    run_chaos(kill_round=2, device="cuda")
+    print(f"phase K chaos trial on the card: {time.perf_counter() - t0:.1f} "
+          "s for the killed, relaunched and reference children")
+
+    # the card's checkpoint resumed on the CPU: portable across devices
+    cpu_res = resume(data, model, base, ckpt_dir=str(root / "u1"), step=1,
+                     device="cpu")
+    cpu_ref = build_trainer(data, model, base, device="cpu").run()
+    _same_trajectory("phase K card checkpoint resumed on the CPU", cpu_res,
+                     cpu_ref, 1.0 / len(data.val_nodes))
+    _check(cpu_res.meta["device"] == "cpu", "phase K: CPU resume ran on "
+           f"{cpu_res.meta['device']}")
+    print(f"phase K: the card's step-1 checkpoint resumed on the CPU agrees "
+          f"with the CPU's uninterrupted run: val_f1 {cpu_res.val_score}")
+    shutil.rmtree(root)
+    all_counts["K"] = full_counts
+    return all_counts
+
+
+# --------------------------------------------------------------------------
+# phase S: GNN serving on the card
+# --------------------------------------------------------------------------
+def _serve(engine, reqs) -> tuple:
+    """Submit ``reqs`` (dicts), run, and return ``({uid: result}, wall s)``."""
+    import torch
+    from repro_torch.serving.gnn import GNNRequest
+    for r in reqs:
+        engine.submit(GNNRequest(**r))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = {r.uid: r for r in engine.run()}
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _served_alike(label: str, card: dict, cpu: dict) -> float:
+    """Gate a card serve against the CPU's: predictions equal, logits
+    within 1e-4 × max(1, max|cpu|).  Returns the largest difference."""
+    import numpy as np
+    _check(sorted(card) == sorted(cpu), f"{label}: served {sorted(card)}")
+    worst = 0.0
+    for uid, c in cpu.items():
+        g = card[uid]
+        err = float(np.abs(g.embeddings - c.embeddings).max())
+        tol = SERVE_TOL * max(1.0, float(np.abs(c.embeddings).max()))
+        _check(np.isfinite(g.embeddings).all() and err <= tol,
+               f"{label} uid {uid}: max |card - cpu| {err} > {tol}")
+        _check(g.predictions == c.predictions, f"{label} uid {uid}: "
+               f"predictions {g.predictions} vs CPU {c.predictions}")
+        worst = max(worst, err)
+    return worst
+
+
+def _serve_counts(kernels, fn) -> tuple:
+    import torch
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in kernels}
+
+
+def _phase_s(data, cfg, plans, f3, kernels) -> dict:
+    """Phase S: GNN serving.  S1 trains config B's fused GAT 3 rounds with
+    ``checkpoint_dir`` and serves it through ``GNNServingEngine.from_plan``
+    with the int8 halo codec (two width buckets); S2 adds the serve-time
+    correction; S3 serves config A's SAGE stack (its batch-norm ops left
+    out: serving refuses batch statistics) through stacked csr operands,
+    wave and slot, against the full-graph forward; S4 serves F3's graph
+    with ``agg_layout="auto"``, which must resolve to csr."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.plan import build_trainer
+    from repro_torch.graph.csr import build_neighbor_table
+    from repro_torch.models.gnn.model import build_model
+    from repro_torch.serving.gnn import GNNServingEngine
+    from repro_torch.utils.pytree import tree_leaves
+
+    counts = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="phase_s_",
+                                         dir=ROOT / "build"))
+    model_b, plan_b = plans["B"]
+    plan = dataclasses.replace(plan_b, checkpoint_dir=str(root / "b"))
+    build_trainer(data, model_b, plan).run()
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+    reqs = [dict(uid=i, nodes=rng.integers(0, data.num_nodes, 16).tolist(),
+                 fanout=None if i < S_REQUESTS // 2 else 10,
+                 return_embeddings=True) for i in range(S_REQUESTS)]
+    gat_layers = len(model_b.init_numpy(0))
+
+    # ---- S1: wave serving of the trained GAT with the int8 halo codec
+    kw = dict(halo_compression="int8", batch_size=8)
+    warm = GNNServingEngine.from_plan(plan, model_b, data, **kw)
+    _serve(warm, reqs[:1])                          # loads the libraries
+    eng = GNNServingEngine.from_plan(plan, model_b, data, **kw)
+    (card, wall), c1 = _serve_counts(kernels, lambda: _serve(eng, reqs))
+    cpu, _ = _serve(GNNServingEngine.from_plan(plan, model_b, data,
+                                               device="cpu", **kw), reqs)
+    st = eng.stats()
+    waves = st["waves"]
+    err = _served_alike("phase S1", card, cpu)
+    _check(waves == S_REQUESTS // 8 and len(st["widths_compiled"]) == 2,
+           f"phase S1: {waves} waves over widths {st['widths_compiled']}")
+    for name, want in (("quantize_rows", waves), ("dequantize_rows", waves),
+                       ("edge_softmax", waves * gat_layers),
+                       ("spmm_csr", 0), ("linear_scan_chunked", 0)):
+        _check(c1[name] == want, f"phase S1: {name} launched {c1[name]} "
+               f"times, not {want}")
+    _check(st["exchange_bytes_cum"] == waves * st["exchange_bytes_per_wave"],
+           f"phase S1: exchange bytes {st['exchange_bytes_cum']}")
+    lat = sorted(eng.scheduler.request_log, key=lambda r: r["uid"])
+    print(f"phase S1: {S_REQUESTS} requests in {waves} waves, {wall:.4f} s "
+          f"({wall / waves * 1e3:.3f} ms per wave); service time "
+          f"{st['service_s']}; launches {c1}; max |card - cpu| {err:.3e}; "
+          f"stats num_retraces {st['num_retraces']} widths "
+          f"{st['widths_compiled']} exchange {st['exchange_bytes_per_wave']} "
+          f"B per wave, {st['exchange_bytes_cum']} B in all; first request "
+          f"served in {lat[0]['service_s'] * 1e3:.3f} ms")
+    counts["S1"] = c1
+
+    # ---- S2: the same checkpoint with the serve-time correction
+    kw2 = dict(kw, correction_steps=S2_STEPS)
+    sub = reqs[:8] + reqs[-8:]
+    eng = GNNServingEngine.from_plan(plan, model_b, data, **kw2)
+    stored = [x.clone() for x in tree_leaves(eng.params)]
+    (card, wall), c2 = _serve_counts(kernels, lambda: _serve(eng, sub))
+    cpu, _ = _serve(GNNServingEngine.from_plan(plan, model_b, data,
+                                               device="cpu", **kw2), sub)
+    err = _served_alike("phase S2", card, cpu)
+    _check(all(torch.equal(a, b) for a, b in zip(tree_leaves(eng.params),
+                                                  stored)),
+           "phase S2: the correction changed the stored params")
+    waves = eng.stats()["waves"]
+    for name, want in (("quantize_rows", waves), ("dequantize_rows", waves),
+                       ("edge_softmax", waves * gat_layers * (S2_STEPS + 1))):
+        _check(c2[name] == want, f"phase S2: {name} launched {c2[name]} "
+               f"times, not {want}")
+    print(f"phase S2: correction_steps {S2_STEPS}, {len(sub)} requests in "
+          f"{waves} waves, {wall / waves * 1e3:.3f} ms per wave; launches "
+          f"{c2}; max |card - cpu| {err:.3e}; stored params unchanged")
+    counts["S2"] = c2
+
+    # ---- S3: config A's SAGE stack through stacked csr operands
+    sss = build_model("SSS", data.feature_dim, data.num_classes,
+                      hidden_dim=64)
+    params = sss.init(0)
+    table, mask = build_neighbor_table(data.graph)
+    with torch.no_grad():
+        full = sss.apply(params, torch.from_numpy(data.features).cuda(),
+                         torch.from_numpy(table).cuda(),
+                         torch.from_numpy(mask).cuda()).cpu().numpy()
+    full_reqs = [dict(r, fanout=None) for r in reqs[:S_REQUESTS // 2]]
+    out = {}
+    for sched in ("wave", "slot"):
+        eng = GNNServingEngine(sss, params, data, num_machines=8,
+                               batch_size=8, scheduler=sched,
+                               agg_layout="csr")
+        (res, wall), c3 = _serve_counts(kernels,
+                                        lambda: _serve(eng, full_reqs))
+        _check(eng.backend._agg_for_width(eng.backend.full_fanout)
+               is not None, f"phase S3 {sched}: full width not csr")
+        _check(sum(c3.values()) == 0, f"phase S3 {sched}: launched {c3}")
+        for uid, r in res.items():
+            ref = full[r.nodes]
+            e = float(np.abs(r.embeddings - ref).max())
+            _check(e <= SERVE_TOL * max(1.0, float(np.abs(ref).max()))
+                   and r.predictions == list(ref.argmax(-1)),
+                   f"phase S3 {sched} uid {uid}: {e} from the full-graph "
+                   "forward")
+        out[sched] = res
+        print(f"phase S3 {sched}: {len(res)} requests in {wall:.4f} s; "
+              f"stats {json.dumps({k: v for k, v in eng.stats().items() if not isinstance(v, dict)})}")
+    _check({u: r.predictions for u, r in out["wave"].items()}
+           == {u: r.predictions for u, r in out["slot"].items()},
+           "phase S3: slot predictions differ from wave predictions")
+    counts["S3"] = c3
+
+    # ---- S4: F3's degree-skewed graph, agg_layout="auto" → csr
+    f3_data = f3[0]
+    ss = build_model("SS", f3_data.feature_dim, f3_data.num_classes,
+                     hidden_dim=64)
+    p4 = ss.init(0)
+    rng = np.random.default_rng(4)
+    r4 = [dict(uid=i, nodes=rng.integers(0, f3_data.num_nodes, 16).tolist(),
+               return_embeddings=True) for i in range(16)]
+    eng = GNNServingEngine(ss, p4, f3_data, num_machines=8, batch_size=8,
+                           agg_layout="auto")
+    _check(eng.backend._agg_for_width(eng.backend.full_fanout) is not None,
+           "phase S4: auto did not resolve to csr at full width")
+    (card, wall), c4 = _serve_counts(kernels, lambda: _serve(eng, r4))
+    cpu, wall_cpu = _serve(GNNServingEngine(
+        ss, ss.init(0, device="cpu"), f3_data, num_machines=8, batch_size=8,
+        agg_layout="auto", device="cpu"), r4)
+    err = _served_alike("phase S4", card, cpu)
+    print(f"phase S4: F3's graph, n_ext_pad {eng.backend.n_ext_pad}, full "
+          f"width {eng.backend.full_fanout}: 16 requests in {wall:.4f} s "
+          f"({eng.stats()['waves']} waves; host tables included), launches "
+          f"{c4}; max |card - cpu| {err:.3e}")
+    counts["S4"] = c4
+    shutil.rmtree(root)
+    return counts
+
+
 def _close_to_cpu(label: str, what: str, gpu, cpu, worst: list) -> None:
     """Gate one card-vs-CPU comparison of config E at LM_TOL and record
     its share of the tolerance in ``worst``."""
@@ -1127,6 +1533,45 @@ def _config_e(kernels) -> dict:
           f"{e2e:.3e} of max |cpu| {float(cpu_logits.abs().max()):.3f}, "
           f"the f32 config {e2e32:.3e} of {float(c32.abs().max()):.3f}")
 
+    # ---- E3: the same requests through the slot scheduler: a batch-1
+    # prefill per admitted request (one scan launch per layer each), the
+    # pool of 4 slots decoding together
+    eng3 = ServingEngine(cfg, params=p_gpu, batch_size=4, max_seq=512,
+                         scheduler="slot")
+    for k in kernels:
+        k.launches = 0
+    for uid, prompt in enumerate(prompts):
+        eng3.submit(Request(uid=uid, prompt=prompt,
+                            max_new_tokens=E_NEW_TOKENS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res3 = {r.uid: r for r in eng3.run()}
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    counts3 = {k.__name__: k.launches for k in kernels}
+    want = cfg.num_layers * len(prompts)
+    _check(counts3["linear_scan_chunked"] == want,
+           f"config E3 launched linear_scan_chunked "
+           f"{counts3['linear_scan_chunked']} times, not {want}")
+    same = [u for u in res if res3[u].tokens == res[u].tokens]
+    for u in res:
+        if res3[u].tokens != res[u].tokens:
+            at = next(i for i, (a, b) in enumerate(zip(res3[u].tokens,
+                                                        res[u].tokens))
+                      if a != b)
+            print(f"config E3 uid {u}: slot tokens leave the wave's at "
+                  f"token {at}: {res3[u].tokens[:at + 2]} vs "
+                  f"{res[u].tokens[:at + 2]}")
+    _check(len(same) == len(res), f"config E3: {len(res) - len(same)} of "
+           f"{len(res)} requests got other tokens than E1's wave")
+    st3 = eng3.stats()
+    n_tok3 = sum(len(r.tokens) for r in res3.values())
+    print(f"config E3: slot scheduler, {n_tok3} tokens in {wall3:.4f} s = "
+          f"{n_tok3 / wall3:.2f} generated tokens/s; {st3['steps']} pool "
+          f"steps, occupancy {st3['occupancy_mean']:.3f}, prefill buckets "
+          f"{st3['prefill_lens_compiled']}; launches {counts3}; tokens equal "
+          f"E1's wave for all {len(res)} requests")
+
     # ---- E2: the card against the CPU, f32, batch 1, teacher-forced
     model = LM(dataclasses.replace(cfg, dtype="float32"))
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 77)))
@@ -1157,7 +1602,7 @@ def _config_e(kernels) -> dict:
     print(f"config E2: card vs CPU, f32, {len(worst)} comparisons in "
           f"{time.perf_counter() - t0:.1f} s; worst {worst[0][1]} "
           f"{worst[0][2]:.3e} ({worst[0][0]:.3f} of its tolerance)")
-    return counts
+    return counts, counts3
 
 
 def main(argv) -> int:
@@ -1233,10 +1678,23 @@ def main(argv) -> int:
         # degree skew: 16 hubs of 4,096 neighbors each on the large graph
         spmm_cases.append(_spmm_case(_hub_graph(big.graph), 64, "large hubs",
                                      12))
+        # phase S1's serving shapes: P stacked extended graphs of config
+        # B's 2-hop inference halo, at the full and the fanout-10 width
+        # buckets; its halo send buffer
+        from repro_torch.graph.halo import (build_halo_program,
+                                            build_inference_plan)
+        inf = build_inference_plan(data.graph, smp.partition, 2)
+        serve_prog = build_halo_program(data.graph, smp.partition, plan=inf)
+        n_serve = cfg.num_machines * serve_prog.n_ext_pad
+        f_serve = max(g.max_degree() for g in inf.ext_graphs)
         esm_shapes = [(n_loc, smp.fanout, 64, "slice local"),
                       (n_loc, smp.fanout, 8, "slice local"),
                       (n_full, f_full, 64, "slice full"),
                       (n_full, f_full, 8, "slice full"),
+                      (n_serve, f_serve, 64, "serving full"),
+                      (n_serve, f_serve, 8, "serving full"),
+                      (n_serve, 16, 64, "serving fanout 10"),
+                      (n_serve, 16, 8, "serving fanout 10"),
                       (65536, 10, 64, "large"),
                       (65536, big.graph.max_degree(), 64, "large")]
         esm_cases = [_esm_case(n, f, d, label, 20 + i)
@@ -1251,6 +1709,8 @@ def main(argv) -> int:
         quant_shapes = [(cfg.num_machines, c, True, "averaging")
                         for c in leaf_sizes]
         quant_shapes += [(n_send, data.feature_dim, False, "halo"),
+                         (cfg.num_machines * serve_prog.max_send,
+                          data.feature_dim, False, "serving halo"),
                          (65536, 256, True, "large"),
                          (65536, 256, False, "large")]
         quant_cases = [_quant_case(r, c, with_u, label, 30 + i)
@@ -1327,7 +1787,9 @@ def main(argv) -> int:
         counts.update(_configs_f(data, cfg, plans, f3, hists["A"],
                                  all_kernels))
         counts["P"] = _paper_phase(all_kernels)
-        counts["E"] = _config_e(all_kernels)
+        counts.update(_phase_k(data, plans, all_kernels, card))
+        counts.update(_phase_s(data, cfg, plans, f3, all_kernels))
+        counts["E"], counts["E3"] = _config_e(all_kernels)
         if baseline is not None:
             _compare(baseline, {
                 "quant": [list(s[:3]) for s in quant_shapes],
@@ -1340,6 +1802,8 @@ def main(argv) -> int:
     def row(name, route, source, replaces, case, config):
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": counts[config][name],
+                "launches_by_path": {path: c[name] for path, c in
+                                     counts.items() if c.get(name)},
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "device_ms": case["device_ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],

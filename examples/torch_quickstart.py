@@ -13,16 +13,24 @@ point, :func:`repro_torch.core.build_trainer`:
 Expected outcome (the paper's Figure 4): LLCG ≈ GGS accuracy at PSGD-PA
 communication cost.  The graph, configs and seeds are those of
 ``examples/quickstart.py``, so the bytes each strategy moves are the JAX
-package's to the byte.  That quickstart's checkpointed run waits for the
-port's checkpointing (ROADMAP Queue 1 item 9).
+package's to the byte.
+
+Reliability knob: ``TrainPlan(checkpoint=CheckpointSpec(dir=...))``
+snapshots the full training state every ``every`` rounds off the training
+thread, and a killed run resumes bit-identical through
+:func:`repro_torch.launch.train.resume` / ``run_or_resume``; the last
+section resumes the LLCG plan from a mid-schedule checkpoint.  See
+:mod:`repro_torch.checkpoint.chaos` for the SIGKILL → resume trial.
 
 Run:  PYTHONPATH=src python examples/torch_quickstart.py [--device cpu]
 """
 import argparse
 import sys
+import tempfile
 
-from repro_torch.core import (DistConfig, TrainPlan, averaging, build_trainer,
-                              correction, halo_exchange, local_steps)
+from repro_torch.core import (CheckpointSpec, DistConfig, TrainPlan,
+                              averaging, build_trainer, correction,
+                              halo_exchange, local_steps)
 from repro_torch.graph import cut_edge_stats, partition_graph, sbm_graph
 from repro_torch.models.gnn import build_model
 
@@ -79,7 +87,32 @@ def main(argv=None) -> int:
               f"{hist.avg_mb_per_round():9.3f} {hist.bytes_cum[-1]:10.0f}   "
               f"{traj}")
     print("\nLLCG should match GGS accuracy at PSGD-PA communication cost.")
+    checkpointed(args.device)
     return 0
+
+
+def checkpointed(device="cuda"):
+    """The LLCG plan with the checkpoint knob on: a full run writes a
+    snapshot every 2 rounds, then a fresh trainer resumes from the round-4
+    snapshot (as a job killed after round 5 would) and ``run_or_resume``
+    continues the finished run as a no-op; both return the History of the
+    uninterrupted run."""
+    from repro_torch.launch.train import resume, run_or_resume
+    data, model, cfg = setting()
+    llcg = plans(cfg)[1]
+    with tempfile.TemporaryDirectory() as ck:
+        plan = TrainPlan(phases=llcg.phases, name="LLCG", seed=cfg.seed,
+                         checkpoint=CheckpointSpec(dir=ck, every=2, keep=0),
+                         **cfg.specs())
+        hist = build_trainer(data, model, plan, device=device).run()
+        mid = resume(data, model, plan, step=4, device=device)
+        again = run_or_resume(data, model, plan, device=device)
+    same = all(h.val_score == hist.val_score and h.train_loss ==
+               hist.train_loss for h in (mid, again))
+    print(f"checkpointed LLCG: F1 {hist.final_score:.3f}; resumed from "
+          f"round 4: F1 {mid.final_score:.3f}; run_or_resume: F1 "
+          f"{again.final_score:.3f}; trajectories identical: {same}")
+    return hist, mid, again
 
 
 if __name__ == "__main__":

@@ -122,6 +122,15 @@ class UniformStream:
     def reset(self) -> None:
         self._gen = torch.Generator().manual_seed(self.seed)
 
+    def get_state(self) -> torch.Tensor:
+        """The generator's position (a uint8 tensor) — what a checkpoint
+        carries so a resumed run draws the uniforms the uninterrupted one
+        would."""
+        return self._gen.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self._gen.set_state(state.detach().cpu())
+
     def draw(self, num_machines: int, sizes: Sequence[int], device
              ) -> List[torch.Tensor]:
         """One ``(num_machines, n)`` f32 block per leaf size ``n``, drawn

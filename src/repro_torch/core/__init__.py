@@ -16,13 +16,14 @@ from repro_torch.core.machine import (
     make_local_round,
 )
 from repro_torch.core.engine import (
-    EngineConfig, EngineState, History, RoundInputs, RoundProgram,
-    pad_inputs_to_bucket, run_schedule,
+    EngineConfig, EngineState, History, ResumePoint, RoundInputs,
+    RoundProgram, pad_inputs_to_bucket, run_schedule,
 )
 from repro_torch.core.plan import (
     BACKENDS,
     BUCKET_MODES,
     PHASE_KINDS,
+    CheckpointSpec,
     CommSpec,
     CompileSpec,
     LocalSpec,
@@ -61,6 +62,7 @@ __all__ = [
     "BACKENDS",
     "BUCKET_MODES",
     "PHASE_KINDS",
+    "CheckpointSpec",
     "CommSpec",
     "CompileSpec",
     "LocalSpec",
@@ -92,6 +94,7 @@ __all__ = [
     "make_local_round",
     "EngineConfig",
     "EngineState",
+    "ResumePoint",
     "RoundInputs",
     "RoundProgram",
     "run_schedule",

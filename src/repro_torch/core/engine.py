@@ -39,10 +39,12 @@ the programs a compiled engine would build.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch.checkpoint.manager import TraceCounter, trace_signature
 from repro_torch.comm.compress import (UniformStream, check_compression,
                                        compress_features, compress_tree,
                                        decompress_features, decompress_tree)
@@ -75,6 +77,37 @@ class History:
         if not self.bytes_cum:
             return 0.0
         return self.bytes_cum[-1] / max(len(self.rounds), 1) / 1e6
+
+    def to_json(self) -> Dict:
+        """JSON-able snapshot for checkpoint manifests.
+
+        ``meta`` entries that do not serialize are dropped (the resuming
+        trainer rebuilds them); the per-round series are kept verbatim —
+        JSON round-trips Python floats exactly, which keeps ``bytes_cum``
+        accumulation bit-identical across a resume.  The lists are the
+        History's own: take a copy (``json.dumps``) before the next round
+        appends to them.
+        """
+        meta = {}
+        for k, v in self.meta.items():
+            try:
+                json.dumps(v)
+            except (TypeError, ValueError):
+                continue
+            meta[k] = v
+        return {"strategy": self.strategy, "rounds": list(self.rounds),
+                "steps_cum": list(self.steps_cum),
+                "val_score": list(self.val_score),
+                "train_loss": list(self.train_loss),
+                "bytes_cum": list(self.bytes_cum), "meta": meta}
+
+    @classmethod
+    def from_json(cls, d: Dict) -> "History":
+        return cls(strategy=d["strategy"], rounds=list(d["rounds"]),
+                   steps_cum=list(d["steps_cum"]),
+                   val_score=list(d["val_score"]),
+                   train_loss=list(d["train_loss"]),
+                   bytes_cum=list(d["bytes_cum"]), meta=dict(d["meta"]))
 
 
 # --------------------------------------------------------------------------
@@ -143,11 +176,6 @@ class EngineState:
     comm_residual: Any = None
 
 
-def _signature(*arrays) -> tuple:
-    return tuple((tuple(a.shape), str(a.dtype)) if hasattr(a, "shape")
-                 else type(a).__name__ for a in arrays)
-
-
 def _masked_mean(losses: torch.Tensor, svalid) -> torch.Tensor:
     """Mean of ``(K, …)`` step losses over REAL steps only (masked padding
     adds 0 to both sums)."""
@@ -186,16 +214,35 @@ class RoundProgram:
         self._local_round = make_local_round(model, local_opt,
                                              reset_opt=cfg.reset_local_opt)
         self._loss_fn = make_loss_fn(model)
-        self._round_sigs: set = set()
-        self._corr_sigs: set = set()
+        # distinct round / correction input signatures over the RUN (not
+        # the process): a resumed process does not re-count shapes the
+        # pre-crash process already saw
+        self._round_traces = TraceCounter()
+        self._corr_traces = TraceCounter()
 
     @property
     def num_retraces(self) -> int:
-        return len(self._round_sigs)
+        return self._round_traces.count_value
 
     @property
     def num_corr_retraces(self) -> int:
-        return len(self._corr_sigs)
+        return self._corr_traces.count_value
+
+    def trace_state(self) -> Dict:
+        """JSON-able retrace position (for exact resume).  The signatures
+        are the port's own (shapes and dtypes of the round's tensors), not
+        the JAX package's jit trace signatures."""
+        return {"round": self._round_traces.snapshot(),
+                "corr": self._corr_traces.snapshot()}
+
+    def restore_trace_state(self, snap: Dict) -> None:
+        self._round_traces.restore(snap["round"])
+        self._corr_traces.restore(snap["corr"])
+
+    @property
+    def uniforms(self):
+        """The stochastic-rounding source (None without an int8 codec)."""
+        return self._uniforms
 
     def init_state(self, params) -> EngineState:
         cfg, P = self.cfg, self.cfg.num_machines
@@ -340,9 +387,9 @@ class RoundProgram:
         svalid = inputs.step_valid
         if svalid is None:
             svalid = [1.0] * int(inputs.tables.shape[1])
-        self._round_sigs.add(_signature(feats, labels, inputs.tables,
-                                        inputs.masks, inputs.batches,
-                                        inputs.bmasks))
+        self._round_traces.count(trace_signature(
+            (feats, labels, inputs.tables, inputs.masks, inputs.batches,
+             inputs.bmasks)))
         body = (self._round_local if self.cfg.mode == "local"
                 else self._round_sync)
         params, opt_state, loss, residual = body(state, feats, labels,
@@ -353,10 +400,11 @@ class RoundProgram:
         # S=0 corrections: skip entirely (a mean over no steps is NaN)
         if (self.cfg.with_correction and inputs.corr_batches is not None
                 and inputs.corr_batches.shape[0] > 0):
-            self._corr_sigs.add(_signature(
-                inputs.corr_feats, inputs.corr_labels, inputs.corr_tables,
-                inputs.corr_masks, inputs.corr_batches, inputs.corr_bmasks,
-                inputs.corr_agg))
+            self._corr_traces.count(trace_signature(
+                (inputs.corr_feats, inputs.corr_labels, inputs.corr_tables,
+                 inputs.corr_masks, inputs.corr_batches, inputs.corr_bmasks),
+                static=(None if inputs.corr_agg is None
+                        else inputs.corr_agg.layout,)))
             params, server_state, closs = self._correction(
                 params, server_state, inputs)
             metrics["corr_loss"] = closs
@@ -399,6 +447,22 @@ def pad_inputs_to_bucket(inputs: RoundInputs, k_pad: int) -> RoundInputs:
         step_valid=svalid)
 
 
+@dataclasses.dataclass
+class ResumePoint:
+    """Where a checkpointed run left off (see :mod:`repro_torch.checkpoint`).
+
+    ``state`` is the restored engine state, ``history`` the History as of
+    the checkpointed round, ``start_round`` the first round still to
+    EXECUTE (checkpoint round + 1).  The caller has restored the program's
+    own state (sub-states, retrace signatures, uniform streams); with a
+    ResumePoint :func:`run_schedule` skips ``program.init_state``.
+    """
+
+    state: Any
+    history: History
+    start_round: int
+
+
 def run_schedule(program, init_params, feats, labels,
                  sample_fn: Callable[[int, int], RoundInputs],
                  schedule: List[int],
@@ -407,7 +471,11 @@ def run_schedule(program, init_params, feats, labels,
                  bytes_per_round: Callable[[int, int], float],
                  steps_per_round: Callable[[int, int], int],
                  meta: Optional[Dict] = None,
-                 bucketing: Optional[KBucketing] = None) -> History:
+                 bucketing: Optional[KBucketing] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_keep: int = 3,
+                 checkpoint_hook: Optional[Any] = None,
+                 resume: Optional[ResumePoint] = None) -> History:
     """Run ``schedule[r]`` local steps per round r through the engine.
 
     ``sample_fn(round, k)`` performs the host-side batched sampling for one
@@ -420,16 +488,42 @@ def run_schedule(program, init_params, feats, labels,
     With a ``bucketing`` policy each round's inputs are padded to the
     bucketed K and the tail runs as masked no-op steps; sampling, RNG
     streams and accounting use the REAL K.
+
+    ``checkpoint_dir`` is the params export of the train→serve story: after
+    each round's evaluation ``EngineState.params`` are written through
+    :func:`repro_torch.checkpoint.store.save_checkpoint` (step = round,
+    newest ``checkpoint_keep`` kept), ready for
+    ``repro_torch.serving.gnn.GNNServingEngine.from_checkpoint``.
+
+    ``checkpoint_hook`` is the full-state checkpoint tap:
+    ``hook.after_round(r, state)`` fires right after round r runs — where
+    the host RNG streams sit at "rounds 1..r drawn" — and
+    ``hook.commit(r, state, hist)`` after round r's History rows land.
+    ``resume`` (a :class:`ResumePoint`) continues a checkpointed run:
+    ``program.init_state`` is skipped, rounds before ``resume.start_round``
+    are skipped, and History and the byte/step sums continue from the
+    restored History, so the completed run is bit-identical to one that was
+    never interrupted.
     """
-    state = program.init_state(init_params)
-    hist = History(strategy=name, meta=dict(meta or {}))
-    hist.meta.update(local_loss=[], corr_loss=[], corr_rounds=[])
-    bytes_cum, steps_cum = 0.0, 0
+    if resume is None:
+        state = program.init_state(init_params)
+        hist = History(strategy=name, meta=dict(meta or {}))
+        start = 1
+    else:
+        state, hist, start = resume.state, resume.history, resume.start_round
+    for key in ("local_loss", "corr_loss", "corr_rounds"):
+        hist.meta.setdefault(key, [])
+    bytes_cum = float(hist.bytes_cum[-1]) if hist.bytes_cum else 0.0
+    steps_cum = int(hist.steps_cum[-1]) if hist.steps_cum else 0
     for r, k in enumerate(schedule, start=1):
+        if r < start:
+            continue
         inputs = sample_fn(r, k)
         if bucketing is not None:
             inputs = pad_inputs_to_bucket(inputs, bucketing.pad_length(k))
         state, metrics = program.run_round(state, feats, labels, inputs)
+        if checkpoint_hook is not None:
+            checkpoint_hook.after_round(r, state)
         hist.meta["local_loss"].append(float(metrics["local_loss"]))
         if "corr_loss" in metrics:
             hist.meta["corr_loss"].append(float(metrics["corr_loss"]))
@@ -442,6 +536,14 @@ def run_schedule(program, init_params, feats, labels,
         hist.val_score.append(score)
         hist.train_loss.append(loss)
         hist.bytes_cum.append(bytes_cum)
+        if checkpoint_dir:
+            from repro_torch.checkpoint.store import save_checkpoint
+            save_checkpoint(checkpoint_dir, r, state.params,
+                            extra={"strategy": name, "round": r,
+                                   "val_score": score},
+                            keep=checkpoint_keep)
+        if checkpoint_hook is not None:
+            checkpoint_hook.commit(r, state, hist)
     hist.meta["final_params"] = state.params
     hist.meta["num_retraces"] = program.num_retraces
     hist.meta["num_corr_retraces"] = getattr(program, "num_corr_retraces", 0)

@@ -26,24 +26,34 @@ samples from the same seeds.  ``CommSpec``'s codecs
 (:mod:`repro_torch.comm.compress`) compress the averaging deltas and the
 halo features, and every byte count prices the compressed wire format.
 
+``TrainPlan.checkpoint_dir`` exports each round's params for serving
+(:mod:`repro_torch.serving.gnn`); a :class:`CheckpointSpec` snapshots the
+full training state every ``every`` rounds through
+:class:`repro_torch.checkpoint.manager.CheckpointManager`, and
+``PlanTrainer.run(resume_from=...)`` continues such a run bit-identical to
+an uninterrupted one (:func:`repro_torch.launch.train.run_or_resume`).
+
 Not ported yet, and refused with the ROADMAP item that brings them:
-checkpointing (Queue 1 item 9), device-placed sampling and prefetch
-(item 10) and the device-per-machine backend (item 12).
+device-placed sampling and prefetch (item 10) and the device-per-machine
+backend (item 12).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import (CheckpointManager,
+                                            CheckpointRefused, digest_json)
 from repro_torch.comm.compress import (COMPRESSIONS, HALO_COMPRESSIONS,
                                        UniformStream,
                                        averaging_payload_bytes)
 from repro_torch.core.engine import (
-    EngineConfig, EngineState, History, RoundInputs, RoundProgram,
-    run_schedule,
+    EngineConfig, EngineState, History, ResumePoint, RoundInputs,
+    RoundProgram, run_schedule,
 )
 from repro_torch.core.machine import make_eval_fn, make_machine_step
 from repro_torch.core.schedules import KBucketing, local_epoch_schedule
@@ -62,7 +72,7 @@ from repro_torch.models.gnn.agg import (
 )
 from repro_torch.models.gnn.model import GNNModel
 from repro_torch.optim.optimizers import OPTIMIZERS, make_optimizer
-from repro_torch.utils.pytree import tree_bytes
+from repro_torch.utils.pytree import tree_bytes, tree_leaves
 
 
 #: Round-phase kinds — the paper's composable primitives.
@@ -251,14 +261,34 @@ class CompileSpec:
 
 @dataclasses.dataclass(frozen=True)
 class CheckpointSpec:
-    """Full-state checkpointing — not ported yet; a plan carrying one is
-    refused (ROADMAP Queue 1 item 9)."""
+    """Preemption-safe full-state checkpointing (no effect on the math).
+
+    Every ``every``-th round the trainer snapshots the ENTIRE training
+    state — params, per-program optimizer states, the error-feedback
+    ``comm_residual``, the shared server-optimizer state, every host RNG
+    stream position, the stochastic-rounding uniform stream, the round
+    cursor, retrace signatures and ``History`` — through
+    :class:`repro_torch.checkpoint.manager.CheckpointManager` under
+    ``dir``.  A run killed at ANY instant resumes from the latest valid
+    checkpoint (``PlanTrainer.run(resume_from=...)`` /
+    :func:`repro_torch.launch.train.resume`) bit-identical to an
+    uninterrupted run on the CPU.  ``async_=True`` moves serialization and
+    fsync to a writer thread; the bounded ``queue_size`` makes a slow disk
+    backpressure the trainer instead of dropping checkpoints.
+    """
 
     dir: str
     every: int = 1
     keep: int = 3
     async_: bool = True
     queue_size: int = 2
+
+    def __post_init__(self):
+        _check(bool(self.dir), "CheckpointSpec.dir must be a directory path")
+        _check(self.every >= 1, "CheckpointSpec.every must be ≥ 1")
+        _check(self.keep >= 0,
+               "CheckpointSpec.keep must be ≥ 0 (0 = keep everything)")
+        _check(self.queue_size >= 1, "CheckpointSpec.queue_size must be ≥ 1")
 
 
 # --------------------------------------------------------------------------
@@ -343,16 +373,13 @@ class TrainPlan:
     compile: CompileSpec = CompileSpec()
     name: str = "plan"
     seed: int = 0
-    checkpoint_dir: Optional[str] = None
-    checkpoint: Optional[CheckpointSpec] = None
+    checkpoint_dir: Optional[str] = None  # per-round params export (serving)
+    checkpoint: Optional[CheckpointSpec] = None  # full-state resume snapshots
 
     def __post_init__(self):
         if not isinstance(self.phases, tuple):
             object.__setattr__(self, "phases", tuple(self.phases))
         _check(len(self.phases) > 0, "a TrainPlan needs at least one phase")
-        _check(self.checkpoint is None and self.checkpoint_dir is None,
-               _not_ported("checkpointing (checkpoint / checkpoint_dir)",
-                           "9, checkpointing"))
         if self.sampler.full_graph:
             _check(self.comm.num_machines == 1,
                    "sampler.full_graph (centralized reference) requires "
@@ -373,6 +400,8 @@ class TrainPlan:
             "schedule": dataclasses.asdict(self.schedule),
             "compile": dataclasses.asdict(self.compile),
             "seed": self.seed,
+            "checkpoint": (dataclasses.asdict(self.checkpoint)
+                           if self.checkpoint is not None else None),
         }
 
 
@@ -526,6 +555,28 @@ class RoundSampler:
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # ----------------------------------------------------------- rng snapshot
+    def snapshot(self) -> Dict:
+        """JSON-able position of every host RNG stream (for exact resume):
+        the ONE shared rng (mini-batches, correction draws, extended
+        tables), the per-loader neighbor-table rngs and the server's
+        full-neighbor sampler rng."""
+        gen = lambda g: g.bit_generator.state
+        return {"rng": gen(self.rng),
+                "loader_rngs": [gen(ld.sampler._rng) for ld in self.loaders],
+                "server_rng": gen(self.server_sampler._rng)}
+
+    def restore_snapshot(self, snap: Dict) -> None:
+        self.rng.bit_generator.state = snap["rng"]
+        loader_states = snap["loader_rngs"]
+        if len(loader_states) != len(self.loaders):
+            raise ValueError(
+                f"checkpoint has {len(loader_states)} loader RNG streams, "
+                f"this plan has {len(self.loaders)} machines")
+        for ld, st in zip(self.loaders, loader_states):
+            ld.sampler._rng.bit_generator.state = st
+        self.server_sampler._rng.bit_generator.state = snap["server_rng"]
 
     def prewarm(self, kinds, correction: bool = False) -> None:
         """Build every per-(graph, fanout) sampling plan (and, with
@@ -806,6 +857,14 @@ class _PlanProgram:
         self._cursor = 0
         self._sub: Dict[Tuple, EngineState] = {}
         self._server_state = None
+        self._key_by_str = {self._key_str(k): k for k in self.programs}
+
+    @staticmethod
+    def _key_str(key: Tuple) -> str:
+        """Program key as the JAX package's checkpoint tree key
+        (``"local:True"``, ``"halo:None"``)."""
+        mode, reset = key
+        return f"{mode}:{reset}"
 
     @property
     def num_retraces(self) -> int:
@@ -814,6 +873,76 @@ class _PlanProgram:
     @property
     def num_corr_retraces(self) -> int:
         return sum(p.num_corr_retraces for p in self.programs.values())
+
+    # --------------------------------------------------- checkpoint snapshot
+    def snapshot_state(self, state: EngineState) -> Dict:
+        """The FULL mutable tensor state as one tree (for the manager).
+
+        The global params, the shared server-optimizer state, and every
+        program's optimizer state and error-feedback residual, keyed as the
+        JAX package keys them — a program that rebuilds its optimizer each
+        round carries the reference's scalar placeholder there.  One entry
+        is the port's own: ``uniforms/<program>``, the uint8 state of the
+        CPU generator the int8 codecs draw their stochastic-rounding
+        uniforms from (the JAX package folds stateless keys instead).  Call
+        :meth:`init_state` first to build the same tree as a template.
+        """
+        tree = {"params": state.params,
+                "server": self._server_state,
+                "subs": {self._key_str(k): {
+                    "opt": (s.local_opt_state
+                            if s.local_opt_state is not None
+                            else self._placeholder(state.params)),
+                    "residual": s.comm_residual}
+                    for k, s in self._sub.items()}}
+        streams = {self._key_str(k): p.uniforms.get_state()
+                   for k, p in self.programs.items()
+                   if hasattr(p.uniforms, "get_state")}
+        if streams:
+            tree["uniforms"] = streams
+        return tree
+
+    @staticmethod
+    def _placeholder(params) -> torch.Tensor:
+        """The JAX engine's scalar local-optimizer placeholder."""
+        leaf = next(iter(tree_leaves(params)))
+        return torch.zeros((), dtype=torch.float32, device=leaf.device)
+
+    def train_state(self) -> Dict:
+        """JSON-able non-tensor position: cursor + per-program trace state."""
+        return {"cursor": self._cursor,
+                "programs": {self._key_str(k): p.trace_state()
+                             for k, p in self.programs.items()}}
+
+    def restore_run_state(self, tree: Dict, aux: Dict) -> EngineState:
+        """Rehydrate from a checkpoint; returns the outer EngineState.
+
+        ``tree`` is a restored :meth:`snapshot_state` tree, ``aux`` the
+        matching :meth:`train_state`.  Runs after :meth:`init_state` (which
+        built the template and reset the uniform streams, whose positions
+        are set here).
+        """
+        params = tree["params"]
+        self._cursor = int(aux["cursor"])
+        for ks, snap in aux["programs"].items():
+            key = self._key_by_str.get(ks)
+            if key is None:
+                raise ValueError(f"checkpoint carries engine program {ks!r} "
+                                 "this plan does not lower")
+            self.programs[key].restore_trace_state(snap)
+        if self.with_correction:
+            self._server_state = tree["server"]
+        for key, prog in self.programs.items():
+            sub_t = tree["subs"][self._key_str(key)]
+            keeps_opt = prog.cfg.mode != "local" or not prog.cfg.reset_local_opt
+            self._sub[key] = EngineState(
+                params=params,
+                local_opt_state=sub_t["opt"] if keeps_opt else None,
+                server_opt_state=None,
+                comm_residual=sub_t["residual"])
+        for ks, st in tree.get("uniforms", {}).items():
+            self.programs[self._key_by_str[ks]].uniforms.set_state(st)
+        return EngineState(params=params, local_opt_state=None)
 
     def init_state(self, params) -> EngineState:
         self._cursor = 0
@@ -841,6 +970,71 @@ class _PlanProgram:
         if corr:
             self._server_state = new.server_opt_state
         return EngineState(params=new.params, local_opt_state=None), metrics
+
+
+# --------------------------------------------------------------------------
+# checkpoint identity + the run_schedule checkpoint hook
+# --------------------------------------------------------------------------
+def plan_digest_of(plan: TrainPlan, backend: str) -> str:
+    """Digest of everything that shapes the trajectory (for resume refusal):
+    the plan description, the backend and the resolved schedule — but not
+    the checkpoint spec, which does not change the math."""
+    desc = plan.describe()
+    desc.pop("checkpoint", None)
+    return digest_json({"plan": desc, "backend": backend,
+                        "schedule": plan.schedule.resolve(plan.local.local_k)})
+
+
+def dataset_digest(data: SyntheticDataset) -> str:
+    """Content digest of the dataset a checkpoint was trained on."""
+    src, dst = data.graph.to_edges()
+    h = hashlib.sha256()
+    for arr in (data.features, data.labels, data.train_nodes,
+                data.val_nodes, src, dst):
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return digest_json({"num_nodes": int(data.num_nodes),
+                        "num_edges": int(data.graph.num_edges),
+                        "payload": h.hexdigest()})
+
+
+class _PlanCheckpointHook:
+    """Two-phase checkpoint tap that ``run_schedule`` drives every round.
+
+    ``after_round(r)``, right after round r runs, snapshots the host RNG
+    streams at exactly "rounds 1..r drawn"; ``commit(r)``, once round r's
+    History rows land, pairs that snapshot with the tensor state and hands
+    both to the manager.  Rounds where ``r % every != 0`` skip both.
+    """
+
+    def __init__(self, manager: CheckpointManager, sampler: RoundSampler,
+                 program: _PlanProgram, every: int,
+                 plan_digest: str, data_digest: str):
+        self.manager = manager
+        self.sampler = sampler
+        self.program = program
+        self.every = every
+        self.plan_digest = plan_digest
+        self.data_digest = data_digest
+        self._rng_snap: Optional[Dict] = None
+
+    def _due(self, r: int) -> bool:
+        return r % self.every == 0
+
+    def after_round(self, r: int, state: EngineState) -> None:
+        if self._due(r):
+            self._rng_snap = self.sampler.snapshot()
+
+    def commit(self, r: int, state: EngineState, hist: History) -> None:
+        if not self._due(r):
+            return
+        train = {"round": r,
+                 "sampler": self._rng_snap,
+                 "program": self.program.train_state(),
+                 "history": hist.to_json()}
+        self.manager.save(r, self.program.snapshot_state(state), train=train,
+                          plan_digest=self.plan_digest,
+                          data_digest=self.data_digest)
+        self._rng_snap = None
 
 
 # --------------------------------------------------------------------------
@@ -916,8 +1110,17 @@ class PlanTrainer:
         return rows
 
     # ------------------------------------------------------------------- run
-    def run(self) -> History:
-        """Run the plan on the trainer's device; returns the History."""
+    def run(self, resume_from: Optional[str] = None,
+            resume_step: Optional[int] = None) -> History:
+        """Run the plan on the trainer's device; returns the History.
+
+        ``resume_from`` names a :class:`CheckpointSpec` directory: the
+        latest VALID checkpoint (or ``resume_step``) is restored onto the
+        trainer's device — params, optimizer states, comm residual, RNG
+        streams, uniform streams, cursor, retrace signatures, History — and
+        training continues mid-schedule.  Checkpoints whose plan or dataset
+        digest differs from this trainer's are refused.
+        """
         plan, data, model = self.plan, self.data, self.model
         sampler = RoundSampler(data, model, plan, self.device)
         sampler.prewarm({d.kind for d in self.descs},
@@ -938,19 +1141,77 @@ class PlanTrainer:
                 "halo_max_send": sampler.halo_program.max_send,
                 "halo_max_halo": sampler.halo_program.max_halo})
         desc_by_round = {d.r: d for d in self.descs}
-        hist = run_schedule(
-            program, model.init(plan.seed, device=self.device), None, None,
-            lambda r, k: sampler.sample(desc_by_round[r]),
-            self.schedule,
-            lambda p: sampler.evaluate(p, data.val_nodes),
-            plan.name,
-            bytes_per_round=lambda r, k: by_round[r]["bytes"],
-            steps_per_round=lambda r, k: by_round[r]["steps"],
-            meta=meta,
-            bucketing=bucketing)
+        pdig = plan_digest_of(plan, self.backend)
+        ddig = dataset_digest(data)
+        resume = None
+        if resume_from is not None:
+            resume = self._restore(resume_from, resume_step, program,
+                                   model.init(plan.seed, device=self.device),
+                                   pdig, ddig)
+        manager = hook = None
+        if plan.checkpoint is not None:
+            ck = plan.checkpoint
+            manager = CheckpointManager(ck.dir, keep=ck.keep,
+                                        async_=ck.async_,
+                                        queue_size=ck.queue_size)
+            hook = _PlanCheckpointHook(manager, sampler, program, ck.every,
+                                       pdig, ddig)
+        try:
+            hist = run_schedule(
+                program, model.init(plan.seed, device=self.device), None,
+                None,
+                lambda r, k: sampler.sample(desc_by_round[r]),
+                self.schedule,
+                lambda p: sampler.evaluate(p, data.val_nodes),
+                plan.name,
+                bytes_per_round=lambda r, k: by_round[r]["bytes"],
+                steps_per_round=lambda r, k: by_round[r]["steps"],
+                meta=meta,
+                bucketing=bucketing,
+                checkpoint_dir=plan.checkpoint_dir,
+                checkpoint_hook=hook,
+                resume=resume)
+        finally:
+            if manager is not None:
+                manager.close()
         hist.meta["cut_stats"] = sampler.cut_stats()
         hist.meta["round_kinds"] = [d.kind for d in self.descs]
+        hist.meta["device"] = str(self.device)   # where the run finished
         return hist
+
+    def _restore(self, resume_from: str, resume_step: Optional[int],
+                 program: _PlanProgram, params0, pdig: str,
+                 ddig: str) -> ResumePoint:
+        """Load the latest valid (or explicit) checkpoint into ``program``.
+
+        The template is the freshly initialized program state on the
+        trainer's device — the exact tree, shapes and dtypes of every leaf
+        — so a checkpoint of another architecture or codec fails the shape
+        and dtype checks; the digests catch everything subtler.  The
+        sampler must not have drawn yet (its streams are overwritten).
+        """
+        def check_identity(manifest):
+            if manifest.get("plan_digest") != pdig:
+                raise CheckpointRefused(
+                    f"checkpoint under {resume_from} was written by a "
+                    "different plan/backend (plan digest mismatch); refusing "
+                    "to resume — a silent divergence is worse than a restart")
+            if manifest.get("data_digest") != ddig:
+                raise CheckpointRefused(
+                    f"checkpoint under {resume_from} was trained on "
+                    "different data (dataset digest mismatch); refusing to "
+                    "resume")
+
+        reader = CheckpointManager(resume_from, keep=0, async_=False)
+        template = program.snapshot_state(program.init_state(params0))
+        tree, manifest = reader.restore(template, step=resume_step,
+                                        manifest_check=check_identity)
+        train = manifest["train"]
+        state0 = program.restore_run_state(tree, train["program"])
+        program.sampler.restore_snapshot(train["sampler"])
+        return ResumePoint(state=state0,
+                           history=History.from_json(train["history"]),
+                           start_round=int(train["round"]) + 1)
 
 
 def build_trainer(data: SyntheticDataset, model: GNNModel, plan: TrainPlan,
@@ -996,7 +1257,7 @@ class DistConfig:
     bucket_growth: int = 2           # bucket lengths are local_k·growth^i
     bucket_mode: str = "geometric"   # "geometric" | "fit" (schedule-aware)
     ggs_host_halo: bool = False      # GGS: host-materialized halo
-    checkpoint_dir: Optional[str] = None  # params export (not ported)
+    checkpoint_dir: Optional[str] = None  # params export (train→serve hook)
     seed: int = 0
 
     def __post_init__(self):

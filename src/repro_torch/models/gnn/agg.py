@@ -36,7 +36,7 @@ object, so no layout pays a rebuild inside the round.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,18 +53,25 @@ AUTO_THRESHOLD = 2.0
 
 @dataclasses.dataclass(frozen=True)
 class EdgeCSR:
-    """Edge-list operands of one graph for the ``csr`` layout, on a device.
+    """Edge-list operands for the ``csr`` layout, on a device.
 
     ``seg[e]`` is the owning (destination) row of edge ``e`` and ``nbr[e]``
-    the neighbor gathered from; both are int64, torch's index dtype.  A
-    single graph has no padding edge, so ``emask`` is all ones.
+    the neighbor gathered from; both are int64, torch's index dtype.  One
+    graph's operands are ``(E,)`` and have no padding edge.  P stacked
+    graphs (:func:`stacked_edge_operands`, the serving backends) are
+    ``(P, E_max)``: a machine with fewer edges is padded with edges whose
+    ``seg`` is ``num_segments`` and whose ``emask`` and ``w_mean`` are 0,
+    which every aggregate op drops, as ``jax.ops.segment_*`` drops an index
+    equal to ``num_segments``.  Stacked operands carry their
+    :func:`flatten_stacked` form in ``flat``, built with them.
     """
 
-    seg: torch.Tensor         # (E,) int64 — owner row per edge
-    nbr: torch.Tensor         # (E,) int64 — neighbor row per edge
-    w_mean: torch.Tensor      # (E,) f32 — 1/max(deg,1)[seg]
-    emask: torch.Tensor       # (E,) f32 — 1 on every real edge
-    num_segments: int         # output row count
+    seg: torch.Tensor         # (E,) | (P, E_max) int64 — owner row per edge
+    nbr: torch.Tensor         # (E,) | (P, E_max) int64 — neighbor row
+    w_mean: torch.Tensor      # f32 — 1/max(deg,1)[seg], 0 on pad edges
+    emask: torch.Tensor       # f32 — 1 on every real edge, 0 on pad edges
+    num_segments: int         # output row count (per graph)
+    flat: Optional["EdgeCSR"] = None   # stacked: the (P·E_max,) operands
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +131,60 @@ def edge_operands(graph: CSRGraph, num_segments: Optional[int] = None,
                   num_segments=ns)
     cache[key] = ops
     return ops
+
+
+def stacked_edge_arrays(graphs: Sequence[CSRGraph], num_segments: int
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                   np.ndarray]:
+    """Host ``(seg, nbr, w_mean, emask)`` of :func:`stacked_edge_operands`,
+    each ``(P, E_max)``, bit-equal to the JAX package's arrays (int32
+    indices, as there)."""
+    ns = int(num_segments)
+    e_max = max(max(g.num_edges for g in graphs), 1)
+    P = len(graphs)
+    seg = np.full((P, e_max), ns, np.int32)
+    nbr = np.zeros((P, e_max), np.int32)
+    w = np.zeros((P, e_max), np.float32)
+    em = np.zeros((P, e_max), np.float32)
+    for p, g in enumerate(graphs):
+        src, dst = g.to_edges()
+        deg = np.maximum(g.degrees(), 1).astype(np.float32)
+        e = src.shape[0]
+        seg[p, :e] = src
+        nbr[p, :e] = dst
+        w[p, :e] = (1.0 / deg)[src]
+        em[p, :e] = 1.0
+    return seg, nbr, w, em
+
+
+def stacked_edge_operands(graphs: Sequence[CSRGraph], num_segments: int,
+                          device="cuda") -> EdgeCSR:
+    """Stacked ``(P, E_max)`` edge operands for a forward over P
+    partition-extended graphs of ``num_segments`` rows each (the serving
+    backends).  Machines with fewer edges are padded with dropped edges
+    (``seg = num_segments``, ``emask = 0``)."""
+    seg, nbr, w, em = stacked_edge_arrays(graphs, num_segments)
+    dev = lambda a: torch.from_numpy(a).to(device)
+    stacked = EdgeCSR(seg=dev(seg.astype(np.int64)),
+                      nbr=dev(nbr.astype(np.int64)), w_mean=dev(w),
+                      emask=dev(em), num_segments=int(num_segments))
+    return dataclasses.replace(stacked, flat=flatten_stacked(stacked))
+
+
+def flatten_stacked(edges: EdgeCSR) -> EdgeCSR:
+    """``(P, E_max)`` operands over P graphs of N rows → ``(P·E_max,)``
+    operands over the flattened ``(P·N)`` rows.  A real edge of graph p is
+    offset by ``p·N``; a pad edge goes to ``P·N`` — the flattened
+    ``num_segments``, which the ops drop — never into the next graph's
+    rows (``seg + p·N`` of a pad edge would be row 0 of graph p + 1)."""
+    P, n = edges.seg.shape[0], edges.num_segments
+    off = (torch.arange(P, device=edges.seg.device, dtype=torch.int64)
+           * n)[:, None]
+    seg = torch.where(edges.seg < n, edges.seg + off,
+                      torch.full_like(edges.seg, P * n))
+    return EdgeCSR(seg=seg.reshape(-1), nbr=(edges.nbr + off).reshape(-1),
+                   w_mean=edges.w_mean.reshape(-1),
+                   emask=edges.emask.reshape(-1), num_segments=P * n)
 
 
 def bcsr_operands(graph: CSRGraph, device) -> BCSROps:
@@ -195,20 +256,23 @@ class _EdgeWeightedSum(torch.autograd.Function):
     def forward(ctx, x, w, seg, nbr, num_segments):
         ctx.save_for_backward(x, w, seg, nbr)
         ctx.num_segments = num_segments
-        return x.new_zeros((num_segments, x.shape[1])).index_add_(
+        # one sink row past the output takes the pad edges (seg ==
+        # num_segments), where jax.ops.segment_sum drops them; index_add_
+        # would raise on the CPU and assert on the card
+        out = x.new_zeros((num_segments + 1, x.shape[1])).index_add_(
             0, seg, x.index_select(0, nbr) * w[:, None])
+        return out[:num_segments]
 
     @staticmethod
     def backward(ctx, g):
         x, w, seg, nbr = ctx.saved_tensors
-        ns = ctx.num_segments
-        ge = g.index_select(0, seg.clamp_max(ns - 1))
+        # the sink row's cotangent is 0: a dropped edge gets no gradient
+        ge = torch.cat([g, g.new_zeros((1, g.shape[1]))]).index_select(0, seg)
         gx = gw = None
         if ctx.needs_input_grad[0]:
             gx = torch.zeros_like(x).index_add_(0, nbr, ge * w[:, None])
         if ctx.needs_input_grad[1]:
-            gw = torch.where(seg < ns, (ge * x.index_select(0, nbr)).sum(-1),
-                             0.0).to(w.dtype)
+            gw = (ge * x.index_select(0, nbr)).sum(-1).to(w.dtype)
         return gx, gw, None, None, None
 
 
@@ -254,14 +318,19 @@ def csr_gat_aggregate(z: torch.Tensor, src_score: torch.Tensor,
     e = src_score.index_select(0, segc) + dst_score.index_select(0, nbr)
     e = torch.nn.functional.leaky_relu(e, negative_slope)
     neg = -1e30
+    real = emask > 0
+    # segment ops over ns + 1 rows: the last is the sink of the pad edges
+    # (seg == ns), sliced off, where jax.ops.segment_* drops them
     with torch.no_grad():
-        m = torch.full((ns,), neg, dtype=e.dtype, device=e.device)
-        m = m.scatter_reduce(0, seg, torch.where(emask > 0, e, neg), "amax",
+        m = torch.full((ns + 1,), neg, dtype=e.dtype, device=e.device)
+        m = m.scatter_reduce(0, seg, torch.where(real, e, neg), "amax",
                              include_self=False)
-    num = torch.exp(e - m.index_select(0, segc)) * emask.to(e.dtype)
-    den = num.new_zeros(ns).index_add(0, seg, num)
-    out = z.new_zeros((ns, z.shape[1])).index_add(
-        0, seg, num[:, None] * z.index_select(0, nbr))
+    # a pad edge's exponent is −1e30 before the exp, so neither its value
+    # nor its gradient can be inf · 0
+    num = torch.exp(torch.where(real, e - m.index_select(0, seg), neg))
+    den = num.new_zeros(ns + 1).index_add(0, seg, num)[:ns]
+    out = z.new_zeros((ns + 1, z.shape[1])).index_add(
+        0, seg, num[:, None] * z.index_select(0, nbr))[:ns]
     return out / den.clamp_min(1e-30)[:, None]
 
 

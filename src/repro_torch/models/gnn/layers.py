@@ -13,10 +13,13 @@ the flattened ``(B·N, d)`` rows + a masked mean.  A single graph is the
 B = 1 stack (:meth:`repro_torch.models.gnn.model.GNNModel.apply`).
 
 Aggregate ops also accept prebuilt :class:`repro_torch.models.gnn.agg.
-AggOperands` (``agg=``, one graph, B = 1): ``csr`` replaces the
-``N·fanout·d`` dense gather with an ``E·d`` edge-centric segment sum;
-``bcsr_kernel`` routes the mean aggregation through the BCSR SpMM kernel
-and the GAT softmax-aggregate through the fused edge-softmax kernel.
+AggOperands` (``agg=``): ``csr`` replaces the ``N·fanout·d`` dense gather
+with an ``E·d`` edge-centric segment sum, over one graph (``(E,)``
+operands, B = 1) or over B stacked graphs (``(B, E_max)`` operands from
+:func:`~repro_torch.models.gnn.agg.stacked_edge_operands`, whose pad edges
+are dropped); ``bcsr_kernel`` (one graph) routes the mean aggregation
+through the BCSR SpMM kernel and the GAT softmax-aggregate through the
+fused edge-softmax kernel.
 """
 from __future__ import annotations
 
@@ -26,8 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.gnn.agg import (
-    AggOperands, bcsr_mean_aggregate, bcsr_sym_aggregate, csr_gat_aggregate,
-    csr_mean_aggregate, csr_sym_aggregate,
+    AggOperands, EdgeCSR, bcsr_mean_aggregate, bcsr_sym_aggregate,
+    csr_gat_aggregate, csr_mean_aggregate, csr_sym_aggregate,
+    flatten_stacked,
 )
 
 
@@ -57,6 +61,25 @@ def _single_graph(h: torch.Tensor) -> None:
                          f"stack of {h.shape[0]}")
 
 
+def _csr_edges(h: torch.Tensor, edges: EdgeCSR) -> EdgeCSR:
+    """The edge operands over ``h``'s flattened ``(B·N)`` rows: one graph's
+    as they are (B = 1), B stacked graphs' flattened."""
+    b, n = h.shape[:2]
+    if edges.seg.dim() == 1:
+        _single_graph(h)
+        return edges
+    if edges.seg.shape[0] != b or edges.num_segments != n:
+        raise ValueError(f"stacked edge operands for {edges.seg.shape[0]} "
+                         f"graphs of {edges.num_segments} rows; got {b} of "
+                         f"{n}")
+    return edges.flat if edges.flat is not None else flatten_stacked(edges)
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, …) → (B·N, …)."""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
 def _bias(out: torch.Tensor, params: Dict) -> torch.Tensor:
     return out + params["b"][:, None, :] if "b" in params else out
 
@@ -65,9 +88,10 @@ def mean_aggregate(h: torch.Tensor, table: torch.Tensor, mask: torch.Tensor,
                    agg: Optional[AggOperands] = None) -> torch.Tensor:
     """(1/|Ñ(v)|) Σ_{j∈Ñ(v)} h_j — the paper's mean aggregation."""
     if agg is not None:
-        _single_graph(h)
         if agg.layout == "csr":
-            return csr_mean_aggregate(h[0], agg.edges)[None]
+            return csr_mean_aggregate(
+                _rows(h), _csr_edges(h, agg.edges)).reshape(h.shape)
+        _single_graph(h)
         if agg.layout == "bcsr_kernel":
             return bcsr_mean_aggregate(h[0], agg.bcsr)[None]
         raise ValueError(f"unsupported aggregation layout {agg.layout!r}")
@@ -81,9 +105,11 @@ def sym_aggregate(h: torch.Tensor, table: torch.Tensor, mask: torch.Tensor,
     """Σ_j h_j / sqrt(deg_i · deg_j) — GCN symmetric-Laplacian aggregation;
     ``normalizers`` is (B, N), one vector per graph."""
     if agg is not None:
-        _single_graph(h)
         if agg.layout == "csr":
-            return csr_sym_aggregate(h[0], agg.edges, normalizers[0])[None]
+            return csr_sym_aggregate(_rows(h), _csr_edges(h, agg.edges),
+                                     normalizers.reshape(-1)
+                                     ).reshape(h.shape)
+        _single_graph(h)
         if agg.layout == "bcsr_kernel":
             return bcsr_sym_aggregate(h[0], agg.bcsr, normalizers[0])[None]
         raise ValueError(f"unsupported aggregation layout {agg.layout!r}")
@@ -126,9 +152,10 @@ def gat_layer(params: Dict, h: torch.Tensor, table: torch.Tensor,
     src_score = torch.einsum("bnd,bd->bn", z, params["a_src"])
     dst_score = torch.einsum("bnd,bd->bn", z, params["a_dst"])
     if agg is not None and agg.layout == "csr":
-        _single_graph(h)
-        out = csr_gat_aggregate(z[0], src_score[0], dst_score[0], agg.edges,
-                                negative_slope)[None]
+        out = csr_gat_aggregate(_rows(z), src_score.reshape(-1),
+                                dst_score.reshape(-1),
+                                _csr_edges(h, agg.edges),
+                                negative_slope).reshape(z.shape)
     else:
         e = src_score[:, :, None] + _gather(dst_score, table)  # (B, N, F)
         e = F.leaky_relu(e, negative_slope)

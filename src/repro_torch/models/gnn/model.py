@@ -40,6 +40,15 @@ class GNNModel:
     appnp_steps: int = 10
     appnp_beta: float = 0.1
     fused_gat: bool = False   # route GAT aggregation through the kernel
+    # default aggregation layout for full-graph consumers (the serving
+    # backends read it when not overridden): one of agg.LAYOUTS
+    agg_layout: str = "padded"
+
+    def __post_init__(self):
+        from repro_torch.models.gnn.agg import LAYOUTS
+        if self.agg_layout not in LAYOUTS:
+            raise ValueError(f"unknown agg_layout {self.agg_layout!r}; "
+                             f"choose one of {LAYOUTS}")
 
     # ------------------------------------------------------------------ init
     def init_numpy(self, seed: int = 0) -> Dict[str, Dict[str, np.ndarray]]:
@@ -88,6 +97,16 @@ class GNNModel:
         ``init(seed)``."""
         return tree_map(lambda a: torch.from_numpy(a).to(device),
                         self.init_numpy(seed))
+
+    def num_message_hops(self) -> int:
+        """Graph-aggregation depth L: the receptive field an exact
+        partitioned forward must cover (the serving backend sizes its
+        inference halo from it).  Linear and BatchNorm ops add nothing."""
+        if self.arch == "GAT":
+            return 2
+        if self.arch == "APPNP":
+            return self.appnp_steps
+        return sum(1 for op in self.arch if op in ("G", "S"))
 
     def _dims(self) -> List[Tuple[int, int]]:
         """(d_in, d_out) per op; BatchNorm keeps width."""

@@ -1,5 +1,6 @@
-"""Serving: the wave scheduler and the LM backend.
+"""Serving: backend-agnostic schedulers + per-workload backends.
 
-:mod:`repro_torch.serving.core`    — queue / bucketing / wave scheduling.
+:mod:`repro_torch.serving.core`    — queue / bucketing; wave + slot scheduling.
 :mod:`repro_torch.serving.engine`  — autoregressive LM prefill/decode backend.
+:mod:`repro_torch.serving.gnn`     — partitioned-graph GNN embedding backend.
 """

@@ -1,10 +1,18 @@
-"""Backend-agnostic serving core: the wave scheduler.
+"""Backend-agnostic serving core: wave and slot (continuous) schedulers.
 
 :class:`WaveScheduler` is synchronous batching: requests queue up, are
 grouped into *buckets* of identical shape, each bucket drains in fixed-size
 *waves* through one backend call, and a wave finishes before the next is
-admitted.  What a "shape" is (an LM prompt length) is the backend's
-business; the scheduler only needs bucket keys to be sortable and hashable.
+admitted.  What a "shape" is (an LM prompt length, a GNN neighbor-table
+width) is the backend's business; the scheduler only needs bucket keys to
+be sortable and hashable.
+
+:class:`SlotScheduler` is continuous batching over a fixed pool of
+*slots*: requests are admitted into free slots the moment one opens, the
+backend advances ALL active slots one step per :meth:`SlotScheduler.step`,
+and each request retires individually the step it finishes, so a short
+request never waits for a long co-resident.  Slot-capable backends
+implement :class:`SlotBackend` (``num_slots`` / ``admit`` / ``step``).
 
 Per-request timing is split into **queue wait** (submit → admission) and
 **service time** (admission → completion), in :meth:`WaveScheduler.stats`
@@ -23,14 +31,12 @@ step)`` — *per-request* determinism (a request's sampled continuation never
 depends on what shared its wave) — where the JAX package folds ``jax.random``
 keys (``fold_request_key``); the draws differ from JAX's, the property is the
 same.  :func:`wave_rng` seeds a numpy generator from a wave's request ids.
-
-The continuous-batching ``SlotScheduler`` / ``SlotBackend`` are ROADMAP.md
-Queue 1 item 11's work.
 """
 from __future__ import annotations
 
+import collections
 import time
-from typing import Any, Dict, Hashable, List, Sequence
+from typing import Any, Dict, Hashable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,6 +62,32 @@ class ServingBackend:
     def stats(self) -> Dict:
         """Backend-specific counters merged into the scheduler's stats."""
         return {}
+
+
+class SlotBackend(ServingBackend):
+    """Extra protocol a backend implements to run under
+    :class:`SlotScheduler`.
+
+    A slot backend owns a fixed pool of per-slot serve state; the scheduler
+    owns admission order, slot bookkeeping and timing.  ``admit`` must
+    overwrite the slot's state fully, so slot reuse never leaks state
+    between requests.
+    """
+
+    @property
+    def num_slots(self) -> int:
+        raise NotImplementedError
+
+    def admit(self, slot: int, request) -> Optional[Any]:
+        """Install ``request`` into ``slot``.  Returns a finished result if
+        the request completed during admission (then the slot stays free),
+        else ``None``."""
+        raise NotImplementedError
+
+    def step(self) -> Dict[int, Any]:
+        """Advance every active slot one step; returns ``{slot: result}``
+        for the slots whose request finished this step."""
+        raise NotImplementedError
 
 
 def _time_summary(xs: Sequence[float]) -> Dict:
@@ -159,6 +191,115 @@ class WaveScheduler:
     def stats(self) -> Dict:
         s = {"waves": self._wave, "queued": len(self._queue),
              "served": self._served, "batch_size": self.batch_size,
+             "queue_wait_s": _time_summary(
+                 [r["queue_wait_s"] for r in self.request_log]),
+             "service_s": _time_summary(
+                 [r["service_s"] for r in self.request_log])}
+        s.update(self.backend.stats())
+        return s
+
+
+class SlotScheduler:
+    """Continuous batching: a fixed slot pool with mid-flight admit/retire.
+
+    The scheduler owns a FIFO queue and the slot free-list; the backend owns
+    per-slot execution state (:class:`SlotBackend`).  Each :meth:`step`
+    first fills every free slot from the queue (lowest slot index first),
+    then advances the whole pool one backend step and retires the slots
+    whose request finished.  :meth:`submit` may be called at any time,
+    including between steps of a loop driven from outside.
+
+    Queue wait is submit → admission into a slot; service is admission →
+    the end of the step in which the request finished.
+    """
+
+    def __init__(self, backend: SlotBackend, num_slots: Optional[int] = None):
+        self.backend = backend
+        self.num_slots = int(num_slots if num_slots is not None
+                             else backend.num_slots)
+        if self.num_slots < 1:
+            raise ValueError("num_slots must be ≥ 1")
+        if self.num_slots > backend.num_slots:
+            raise ValueError(f"num_slots {self.num_slots} exceeds the "
+                             f"backend pool ({backend.num_slots})")
+        self._queue: collections.deque = collections.deque()
+        self._free: List[int] = list(range(self.num_slots))
+        self._active: Dict[int, Dict] = {}
+        self._step_idx = 0
+        self._served = 0
+        self._occupancy_sum = 0.0
+        self.request_log: List[Dict] = []
+
+    # ------------------------------------------------------------------ api
+    def submit(self, request) -> None:
+        self.backend.validate(request)
+        self._queue.append((request, time.perf_counter()))
+
+    @property
+    def queued(self) -> int:
+        return len(self._queue)
+
+    @property
+    def active(self) -> int:
+        return len(self._active)
+
+    def _finish(self, entry: Dict, result, t_finish: float) -> None:
+        self.request_log.append({
+            "uid": getattr(entry["request"], "uid", None),
+            "submit_t": entry["submit_t"], "admit_t": entry["admit_t"],
+            "finish_t": t_finish,
+            "queue_wait_s": entry["admit_t"] - entry["submit_t"],
+            "service_s": t_finish - entry["admit_t"]})
+        self._served += 1
+
+    def _admit_free(self) -> List[Any]:
+        """Fill free slots from the queue; returns admit-time completions."""
+        done: List[Any] = []
+        while self._free and self._queue:
+            request, t_sub = self._queue.popleft()
+            slot = min(self._free)
+            t_adm = time.perf_counter()
+            result = self.backend.admit(slot, request)
+            entry = {"request": request, "submit_t": t_sub, "admit_t": t_adm}
+            if result is not None:         # finished during admission
+                self._finish(entry, result, time.perf_counter())
+                done.append(result)
+            else:
+                self._free.remove(slot)
+                self._active[slot] = entry
+        return done
+
+    def step(self) -> List[Any]:
+        """Admit into free slots, advance the pool one step, retire.
+        Returns the results completed this step (admission-time finishes
+        first), possibly none."""
+        results = self._admit_free()
+        if self._active:
+            self._step_idx += 1
+            self._occupancy_sum += len(self._active) / self.num_slots
+            finished = self.backend.step()
+            t_fin = time.perf_counter()
+            for slot, result in sorted(finished.items()):
+                entry = self._active.pop(slot)
+                self._free.append(slot)
+                self._finish(entry, result, t_fin)
+                results.append(result)
+        return results
+
+    def run(self) -> List[Any]:
+        """Serve until queue and pool are empty; results in completion
+        order."""
+        results: List[Any] = []
+        while self._queue or self._active:
+            results.extend(self.step())
+        return results
+
+    def stats(self) -> Dict:
+        s = {"steps": self._step_idx, "queued": len(self._queue),
+             "active": len(self._active), "served": self._served,
+             "num_slots": self.num_slots,
+             "occupancy_mean": (self._occupancy_sum / self._step_idx
+                                if self._step_idx else 0.0),
              "queue_wait_s": _time_summary(
                  [r["queue_wait_s"] for r in self.request_log]),
              "service_s": _time_summary(

@@ -16,8 +16,16 @@ package's ``jax.random`` folds.  Latency is reported per request: the wall
 time from wave start to the decode step in which THAT request finished (EOS
 or token budget), stamped after the step's device work is forced.
 
-:class:`ServingEngine` binds the backend to the wave scheduler; the slot
-(continuous-batching) scheduler is ROADMAP.md Queue 1 item 11's work.
+:class:`LMSlotBackend` is the continuous-batching path behind
+:class:`~repro_torch.serving.core.SlotScheduler`: a persistent pool of
+per-slot decode states, requests ``prefill → insert(slot) → step``-ped,
+admitted into free slots and retired individually the step they finish.
+Sampling draws from the same per-``(uid, own token index)`` generators,
+so a request's continuation is independent of its co-residents, their
+slots and the admission order.
+
+:class:`ServingEngine` binds a backend to a scheduler: ``scheduler="wave"``
+(default) or ``"slot"``.
 """
 from __future__ import annotations
 
@@ -28,10 +36,24 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import TraceCounter, trace_signature
 from repro_torch.models.transformer.config import ModelConfig
 from repro_torch.models.transformer.model import LM
-from repro_torch.serving.core import (ServingBackend, WaveScheduler,
+from repro_torch.serving.core import (ServingBackend, SlotBackend,
+                                      SlotScheduler, WaveScheduler,
                                       request_generator)
+from repro_torch.utils.pytree import flatten_with_paths, map_with_paths
+
+
+def _temperature_sample(row: torch.Tensor, temperature: float, seed: int,
+                        uid: int, step: int) -> torch.Tensor:
+    """A categorical draw from ``row / temperature``: the argmax plus Gumbel
+    noise from the request's ``(seed, uid, step)`` CPU generator."""
+    gen = request_generator(seed, uid, step)
+    u = torch.rand(row.shape[-1], generator=gen).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    gumbel = -torch.log(-torch.log(u)).to(row.device)
+    return (row.float() / max(temperature, 1e-4) + gumbel).argmax()
 
 
 @dataclasses.dataclass
@@ -159,12 +181,8 @@ class LMBackend(ServingBackend):
         tok = logits.argmax(-1)
         for i, r in enumerate(wave):
             if r.temperature > 0:
-                gen = request_generator(self._sample_seed, r.uid, step)
-                u = torch.rand(logits.shape[-1], generator=gen).clamp_min(
-                    torch.finfo(torch.float32).tiny)
-                gumbel = -torch.log(-torch.log(u)).to(logits.device)
-                scaled = logits[i].float() / max(r.temperature, 1e-4)
-                tok[i] = (scaled + gumbel).argmax()
+                tok[i] = _temperature_sample(logits[i], r.temperature,
+                                             self._sample_seed, r.uid, step)
         return tok
 
     def stats(self) -> Dict:
@@ -190,23 +208,235 @@ def padded_prefill_safe(cfg: ModelConfig, max_seq: int) -> bool:
     return True
 
 
+class LMSlotBackend(SlotBackend):
+    """Continuous-batching LM execution: a per-slot decode-state pool.
+
+    Pool layout: the model's batch-``num_slots`` decode state, each leaf's
+    batch axis split into (slot, rows per request) and moved to the front,
+    so ``pool[slot]`` is one request's batch-1 state (a view: the step
+    decodes the whole pool in the model's batch layout with no copy).
+    ``admit`` runs a batch-1 prefill per prompt-length bucket — on the card
+    every RWKV6 layer's scan through the scan kernel — samples the first
+    token and copies the prefill's state into the slot, a full overwrite,
+    so slot reuse leaks nothing between requests.  ``step`` advances ALL
+    slots with one batched decode; free slots decode garbage that is never
+    read, so occupancy never changes the step's shapes.
+
+    Recurrent kinds (rwkv6, the one kind the port has) cannot take padded
+    prompts (:func:`padded_prefill_safe`), so buckets are exact lengths;
+    their decode reads no position, so the step passes none per slot
+    (attention kinds, ROADMAP Queue 1 item 13, will need per-slot
+    positions here).  Sampling: :class:`LMBackend`'s per-``(uid, step)``
+    generators, ``step`` the request's OWN token index.
+    """
+
+    def __init__(self, cfg: ModelConfig, params=None, num_slots: int = 4,
+                 max_seq: int = 256, seed: int = 0, device="cuda"):
+        if not cfg.supports_decode():
+            raise ValueError(f"{cfg.name} is encoder-only — cannot serve")
+        if num_slots < 1:
+            raise ValueError("num_slots must be ≥ 1")
+        self.cfg = cfg
+        self.model = LM(cfg)
+        self.max_seq = max_seq
+        self.device = torch.device(device)
+        self._num_slots = int(num_slots)
+        self.params = params if params is not None else \
+            self.model.init(seed, self.device)
+        self._sample_seed = seed + 1         # LMBackend's generators
+        # distinct prefill / step input signatures: the programs a compiled
+        # path would build (one per prompt-length bucket, one step)
+        self._prefill_traces = TraceCounter()
+        self._step_traces = TraceCounter()
+        self._prefill_lens: set = set()
+        self._pool = None          # slot-leading views of _pool_batch
+        self._pool_batch = None    # the batch-num_slots decode state
+        S = self._num_slots
+        self._tokens = np.zeros(S, np.int64)
+        self._steps = np.zeros(S, np.int64)
+        self._slots: List[Optional[Dict]] = [None] * S
+        self._generate_steps = 0
+
+    # ------------------------------------------------------------- the pool
+    def _batch_axes(self) -> Dict[str, tuple]:
+        """Per state leaf: (batch axis, rows per request), read off the
+        zero states of batch 1 and 2."""
+        one = dict(flatten_with_paths(self.model.init_states(
+            self.params, 1, self.max_seq)))
+        two = dict(flatten_with_paths(self.model.init_states(
+            self.params, 2, self.max_seq)))
+        axes = {}
+        for key, a in one.items():
+            diff = [i for i, (x, y) in enumerate(zip(a.shape, two[key].shape))
+                    if x != y]
+            axes[key] = (diff[0], a.shape[diff[0]])
+        return axes
+
+    def _views(self, batch_state: Dict) -> Dict:
+        """Slot-leading views of a batch-layout state tree."""
+        S = self._num_slots
+        return map_with_paths(
+            lambda k, x: x.unflatten(self._axes[k][0],
+                                     (S, self._axes[k][1]))
+            .movedim(self._axes[k][0], 0), batch_state)
+
+    def _alloc_pool(self, state: Dict) -> None:
+        """Zero pool shaped by a batch-1 prefill state."""
+        self._axes = self._batch_axes()
+        S = self._num_slots
+
+        def zeros(k, x):
+            shape = list(x.shape)
+            shape[self._axes[k][0]] *= S
+            return torch.zeros(shape, dtype=x.dtype, device=x.device)
+        self._pool_batch = map_with_paths(zeros, state)
+        self._pool = self._views(self._pool_batch)
+
+    # ------------------------------------------------------------- protocol
+    @property
+    def num_slots(self) -> int:
+        return self._num_slots
+
+    @property
+    def prefill_retraces(self) -> int:
+        return self._prefill_traces.count_value
+
+    @property
+    def step_retraces(self) -> int:
+        return self._step_traces.count_value
+
+    def validate(self, req: Request) -> None:
+        if len(req.prompt) + req.max_new_tokens > self.max_seq:
+            raise ValueError(f"request {req.uid} exceeds max_seq "
+                             f"({len(req.prompt)}+{req.max_new_tokens} > "
+                             f"{self.max_seq})")
+        if not req.prompt:
+            raise ValueError(f"request {req.uid} has an empty prompt")
+
+    def bucket_key(self, req: Request) -> int:
+        return len(req.prompt)
+
+    def _sample(self, row: torch.Tensor, temperature: float, uid: int,
+                step: int) -> int:
+        if temperature > 0:
+            return int(_temperature_sample(row, temperature,
+                                           self._sample_seed, uid, step))
+        return int(row.argmax())
+
+    def _result(self, entry: Dict, now: float) -> ServeResult:
+        return ServeResult(uid=entry["req"].uid, tokens=entry["tokens"],
+                           prompt_len=len(entry["req"].prompt),
+                           latency_s=now - entry["t0"],
+                           wave=self._generate_steps)
+
+    def admit(self, slot: int, req: Request) -> Optional[ServeResult]:
+        """Batch-1 prefill of the request's bucket, first-token sample and
+        the copy of its state into ``slot``; returns the finished result
+        instead when the request completes at admission (zero token
+        budget, or EOS as the first sampled token — the slot's state is
+        then simply never read)."""
+        t0 = time.perf_counter()
+        plen = len(req.prompt)
+        toks = np.asarray([req.prompt], np.int64)
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        self._prefill_traces.count(trace_signature(batch))
+        with torch.no_grad():
+            logits, state = self.model.prefill(self.params, batch,
+                                               max_seq=self.max_seq)
+            if self._pool is None:
+                self._alloc_pool(state)
+            map_with_paths(lambda k, x: self._pool_at(k, slot).copy_(x),
+                           state)
+        self._prefill_lens.add(plen)
+        entry = {"req": req, "tokens": [], "t0": t0}
+        if req.max_new_tokens == 0:
+            return self._result(entry, time.perf_counter())
+        tok0 = self._sample(logits[0], req.temperature, req.uid, 0)
+        if req.eos_id is not None and tok0 == req.eos_id:
+            return self._result(entry, time.perf_counter())
+        entry["tokens"].append(tok0)
+        if req.max_new_tokens == 1:
+            return self._result(entry, time.perf_counter())
+        self._slots[slot] = entry
+        self._tokens[slot] = tok0
+        self._steps[slot] = 1
+        return None
+
+    def _pool_at(self, key: str, slot: int) -> torch.Tensor:
+        node = self._pool
+        for part in key.split("/"):
+            node = node[part]
+        return node[slot]
+
+    def step(self) -> Dict[int, ServeResult]:
+        """One decode step of the whole pool; returns the slots that
+        finished."""
+        tokens = torch.from_numpy(self._tokens).to(self.device)
+        self._step_traces.count(trace_signature((tokens, self._pool_batch)))
+        with torch.no_grad():
+            logits, new = self.model.decode_step(
+                self.params, self._pool_batch, tokens, 0,
+                max_seq=self.max_seq)
+        self._pool_batch = new
+        self._pool = self._views(new)
+        greedy = logits.argmax(-1).cpu().numpy()   # forces the step's work
+        self._generate_steps += 1
+        now = time.perf_counter()
+        finished: Dict[int, ServeResult] = {}
+        for slot, entry in enumerate(self._slots):
+            if entry is None:
+                continue
+            req = entry["req"]
+            t = (self._sample(logits[slot], req.temperature, req.uid,
+                              int(self._steps[slot]))
+                 if req.temperature > 0 else int(greedy[slot]))
+            self._tokens[slot] = t
+            self._steps[slot] += 1
+            if req.eos_id is not None and t == req.eos_id:
+                finished[slot] = self._result(entry, now)
+            else:
+                entry["tokens"].append(t)
+                if len(entry["tokens"]) >= req.max_new_tokens:
+                    finished[slot] = self._result(entry, now)
+        for slot in finished:
+            self._slots[slot] = None
+            self._steps[slot] = 0
+        return finished
+
+    def stats(self) -> Dict:
+        return {"max_seq": self.max_seq,
+                "prefill_bucket": "exact",
+                "prefill_lens_compiled": sorted(self._prefill_lens),
+                "prefill_retraces": self.prefill_retraces,
+                "step_retraces": self.step_retraces,
+                "generate_steps": self._generate_steps}
+
+
 class ServingEngine:
-    """LM serving facade: an :class:`LMBackend` behind a
-    :class:`~repro_torch.serving.core.WaveScheduler`, on ``device`` (the
-    GPU unless the caller passes another)."""
+    """LM serving facade: an LM backend behind a scheduler, on ``device``
+    (the GPU unless the caller passes another).  ``scheduler="wave"``
+    (default) runs :class:`LMBackend` behind the wave scheduler;
+    ``"slot"`` runs :class:`LMSlotBackend` behind the slot scheduler, with
+    ``batch_size`` sizing the slot pool."""
 
     def __init__(self, cfg: ModelConfig, params=None, batch_size: int = 4,
                  max_seq: int = 256, seed: int = 0,
                  scheduler: str = "wave", device="cuda"):
-        if scheduler == "slot":
-            raise ValueError("scheduler='slot' (continuous batching) is not "
-                             "ported yet (ROADMAP.md Queue 1 item 11)")
-        if scheduler != "wave":
+        if scheduler == "wave":
+            self.backend = LMBackend(cfg, params=params,
+                                     batch_size=batch_size, max_seq=max_seq,
+                                     seed=seed, device=device)
+            self.scheduler = WaveScheduler(self.backend,
+                                           batch_size=batch_size)
+        elif scheduler == "slot":
+            self.backend = LMSlotBackend(cfg, params=params,
+                                         num_slots=batch_size,
+                                         max_seq=max_seq, seed=seed,
+                                         device=device)
+            self.scheduler = SlotScheduler(self.backend)
+        else:
             raise ValueError(f"unknown scheduler {scheduler!r}; choose "
                              "'wave' or 'slot'")
-        self.backend = LMBackend(cfg, params=params, batch_size=batch_size,
-                                 max_seq=max_seq, seed=seed, device=device)
-        self.scheduler = WaveScheduler(self.backend, batch_size=batch_size)
         self.cfg = cfg
         self.batch_size = batch_size
         self.max_seq = max_seq

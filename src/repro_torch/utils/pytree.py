@@ -4,10 +4,17 @@ The JAX package keeps parameters as pytrees; the port keeps them as plain
 nested dicts (``{"sage0": {"w_self": Tensor, ...}, ...}``), so a tree map
 is a dict comprehension and the leaves are ``torch.Tensor`` (or numpy
 arrays on the host, which :func:`tree_bytes` also accepts).
+
+Checkpoints walk richer trees — optimizer states are ``NamedTuple`` objects,
+the engine's snapshot nests dicts, tuples and ``None`` — so
+:func:`map_with_paths` / :func:`flatten_with_paths` name every leaf by the
+path the JAX package's ``tree_flatten_with_path`` gives it: dict keys
+(sorted), ``NamedTuple`` fields by name, tuple and list entries by index,
+joined by ``/``; ``None`` holds no leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import torch
 
@@ -77,3 +84,33 @@ def tree_average(trees: List[Any]) -> Any:
         acc = tree_map(lambda x, y: x + y, acc, t)
     scale = 1.0 / len(trees)
     return tree_map(lambda x: x * scale, acc)
+
+
+def _is_namedtuple(x: Any) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def map_with_paths(fn: Callable[[str, Any], Any], tree: Any,
+                   prefix: str = "") -> Any:
+    """A tree of ``tree``'s structure whose leaves are ``fn(path, leaf)``,
+    ``path`` being the JAX package's ``/``-joined key of the leaf (module
+    docstring), after ``prefix``."""
+    join = lambda k: f"{prefix}/{k}" if prefix else str(k)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_with_paths(fn, tree[k], join(k)) for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(map_with_paths(fn, getattr(tree, f), join(f))
+                            for f in tree._fields))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_with_paths(fn, x, join(i))
+                          for i, x in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def flatten_with_paths(tree: Any) -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` pairs in the JAX package's flatten order."""
+    out: List[Tuple[str, Any]] = []
+    map_with_paths(lambda k, x: out.append((k, x)), tree)
+    return out

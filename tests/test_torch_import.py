@@ -58,7 +58,10 @@ def test_every_module_imports_without_jax(probe):
                 "repro_torch.models.transformer.rwkv6",
                 "repro_torch.models.transformer.blocks",
                 "repro_torch.models.transformer.model",
-                "repro_torch.serving.core", "repro_torch.serving.engine"}
+                "repro_torch.serving.core", "repro_torch.serving.engine",
+                "repro_torch.serving.gnn", "repro_torch.checkpoint.store",
+                "repro_torch.checkpoint.manager",
+                "repro_torch.checkpoint.chaos", "repro_torch.launch.train"}
     assert expected <= set(probe["modules"])
 
 

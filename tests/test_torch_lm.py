@@ -217,8 +217,6 @@ def test_unported_kinds_and_schedulers_raise(cfg, params):
             LM(configs.get_smoke_config(arch)).init(0, "cpu")
     with pytest.raises(ValueError, match="Queue 1 item 13"):
         LM(configs.get_smoke_config("internvl2-2b"))
-    with pytest.raises(ValueError, match="Queue 1 item 11"):
-        ServingEngine(cfg, params=params, scheduler="slot", device="cpu")
     with pytest.raises(ValueError, match="encoder-only"):
         ServingEngine(dataclasses.replace(cfg, encoder_only=True),
                       params=params, device="cpu")
@@ -305,3 +303,77 @@ def test_temperature_to_zero_is_greedy(engine):
 def test_rejects_oversized_request(engine):
     with pytest.raises(ValueError):
         engine.submit(Request(uid=500, prompt=[0] * 63, max_new_tokens=10))
+
+
+# --------------------------------------------------------------------------
+# the slot (continuous-batching) path
+# --------------------------------------------------------------------------
+def _slot_engine(cfg, params, slots=2):
+    return ServingEngine(cfg, params=params, batch_size=slots, max_seq=64,
+                         scheduler="slot", device="cpu")
+
+
+def test_slot_serving_matches_jax_slot_and_port_wave(cfg, jax_params,
+                                                     params, engine):
+    """Greedy tokens of the port's ``LMSlotBackend`` equal the JAX
+    package's ``LMSlotBackend``'s and the port's own wave path's, request
+    for request (prompts of three lengths: three prefill buckets)."""
+    jeng = JServingEngine(jconfigs.get_smoke_config(ARCH), params=jax_params,
+                          batch_size=2, max_seq=64, scheduler="slot")
+    slot = _slot_engine(cfg, params)
+    for uid, prompt in _queue(1):
+        n = 3 + uid % 3
+        jeng.submit(JRequest(uid=uid, prompt=prompt, max_new_tokens=n))
+        slot.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+        engine.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n))
+    want = {r.uid: r.tokens for r in jeng.run()}
+    got = {r.uid: r.tokens for r in slot.run()}
+    wave = {r.uid: r.tokens for r in engine.run()}
+    assert got == want == wave
+    s = slot.stats()
+    assert s["prefill_retraces"] == len(s["prefill_lens_compiled"]) == 3
+    assert s["step_retraces"] == 1 and s["served"] == 7
+    assert s["prefill_bucket"] == "exact"
+
+
+def test_slot_reuse_and_admission_order_never_leak(cfg, params):
+    """A request's tokens depend only on itself: served alone on a fresh
+    pool, or after other requests used its slot, in any admission order,
+    greedy or with temperature."""
+    reqs = [Request(uid=u, prompt=p, max_new_tokens=4,
+                    temperature=0.7 if u % 2 else 0.0)
+            for u, p in _queue(2)[:5]]
+    solo = {}
+    for r in reqs:
+        eng = _slot_engine(cfg, params, slots=1)
+        eng.submit(r)
+        solo[r.uid] = eng.run()[0].tokens
+    for order, slots in (([0, 1, 2, 3, 4], 2), ([4, 2, 0, 3, 1], 3)):
+        eng = _slot_engine(cfg, params, slots=slots)
+        for i in order:
+            eng.submit(dataclasses.replace(reqs[i]))
+        assert {r.uid: r.tokens for r in eng.run()} == solo
+
+
+def test_slot_admit_time_finishes(cfg, params):
+    eng = _slot_engine(cfg, params)
+    prompt = list(range(10, 18))
+    eng.submit(Request(uid=1, prompt=prompt, max_new_tokens=3))
+    first = eng.run()[0].tokens[0]
+    eng.submit(Request(uid=1, prompt=prompt, max_new_tokens=3,
+                       eos_id=first))
+    eng.submit(Request(uid=2, prompt=prompt, max_new_tokens=1))
+    eng.submit(Request(uid=3, prompt=prompt, max_new_tokens=0))
+    out = {r.uid: r.tokens for r in eng.run()}
+    assert out == {1: [], 2: [first], 3: []}
+    assert eng.scheduler.active == 0
+
+
+def test_slot_refusals(cfg, params):
+    with pytest.raises(ValueError, match="empty prompt"):
+        _slot_engine(cfg, params).submit(Request(uid=0, prompt=[]))
+    with pytest.raises(ValueError, match="num_slots"):
+        ServingEngine(cfg, params=params, scheduler="slot", batch_size=0,
+                      device="cpu")
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        ServingEngine(cfg, params=params, scheduler="rr", device="cpu")

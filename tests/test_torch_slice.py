@@ -189,10 +189,6 @@ def test_default_device_is_cuda():
 
 
 _REFUSED = {
-    "checkpoint": lambda: P.TrainPlan(
-        phases=(P.local_steps(), P.averaging()),
-        checkpoint=P.CheckpointSpec(dir="ck")),
-    "checkpoint_dir": lambda: P.llcg_plan(P.DistConfig(checkpoint_dir="ck")),
     "device_sampler": lambda: P.SamplerSpec(placement="device"),
     "overlap": lambda: P.SamplerSpec(overlap=True),
     "shard_map": lambda: P.build_trainer(
@@ -204,6 +200,33 @@ _REFUSED = {
 def test_unported_options_are_refused_with_their_roadmap_item(option):
     with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item \d+"):
         _REFUSED[option]()
+
+
+_CHECKPOINT_OPTIONS = {
+    "checkpoint": lambda d: P.TrainPlan(
+        phases=(P.local_steps(), P.averaging()),
+        comm=P.CommSpec(num_machines=2), schedule=P.ScheduleSpec(rounds=2),
+        checkpoint=P.CheckpointSpec(dir=str(d))),
+    "checkpoint_dir": lambda d: P.psgd_pa_plan(P.DistConfig(
+        num_machines=2, rounds=2, checkpoint_dir=str(d))),
+}
+
+
+@pytest.mark.parametrize("option", sorted(_CHECKPOINT_OPTIONS))
+def test_checkpoint_options_run(option, tmp_path):
+    """The options refused before checkpointing was ported now run: a
+    ``CheckpointSpec`` writes committed full-state checkpoints, a
+    ``checkpoint_dir`` exports each round's params."""
+    import os
+    data = sbm_graph(num_nodes=60, num_classes=3, feature_dim=8, seed=0)
+    model = build_model("GG", data.feature_dim, data.num_classes,
+                        hidden_dim=8)
+    plan = _CHECKPOINT_OPTIONS[option](tmp_path)
+    hist = P.build_trainer(data, model, plan, device="cpu").run()
+    assert hist.rounds == [1, 2]
+    want = ({"ckpt_1.npz", "ckpt_1.json", "ckpt_2.npz", "ckpt_2.json"}
+            if option == "checkpoint" else {"step_1.npz", "step_2.npz"})
+    assert set(os.listdir(tmp_path)) == want
 
 
 _INVALID_COMM = {

@@ -334,12 +334,12 @@ def test_exports_are_the_references_ported_names():
         assert all(hasattr(port, name) for name in port.__all__)
     for name in ("run_psgd_pa", "run_llcg", "run_ggs", "run_single_machine",
                  "DistConfig", "estimate_discrepancies", "theorem1_residual",
-                 "build_trainer", "MachineStep", "make_machine_step"):
+                 "build_trainer", "MachineStep", "make_machine_step",
+                 "CheckpointSpec", "ResumePoint"):
         assert name in C.__all__
     for name in ("build_model", "sym_aggregate"):
         assert name in repro_torch.models.gnn.__all__
     for name in ("sbm_graph", "partition_graph", "cut_edge_stats"):
         assert name in repro_torch.graph.__all__
     # not ported: nothing that would work is exported under their names
-    assert "CheckpointSpec" not in C.__all__
     assert not hasattr(repro_torch.graph, "DeviceCSR")
