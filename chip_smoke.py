@@ -797,7 +797,8 @@ def _drive(name: str, data, model, plan, kernels) -> tuple:
           f"wall of {TIMING_REPS}: {wall:.4f} s for {ROUNDS} rounds, "
           f"{wall1:.4f} s for 1; all: {[round(w, 4) for w in walls]}, "
           f"{[round(w, 4) for w in walls1]}), of which "
-          f"host sampling + copy {sample_ms:.3f} ms; launches {counts}; "
+          f"sampling (host draw + copy, or the device draw) {sample_ms:.3f} "
+          f"ms; launches {counts}; "
           f"device busy {busy} of a profiled run")
 
     # what comes out: finite, exact accounting, and the CPU run's numbers
@@ -993,6 +994,450 @@ def _paper_phase(kernels) -> dict:
                      run_llcg(data2, gg, cfg, device="cpu"), one_node)
     print(f"phase P run_llcg bcsr_kernel: launches {counts}; val_f1 "
           f"{hist.val_score}")
+    return counts
+
+
+# --------------------------------------------------------------------------
+# phase DS and configs A-dev, D-dev: the device sampler
+# --------------------------------------------------------------------------
+def _device_placed(plan):
+    return dataclasses.replace(plan, sampler=dataclasses.replace(
+        plan.sampler, placement="device"))
+
+
+def _kernel_launches(fn):
+    """Device kernels one call of ``fn`` launches (``torch.profiler``), or
+    "not measured" when the profiler records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    except (RuntimeError, AttributeError) as e:    # tracing unavailable
+        return f"not measured ({e})"
+    return n if n > 0 else "not measured"
+
+
+def _draw_ms(fn, reps: int = 5) -> float:
+    """Median wall time of ``fn()`` to its last kernel, in ms."""
+    import statistics
+
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _phase_ds(data, cfg, plans, f3) -> None:
+    """Phase DS: the device sampler drawn on the card and on the CPU, bit
+    for bit, at the main path's shapes: A's local stack (K = 4, the narrow
+    rank-select), D's extended-graph stack, F3's R-MAT graph — its local
+    stacks (train pools over 128: the wide rank-select of the batches) and
+    the unpartitioned graph a single-machine plan samples (dmax 928: the
+    wide rank-select of the tables) — and S4's full-width serving tables
+    over 8 extended graphs.  The large draws are checked on the CPU at
+    their first and last machine (a rank's shard draws its slice of the
+    stack exactly) or their first step (each step folds its own key).
+    Times the eager draw against the host draw + copy at the same shape,
+    and counts its launches."""
+    import torch
+    from repro_torch.core.plan import (RoundSampler, lower_plan,
+                                       single_machine_plan)
+    from repro_torch.launch.mesh import MachineMesh
+    from repro_torch.graph.sampling import (build_device_csr,
+                                            sample_serving_tables,
+                                            sample_serving_tables_device)
+    from repro_torch.models.gnn.model import build_model
+    from repro_torch.serving.core import wave_key, wave_rng
+    from repro_torch.serving.gnn import GNNServingEngine
+
+    def same(label, card, cpu, rows=None):
+        for a, b in zip(card, cpu):
+            a = a.cpu() if rows is None else a[rows].cpu()
+            _check(a.dtype == b.dtype and torch.equal(a, b),
+                   f"phase DS {label}: card and CPU draws differ")
+
+    f3_data, f3_model = f3
+    cpu = torch.device("cpu")
+    rounds = {"A local": (data, *plans["A"]), "D ext": (data, *plans["D"]),
+              "F3 local": (f3_data, f3_model, plans["A"][1]),
+              "F3 full": (f3_data, f3_model, single_machine_plan(cfg))}
+    for label, (d, model, plan) in rounds.items():
+        plan = _device_placed(plan)
+        desc = lower_plan(plan)[0]
+        card = RoundSampler(d, model, plan, "cuda")
+        dcsr = card._device_csr(desc.kind)
+        draw = lambda: card.sample_round_on_device(desc)
+        got = draw()
+        P = dcsr.num_machines
+        if label.startswith("F3"):
+            wide = (dcsr.dmax if label == "F3 full"
+                    else dcsr.train_nodes.shape[1])
+            _check(wide > 128, f"phase DS {label}: width {wide}, not the "
+                   "wide rank-select")
+        if label == "F3 full":
+            one = dataclasses.replace(desc, k=1)
+            same(f"{label} step 0", [x[:, :1] for x in got[:4]],
+                 RoundSampler(d, model, plan, "cpu")
+                 .sample_round_on_device(one)[:4])
+        elif label == "F3 local":
+            for p in (0, P - 1):
+                shard = RoundSampler(d, model, plan, "cpu",
+                                     mesh=MachineMesh(p, P, cpu))
+                same(f"{label} machine {p}", got[:4],
+                     shard.sample_round_on_device(desc)[:4],
+                     rows=slice(p, p + 1))
+        else:
+            same(label, got[:4], RoundSampler(d, model, plan, "cpu")
+                 .sample_round_on_device(desc)[:4])
+        ms = _draw_ms(draw)
+        launches = _kernel_launches(draw)
+        host = RoundSampler(d, model, dataclasses.replace(
+            plan, sampler=dataclasses.replace(plan.sampler,
+                                              placement="host")), "cuda")
+        host.prewarm({desc.kind})
+        host_ms = _draw_ms(lambda: host.sample(
+            dataclasses.replace(desc, correction=False)))
+        print(f"phase DS {label}: tables {tuple(got[0].shape)} (dmax "
+              f"{dcsr.dmax}, t_pad {dcsr.train_nodes.shape[1]}), batches "
+              f"{tuple(got[2].shape)}: card = CPU bit for bit; device draw "
+              f"{ms:.3f} ms eager, {launches} kernel launches; host draw + "
+              f"copy {host_ms:.3f} ms")
+
+    # S4's serving tables: F3's graph on 8 BFS machines at full width
+    ss = build_model("SS", f3_data.feature_dim, f3_data.num_classes,
+                     hidden_dim=64)
+    eng = GNNServingEngine(ss, ss.init(0), f3_data, num_machines=8,
+                           batch_size=8, agg_layout="auto",
+                           sampler_placement="device")
+    be = eng.backend
+    width, key = be.full_fanout, wave_key(0, [be.full_fanout])
+    draw = lambda: sample_serving_tables_device(be._dcsr, key, width)
+    got = draw()
+    for p in (0, 7):
+        one = build_device_csr([be.plan.ext_graphs[p]], n_pad=be.n_ext_pad,
+                               device="cpu", machines=(p,),
+                               dmax=be._dcsr.dmax)
+        same(f"S4 serving machine {p}", got,
+             sample_serving_tables_device(one, key, width),
+             rows=slice(p, p + 1))
+    ms = _draw_ms(draw, reps=3)
+    launches = _kernel_launches(draw)
+
+    def host_draw():
+        t, m = sample_serving_tables(be.plan.ext_graphs, width,
+                                     wave_rng(0, [width]), be.n_ext_pad)
+        return (torch.from_numpy(t).cuda(), torch.from_numpy(m).cuda())
+
+    host_ms = _draw_ms(host_draw, reps=3)
+    print(f"phase DS S4 serving: tables {tuple(got[0].shape)} (dmax "
+          f"{be._dcsr.dmax}): card = CPU bit for bit at machines 0 and 7; "
+          f"device draw {ms:.3f} ms eager, {launches} kernel launches; host "
+          f"draw + copy {host_ms:.3f} ms")
+
+
+def _configs_dev(data, plans, counts, kernels) -> dict:
+    """Configs A-dev and D-dev: A's and D's plans with the device sampler
+    (overlap on), through ``_drive``'s gates, with A's and D's exact
+    launches."""
+    out = {}
+    for name in ("A", "D"):
+        model, plan = plans[name]
+        out[f"{name}-dev"], hist = _drive(f"{name}-dev", data, model,
+                                          _device_placed(plan), kernels)
+        _check(hist.meta["sampler_placement"] == "device"
+               and hist.meta["sampler_overlap"],
+               f"config {name}-dev: {hist.meta['sampler_placement']}")
+        for k, n in counts[name].items():
+            _check(out[f"{name}-dev"][k] == n, f"config {name}-dev launched "
+                   f"{k} {out[f'{name}-dev'][k]} times, not {n}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase M: the shard_map backend, four ranks on the card
+# --------------------------------------------------------------------------
+M_MACHINES = 4       # ShardedGNNConfig's default group
+
+
+def _m_plans():
+    """M1: config C's plan (int8_ef) on the device sampler; M2: config D's
+    (the int8 halo); both on M_MACHINES machines."""
+    data, _, plans = _configs()
+    four = lambda plan: dataclasses.replace(plan, comm=dataclasses.replace(
+        plan.comm, num_machines=M_MACHINES))
+    return data, {"M1": (plans["C"][0], _device_placed(four(plans["C"][1]))),
+                  "M2": (plans["D"][0], four(plans["D"][1]))}
+
+
+def _kernel_counts():
+    from repro_torch.kernels.edge_softmax import edge_softmax
+    from repro_torch.kernels.linear_scan import linear_scan_chunked
+    from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
+    from repro_torch.kernels.spmm import spmm_csr
+    return (spmm_csr, edge_softmax, quantize_rows, dequantize_rows,
+            linear_scan_chunked)
+
+
+def _m_rank(mesh, name):
+    """One rank of phase M: the run, its wall time, this rank's launches
+    and collective bytes (gathered to the lead)."""
+    import torch
+    from repro_torch.core.plan import build_trainer
+    data, plans = _m_plans()
+    model, plan = plans[name]
+    build_trainer(data, model, dataclasses.replace(
+        plan, schedule=dataclasses.replace(plan.schedule, rounds=1)),
+        backend="shard_map", mesh=mesh).run()        # loads the libraries
+    kernels = _kernel_counts()
+    for k in kernels:
+        k.launches = 0
+    mesh.wire_bytes.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = build_trainer(data, model, plan, backend="shard_map",
+                         mesh=mesh).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    import torch.distributed as dist
+    launches = [None] * mesh.size
+    dist.all_gather_object(launches, {k.__name__: k.launches
+                                      for k in kernels})
+    return hist, wall, launches, mesh.gather_wire_bytes()
+
+
+def _m_average_rank(mesh):
+    """M1's averaging on its own: every rank runs config C's first local
+    round stacked, as the vmap backend does (deterministic, so the same
+    bits on every rank), and averages its own machine's rows through the
+    all-gather; the result must be the vmap average bit for bit."""
+    import torch
+    from repro_torch.core.engine import EngineConfig, RoundProgram
+    from repro_torch.core.plan import RoundSampler, lower_plan
+    data, plans = _m_plans()
+    model, plan = plans["M1"]
+    sampler = RoundSampler(data, model, plan, mesh.device)
+    desc = lower_plan(plan)[0]
+    inputs = sampler.sample(desc)
+    cfg = EngineConfig(num_machines=mesh.size, compression="int8_ef",
+                       comm_seed=plan.seed)
+    vmap = RoundProgram(model, sampler.opt, None, cfg)
+    shard = RoundProgram(model, sampler.opt, None, dataclasses.replace(
+        cfg, backend="shard_map"), mesh=mesh)
+    params = model.init(plan.seed, device=mesh.device)
+    s_vmap, s_shard = vmap.init_state(params), shard.init_state(params)
+    p_new, _, _ = vmap._local_round(
+        params, None, sampler.feats, sampler.labels, inputs.tables,
+        inputs.masks, inputs.batches, inputs.bmasks, [1.0] * desc.k)
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+    want, want_res = vmap.average(s_vmap, p_new)
+    got, got_res = shard.average(s_shard, tree_map(shard._mine, p_new))
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(want), tree_leaves(got)))
+    same_res = all(torch.equal(shard._mine(a), b) for a, b in
+                   zip(tree_leaves(want_res), tree_leaves(got_res)))
+    flat = torch.cat([x.reshape(-1) for x in tree_leaves(p_new)])
+    ranks = mesh.all_gather([flat[None]], "check")[0]
+    import torch.distributed as dist
+    verdict = [None] * mesh.size
+    dist.all_gather_object(verdict, (same, same_res,
+                                     bool((ranks == ranks[0]).all())))
+    return verdict
+
+
+def _local_round_gap(data, model, plan) -> tuple:
+    """How far config C's first local round, run for one machine alone (a
+    rank's batch of one), lies from the same machine's rows of the stacked
+    round (the vmap backend's batch of P): ``(max |diff|, unequal leaves,
+    leaves)``."""
+    import torch
+    from repro_torch.core.plan import RoundSampler, lower_plan
+    from repro_torch.core.machine import make_local_round
+    from repro_torch.utils.pytree import tree_leaves
+    sampler = RoundSampler(data, model, plan, "cuda")
+    desc = lower_plan(plan)[0]
+    inputs = sampler.sample(desc)
+    run = make_local_round(model, sampler.opt)
+    params = model.init(plan.seed, device="cuda")
+    sv = [1.0] * desc.k
+    full, _, _ = run(params, None, sampler.feats, sampler.labels,
+                     inputs.tables, inputs.masks, inputs.batches,
+                     inputs.bmasks, sv)
+    worst, unequal, total = 0.0, 0, 0
+    for p in range(plan.comm.num_machines):
+        s = slice(p, p + 1)
+        one, _, _ = run(params, None, sampler.feats[s], sampler.labels[s],
+                        inputs.tables[s], inputs.masks[s], inputs.batches[s],
+                        inputs.bmasks[s], sv)
+        for a, b in zip(tree_leaves(full), tree_leaves(one)):
+            worst = max(worst, float((a[p] - b[0]).abs().max()))
+            unequal += int(not torch.equal(a[p], b[0]))
+            total += 1
+    return worst, unequal, total
+
+
+def _machines_child() -> dict:
+    """Phase M's body, in a fresh process (cuBLAS reads its workspace
+    setting once, at start): every rank, the vmap run it is held against
+    and this process under ``torch.use_deterministic_algorithms(True)``."""
+    import torch
+    from repro_torch.core.plan import build_trainer
+    from repro_torch.launch.mesh import launch_machines
+    from repro_torch.utils.pytree import tree_leaves
+    torch.use_deterministic_algorithms(True)
+    data, plans = _m_plans()
+    out = {}
+    for name, (model, plan) in plans.items():
+        vmap_walls = []
+        for _ in range(2):                   # the first loads the libraries
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = build_trainer(data, model, plan).run()
+            torch.cuda.synchronize()
+            vmap_walls.append(time.perf_counter() - t0)
+        hist, wall, launches, wire = launch_machines(
+            _m_rank, M_MACHINES, name, device="cuda", deterministic=True)
+        series = lambda h: (h.train_loss + h.meta["local_loss"]
+                            + h.meta["corr_loss"])
+        out[name] = {
+            "wall_s": wall, "vmap_wall_s": vmap_walls[-1],
+            "launches": launches, "wire": wire,
+            "bytes_cum": hist.bytes_cum, "vmap_bytes_cum": ref.bytes_cum,
+            "steps": hist.steps_cum[-1] // M_MACHINES,
+            "halo_bytes_per_step": hist.meta.get("halo_bytes_per_step", 0),
+            "series": series(hist), "vmap_series": series(ref),
+            "val": hist.val_score, "vmap_val": ref.val_score,
+            "param_diffs": sorted(float(x) for x in torch.cat([
+                (a - b).abs().reshape(-1) for a, b in zip(
+                    tree_leaves(hist.meta["final_params"]),
+                    tree_leaves(ref.meta["final_params"]))]).tolist()),
+            "device": hist.meta["device"],
+            "placement": hist.meta["sampler_placement"],
+            "n_val": len(data.val_nodes)}
+    # context for M1's distance: the same vmap run on the CPU
+    model, plan = plans["M1"]
+    cpu = build_trainer(data, model, plan, device="cpu").run()
+    ref = build_trainer(data, model, plan).run()
+    out["M1"]["cpu_param_diff"] = max(
+        float((a.cpu() - b).abs().max()) for a, b in zip(
+            tree_leaves(ref.meta["final_params"]),
+            tree_leaves(cpu.meta["final_params"])))
+    out["average"] = launch_machines(_m_average_rank, M_MACHINES,
+                                     device="cuda", deterministic=True)
+    out["local_round_gap"] = _local_round_gap(data, *plans["M1"])
+    return out
+
+
+def _phase_m(card: str) -> dict:
+    """Phase M: M1 and M2 on four gloo ranks sharing the card, each against
+    the vmap backend at P = 4 on the card, with the predicted launches per
+    rank and the accounting's bytes at the collectives.  Every number is
+    printed before the gates run."""
+    import os
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--machines"], env=env, capture_output=True,
+                          text=True, timeout=600)
+    _check(proc.returncode == 0, f"phase M child failed: "
+           f"{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    from repro_torch.utils.pytree import tree_leaves
+    data, plans = _m_plans()
+    leaves = len(tree_leaves(plans["M1"][0].init_numpy(0)))
+    worst, unequal, total_leaves = out["local_round_gap"]
+    # int8 stochastic rounding (M1): a delta within f32 noise of a rounding
+    # boundary rounds one level apart, and Adam's normalized steps carry
+    # the flip on; the share beyond one level per round is reported, the
+    # gate is the drift two Adam trajectories can have
+    # (tests/test_torch_slice.py's cap)
+    loc = plans["M1"][1].local
+    S = plans["M1"][1].server.correction_steps
+    level = 1e-4 + ROUNDS * loc.local_k * loc.lr / 127
+    cap = 2 * ROUNDS * (loc.local_k + S) * loc.lr
+    for name in ("M1", "M2"):
+        m = out[name]
+        diffs = m["param_diffs"]
+        m["param_diff"] = diffs[-1]
+        m["beyond"] = sum(d > level for d in diffs) / len(diffs)
+        m["loss_diff"] = max(abs(x - y) / max(1.0, abs(y)) for x, y in
+                             zip(m["series"], m["vmap_series"]))
+        print(f"phase {name}: {M_MACHINES} gloo ranks on one card, "
+              f"{m['placement']} sampling: {m['wall_s'] * 1e3 / ROUNDS:.3f} "
+              f"ms per round of a run() against "
+              f"{m['vmap_wall_s'] * 1e3 / ROUNDS:.3f} for the vmap backend "
+              f"(set-up included, deterministic algorithms); launches per "
+              f"rank {m['launches']}; collective operand bytes per rank "
+              f"{m['wire']}; |shard - vmap|: params max "
+              f"{m['param_diff']:.3e} ({m['beyond']:.2%} beyond "
+              f"{level:.3e}), losses {m['loss_diff']:.3e} relative, F1 "
+              f"{m['val']} vs {m['vmap_val']} ({card})")
+    print(f"phase M1 averaging: ranks report (params equal, residual equal, "
+          f"inputs equal) {out['average']}; a machine's local round run "
+          f"alone (a batch of one, as a rank runs it) lies {worst:.3e} from "
+          f"its rows of the stacked round, {unequal} of {total_leaves} "
+          f"leaves unequal; the vmap run of M1 on the card lies "
+          f"{out['M1']['cpu_param_diff']:.3e} from the same run on the CPU")
+    counts = {}
+    for name in ("M1", "M2"):
+        m = out[name]
+        _check(m["device"].startswith("cuda") and len(m["launches"]) ==
+               M_MACHINES, f"phase {name}: ran on {m['device']}")
+        _check(m["bytes_cum"] == m["vmap_bytes_cum"],
+               f"phase {name}: bytes {m['bytes_cum']} vs the vmap run's "
+               f"{m['vmap_bytes_cum']}")
+        total = lambda kind: sum(w.get(kind, 0) for w in m["wire"])
+        priced = (2 * total("averaging") + 2 * total("gradients")
+                  + (M_MACHINES - 1) * total("halo"))
+        _check(priced == m["bytes_cum"][-1], f"phase {name}: the "
+               f"collectives carried {m['wire']}, priced {priced}, not the "
+               f"accounting's {m['bytes_cum'][-1]}")
+        for x, y in zip(m["val"], m["vmap_val"]):
+            _check(abs(x - y) <= 1.0 / m["n_val"] + 1e-6,
+                   f"phase {name}: F1 {x} vs {y}")
+        counts[name] = {kname: sum(r[kname] for r in m["launches"])
+                        for kname in m["launches"][0]}
+    # M2: the reference's bound between its two backends; M1: the int8
+    # trajectories' cap on params and, on losses, the card-vs-CPU
+    # trajectory gate that config C (the same int8 flips) passes
+    _check(out["M2"]["param_diff"] <= 1e-4 and out["M2"]["loss_diff"]
+           <= 1e-4, f"phase M2: params {out['M2']['param_diff']:.3e}, "
+           f"losses {out['M2']['loss_diff']:.3e} from the vmap backend's")
+    _check(out["M1"]["param_diff"] <= cap
+           and out["M1"]["loss_diff"] <= TRAJ_RTOL, f"phase M1: max "
+           f"{out['M1']['param_diff']:.3e} (cap {cap:.3e}), losses "
+           f"{out['M1']['loss_diff']:.3e} relative")
+    # predicted launches per rank per round (PERF.md, written before the
+    # first run): M1 — one quantize per leaf and one grouped dequantize of
+    # the gathered table; the lead also the correction's SpMM (A's 10 per
+    # round); M2 — one quantize of its send buffer, one dequantize of each
+    # step's gathered buffer
+    k = plans["M2"][1].local.local_k
+    for rank in range(M_MACHINES):
+        want1 = {"quantize_rows": ROUNDS * leaves,
+                 "dequantize_rows": ROUNDS,
+                 "spmm_csr": ROUNDS * 10 if rank == 0 else 0,
+                 "edge_softmax": 0, "linear_scan_chunked": 0}
+        want2 = {"quantize_rows": ROUNDS, "dequantize_rows": ROUNDS * k,
+                 "spmm_csr": 0, "edge_softmax": 0, "linear_scan_chunked": 0}
+        for name, want in (("M1", want1), ("M2", want2)):
+            got = out[name]["launches"][rank]
+            _check(got == want, f"phase {name} rank {rank}: launches {got}, "
+                   f"not {want}")
+    _check(all(all(v) for v in out["average"]), f"phase M1 averaging: "
+           f"ranks report (params equal, residual equal, inputs equal) "
+           f"{out['average']}")
+    print(f"phase M: every gate passed in {time.perf_counter() - t0:.1f} s")
     return counts
 
 
@@ -1289,6 +1734,25 @@ def _phase_s(data, cfg, plans, f3, kernels) -> dict:
           f"served in {lat[0]['service_s'] * 1e3:.3f} ms")
     counts["S1"] = c1
 
+    # ---- S1-dev: S1 on the device sampler, against the CPU's device draw
+    kwd = dict(kw, sampler_placement="device")
+    warm = GNNServingEngine.from_plan(plan, model_b, data, **kwd)
+    _serve(warm, reqs[:1])
+    eng = GNNServingEngine.from_plan(plan, model_b, data, **kwd)
+    (card, wall_d), c1d = _serve_counts(kernels, lambda: _serve(eng, reqs))
+    cpu, _ = _serve(GNNServingEngine.from_plan(plan, model_b, data,
+                                               device="cpu", **kwd), reqs)
+    err = _served_alike("phase S1-dev", card, cpu)
+    _check(eng.stats()["waves"] == waves, "phase S1-dev: other waves")
+    for name, n in c1.items():
+        _check(c1d[name] == n, f"phase S1-dev: {name} launched {c1d[name]} "
+               f"times, not S1's {n}")
+    print(f"phase S1-dev: {S_REQUESTS} requests in {waves} waves, "
+          f"{wall_d:.4f} s ({wall_d / waves * 1e3:.3f} ms per wave against "
+          f"S1's {wall / waves * 1e3:.3f}); launches {c1d}; max |card - cpu|"
+          f" {err:.3e}")
+    counts["S1-dev"] = c1d
+
     # ---- S2: the same checkpoint with the serve-time correction
     kw2 = dict(kw, correction_steps=S2_STEPS)
     sub = reqs[:8] + reqs[-8:]
@@ -1368,6 +1832,23 @@ def _phase_s(data, cfg, plans, f3, kernels) -> dict:
           f"({eng.stats()['waves']} waves; host tables included), launches "
           f"{c4}; max |card - cpu| {err:.3e}")
     counts["S4"] = c4
+
+    # ---- S4-dev: S4 on the device sampler.  At full width the drawn
+    # tables are the full neighbor tables, so S4's card serve is the gate
+    eng = GNNServingEngine(ss, p4, f3_data, num_machines=8, batch_size=8,
+                           agg_layout="auto", sampler_placement="device")
+    _serve(eng, r4[:1])
+    eng = GNNServingEngine(ss, p4, f3_data, num_machines=8, batch_size=8,
+                           agg_layout="auto", sampler_placement="device")
+    (dev, wall_d), c4d = _serve_counts(kernels, lambda: _serve(eng, r4))
+    err = _served_alike("phase S4-dev", dev, card)
+    _check(c4d == c4, f"phase S4-dev: launches {c4d}, not S4's {c4}")
+    w4 = eng.stats()["waves"]
+    print(f"phase S4-dev: 16 requests in {wall_d:.4f} s ({w4} waves, "
+          f"{wall_d / w4 * 1e3:.3f} ms per wave against S4's "
+          f"{wall / w4 * 1e3:.3f} with host tables); max |device-drawn - "
+          f"host-drawn| {err:.3e}")
+    counts["S4-dev"] = c4d
     shutil.rmtree(root)
     return counts
 
@@ -1614,6 +2095,12 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    if argv[:1] == ["--machines"]:              # phase M's fresh process
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(json.dumps(_machines_child()))
+        return 0
     if argv[:1] == ["--wrapper-times"]:         # one turn of _compare
         src, cases = argv[1], json.loads(argv[2])
         if not (pathlib.Path(src) / "repro_torch").is_dir():
@@ -1784,11 +2271,14 @@ def main(argv) -> int:
             _check(counts[name][k] == want,
                    f"config {name} launched {k} {counts[name][k]} "
                    f"times, not {want}")
+        _phase_ds(data, cfg, plans, f3)
+        counts.update(_configs_dev(data, plans, counts, all_kernels))
         counts.update(_configs_f(data, cfg, plans, f3, hists["A"],
                                  all_kernels))
         counts["P"] = _paper_phase(all_kernels)
         counts.update(_phase_k(data, plans, all_kernels, card))
         counts.update(_phase_s(data, cfg, plans, f3, all_kernels))
+        counts.update(_phase_m(card))
         counts["E"], counts["E3"] = _config_e(all_kernels)
         if baseline is not None:
             _compare(baseline, {

@@ -26,13 +26,17 @@ so two uninterrupted runs need not agree bit for bit; a child on a CUDA
 device therefore runs under ``torch.use_deterministic_algorithms(True)``
 (``index_add_`` then takes its sorted path, and cuBLAS a fixed workspace),
 which makes the runs, and the killed and resumed one, repeat bit for bit
-as on the CPU.  The ``shard_map`` backend (ROADMAP Queue 1 item 12) and device-placed sampling
-(item 10) are not ported, and trials asking for them are refused.
+as on the CPU.  A ``shard_map`` child is the lead rank of its machine group
+(:func:`repro_torch.launch.mesh.launch_machines`); the other ranks die with
+it, and the relaunched group resumes each machine from the lead rank's
+checkpoint.  ``placement="device"`` trains on device-drawn samples, whose
+stream is stateless per round.
 
 CLI::
 
     python -m repro_torch.checkpoint.chaos --kill-round 2 --device cpu
     python -m repro_torch.checkpoint.chaos --kill-round 0   # random round
+    python -m repro_torch.checkpoint.chaos --backend shard_map --machines 2
 """
 from __future__ import annotations
 
@@ -72,23 +76,14 @@ def default_spec(**overrides) -> Dict:
     return spec
 
 
-def _check_spec(spec: Dict) -> None:
-    from repro_torch.core.plan import _not_ported
-    if spec["backend"] != "vmap":
-        raise ValueError(_not_ported(f"chaos backend {spec['backend']!r}",
-                                     "12, the device-per-machine backend"))
-    if spec["placement"] != "host":
-        raise ValueError(_not_ported("chaos trials with device-placed "
-                                     "sampling", "10, the device sampler"))
-
-
 # --------------------------------------------------------------------------
 # child side
 # --------------------------------------------------------------------------
 def _build(spec: Dict):
     from repro_torch.core.plan import (
-        CheckpointSpec, CommSpec, CompileSpec, LocalSpec, ScheduleSpec,
-        ServerSpec, TrainPlan, averaging, correction, local_steps,
+        CheckpointSpec, CommSpec, CompileSpec, LocalSpec, SamplerSpec,
+        ScheduleSpec, ServerSpec, TrainPlan, averaging, correction,
+        local_steps,
     )
     from repro_torch.graph.datasets import sbm_graph
     from repro_torch.models.gnn.model import build_model
@@ -107,6 +102,7 @@ def _build(spec: Dict):
         server=ServerSpec(correction_steps=1, server_batch_size=16),
         comm=CommSpec(num_machines=spec["num_machines"],
                       compression=spec["compression"]),
+        sampler=SamplerSpec(placement=spec["placement"]),
         schedule=ScheduleSpec(rounds=spec["rounds"], rho=spec["rho"]),
         compile=CompileSpec(k_bucketing=True),
         name="chaos", seed=spec["seed"], checkpoint=ck)
@@ -133,6 +129,7 @@ def _dump_result(path: str, hist) -> None:
         num_retraces=np.asarray(hist.meta["num_retraces"], np.int64),
         num_corr_retraces=np.asarray(hist.meta["num_corr_retraces"],
                                      np.int64),
+        sampler_retraces=np.asarray(hist.meta["sampler_retraces"], np.int64),
         masked_steps=np.asarray(hist.meta["masked_steps"], np.int64))
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -140,22 +137,33 @@ def _dump_result(path: str, hist) -> None:
     os.replace(tmp, path)
 
 
+def _train(mesh, spec: Dict):
+    """Train the spec's plan (resuming from its checkpoints, if any) as one
+    process (``mesh=None``), or as machine ``mesh.rank`` of a shard_map
+    group."""
+    data, model, plan = _build(spec)
+    kw = dict(device=spec["device"], backend=spec["backend"], mesh=mesh)
+    if plan.checkpoint is not None:
+        from repro_torch.launch.train import run_or_resume
+        return run_or_resume(data, model, plan, **kw)
+    from repro_torch.core.plan import build_trainer
+    return build_trainer(data, model, plan, **kw).run()
+
+
 def child_main(spec_path: str) -> None:
     """One training attempt: a fresh run, or a resume if checkpoints exist."""
     with open(spec_path) as f:
         spec = json.load(f)
-    _check_spec(spec)
     import torch
-    if torch.device(spec["device"]).type == "cuda":
-        torch.use_deterministic_algorithms(True)
-    data, model, plan = _build(spec)
-    if plan.checkpoint is not None:
-        from repro_torch.launch.train import run_or_resume
-        hist = run_or_resume(data, model, plan, device=spec["device"])
+    cuda = torch.device(spec["device"]).type == "cuda"
+    if spec["backend"] == "shard_map":
+        from repro_torch.launch.mesh import launch_machines
+        hist = launch_machines(_train, spec["num_machines"], spec,
+                               device=spec["device"], deterministic=cuda)
     else:
-        from repro_torch.core.plan import build_trainer
-        hist = build_trainer(data, model, plan,
-                             device=spec["device"]).run()
+        if cuda:
+            torch.use_deterministic_algorithms(True)
+        hist = _train(None, spec)
     _dump_result(spec["out"], hist)
 
 
@@ -219,7 +227,6 @@ def run_trial(spec: Dict, kill_round: int, kill_mode: str = "self",
     """
     if kill_mode not in ("self", "signal"):
         raise ValueError(f"unknown kill_mode {kill_mode!r}")
-    _check_spec(spec)
     spec_path = _spec_file(spec)
     try:
         killed = False

@@ -23,6 +23,7 @@ from repro_torch.core.plan import (
     BACKENDS,
     BUCKET_MODES,
     PHASE_KINDS,
+    PLACEMENTS,
     CheckpointSpec,
     CommSpec,
     CompileSpec,
@@ -62,6 +63,7 @@ __all__ = [
     "BACKENDS",
     "BUCKET_MODES",
     "PHASE_KINDS",
+    "PLACEMENTS",
     "CheckpointSpec",
     "CommSpec",
     "CompileSpec",

@@ -1,13 +1,29 @@
 """The LLCG round engine: K local steps on P machines, one parameter
 average, S server corrections — the port of the JAX package's
-``core/engine.py`` (``backend="vmap"``).
+``core/engine.py``.
 
 The JAX engine compiles a round into one ``jit`` over a ``lax.scan`` of K
-steps with the machines on a ``vmap`` axis.  PyTorch runs eagerly, so the
-port executes the same round bodies directly: the machine axis is a leading
-stack axis (:func:`repro_torch.core.machine.make_local_round`), the K and S
-steps are Python loops, and averaging is a mean over the stack.  Byte and
-step accounting and :class:`History` are shared by every plan.
+steps, with the machine axis executed by a backend.  PyTorch runs eagerly,
+so the port executes the same round bodies directly (the K and S steps are
+Python loops) on one of two backends:
+
+* ``backend="vmap"`` — one process simulates every machine: the machine
+  axis is a leading stack axis (:func:`repro_torch.core.machine.
+  make_local_round`) and averaging is a mean over the stack.
+* ``backend="shard_map"`` — the reference's device-per-machine backend,
+  kept under its name so plans, configs and chaos specs carry across: one
+  process per machine (:class:`repro_torch.launch.mesh.MachineMesh`, rank =
+  machine), each running the same body on its own machine's slice.  The
+  collectives are explicit: an all-reduce of the parameters (``local``),
+  an all-gather of the compressed delta payloads, dequantized and averaged
+  on every rank in the vmap backend's order (``local`` with a codec), a
+  per-step gradient all-reduce (``sync``) and a per-step all-gather of the
+  owner-bucketed send buffer (``halo``).  The server correction and the
+  evaluation run on the lead rank (rank 0), which broadcasts the corrected
+  parameters: ``index_add_`` atomics make two computations of the same
+  correction differ on a GPU, and replicas must hold identical parameters.
+
+Byte and step accounting and :class:`History` are shared by every plan.
 
 Three round modes cover every strategy in the paper:
 
@@ -53,7 +69,8 @@ from repro_torch.core.machine import (halo_fill, make_local_round,
 from repro_torch.core.schedules import KBucketing
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
                                           masked_update)
-from repro_torch.utils.pytree import tree_leaves, tree_map
+from repro_torch.utils.pytree import (map_with_paths, tree_leaves, tree_map,
+                                      tree_unflatten)
 
 
 # --------------------------------------------------------------------------
@@ -114,15 +131,16 @@ class History:
 # Engine config / per-round inputs / carried state
 # --------------------------------------------------------------------------
 MODES = ("local", "sync", "halo")
+BACKENDS = ("vmap", "shard_map")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """The JAX engine's config on its ``vmap`` backend (the only ported
-    one; the plan layer refuses ``shard_map`` with its ROADMAP item)."""
+    """The JAX engine's config (module docstring for the backends)."""
 
     num_machines: int
     mode: str = "local"            # "local" (Alg. 1/2) | "sync" | "halo" (GGS)
+    backend: str = "vmap"          # "vmap" | "shard_map" (one rank/machine)
     with_correction: bool = False  # Alg. 2 lines 13-18
     reset_local_opt: bool = True   # fresh local optimizer each round (line 3)
     # payload codecs (repro_torch.comm.compress): `compression` applies to
@@ -191,19 +209,31 @@ class RoundProgram:
 
     ``uniforms`` builds the stochastic-rounding source from ``comm_seed``
     (default :class:`repro_torch.comm.compress.UniformStream`); tests pass
-    one that replays the JAX package's draws.
+    one that replays the JAX package's draws.  ``backend="shard_map"``
+    needs ``mesh``, this process's :class:`~repro_torch.launch.mesh.
+    MachineMesh`: the round's inputs, per-machine state and step losses
+    are then this rank's machine only (a stack of one).
     """
 
     def __init__(self, model, local_opt: Optimizer,
                  server_opt: Optional[Optimizer], cfg: EngineConfig,
-                 uniforms: Callable[[int], Any] = UniformStream):
+                 uniforms: Callable[[int], Any] = UniformStream, mesh=None):
         if cfg.mode not in MODES:
             raise ValueError(f"unknown mode {cfg.mode!r}")
+        if cfg.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {cfg.backend!r}; choose one "
+                             f"of {BACKENDS}")
+        if cfg.backend == "shard_map" and (
+                mesh is None or mesh.size != cfg.num_machines):
+            raise ValueError(
+                "backend='shard_map' needs the MachineMesh of a group of "
+                f"{cfg.num_machines} machines (repro_torch.launch.mesh)")
         if cfg.with_correction and server_opt is None:
             raise ValueError("with_correction requires a server optimizer")
         check_compression(cfg.compression)
         check_compression(cfg.halo_compression, halo=True)
         self.model, self.cfg = model, cfg
+        self.mesh = mesh if cfg.backend == "shard_map" else None
         self.local_opt, self.server_opt = local_opt, server_opt
         self._comp = cfg.compression if cfg.mode == "local" else "none"
         self._halo_comp = (cfg.halo_compression if cfg.mode == "halo"
@@ -244,8 +274,50 @@ class RoundProgram:
         """The stochastic-rounding source (None without an int8 codec)."""
         return self._uniforms
 
+    @property
+    def _held(self) -> int:
+        """Machines whose stack this process holds (1 per shard_map rank)."""
+        return 1 if self.mesh is not None else self.cfg.num_machines
+
+    def _mine(self, stacked):
+        """This process's rows of a ``(P, …)`` machine stack."""
+        return stacked if self.mesh is None else self.mesh.rows(stacked)
+
+    # ------------------------------------------- per-machine state layout
+    # stacked per machine: the error-feedback residual, and a ``local``
+    # program's optimizer state when it threads it across rounds
+    def to_global(self, tree):
+        """A per-machine tree in the vmap layout: a shard_map rank's
+        ``(1, …)`` leaves all-gathered to ``(P, …)`` (collective); scalar
+        leaves (a shared step count) pass through."""
+        if self.mesh is None or tree is None:
+            return tree
+        leaves = []
+        map_with_paths(lambda _, x: leaves.append(x), tree)
+        stacked = [x for x in leaves
+                   if isinstance(x, torch.Tensor) and x.dim()]
+        if not stacked:
+            return tree
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for x in stacked:
+            by_dtype.setdefault(x.dtype, []).append(x)
+        full = {}
+        for group in by_dtype.values():
+            for x, g in zip(group, self.mesh.all_gather(group, "state")):
+                full[id(x)] = g
+        return map_with_paths(lambda _, x: full.get(id(x), x), tree)
+
+    def to_machine(self, tree):
+        """This rank's rows of a vmap-layout per-machine tree (the inverse
+        of :meth:`to_global`, for a restored checkpoint)."""
+        if self.mesh is None or tree is None:
+            return tree
+        return map_with_paths(
+            lambda _, x: (self._mine(x) if isinstance(x, torch.Tensor)
+                          and x.dim() else x), tree)
+
     def init_state(self, params) -> EngineState:
-        cfg, P = self.cfg, self.cfg.num_machines
+        cfg, P = self.cfg, self._held
         o = None
         if cfg.mode != "local":
             o = self.local_opt.init(params)
@@ -266,6 +338,15 @@ class RoundProgram:
         return EngineState(params=params, local_opt_state=o,
                            server_opt_state=server, comm_residual=residual)
 
+    def _round_loss(self, losses: torch.Tensor, svalid) -> torch.Tensor:
+        """The round's local loss from the ``(K, held)`` step losses: a
+        shard_map rank gathers every machine's column first, so the mean
+        is the vmap backend's over the same ``(K, P)`` table."""
+        if self.mesh is not None:
+            losses = torch.cat(self.mesh.all_gather(
+                [losses.t().contiguous()], "loss")).t().contiguous()
+        return _masked_mean(losses, svalid)
+
     # ------------------------------------------------------------ mode local
     def _round_local(self, state: EngineState, feats, labels,
                      inputs: RoundInputs, svalid):
@@ -274,35 +355,60 @@ class RoundProgram:
             state.params, state.local_opt_state, feats, labels,
             inputs.tables, inputs.masks, inputs.batches, inputs.bmasks,
             svalid)
-        residual = state.comm_residual
         with torch.no_grad():
-            loss = _masked_mean(losses, svalid)
-            if self._comp == "none":
-                # Alg. 1/2 line 12 — THE inter-machine collective
-                params = tree_map(lambda x: x.mean(dim=0), p_new)
-            else:
-                # each machine compresses its param DELTA; the average is
-                # over the dequantized deltas — what every machine gets
-                # from the exchange of compressed payloads — and under EF
-                # the quantization error stays on the machine
-                delta = tree_map(lambda a, b: a - b, p_new, state.params)
-                if self._ef:
-                    delta = tree_map(torch.add, delta, residual)
-                u = None
-                if self._uniforms is not None:
-                    u = self._uniforms.draw(
-                        self.cfg.num_machines,
-                        [x[0].numel() for x in tree_leaves(delta)],
-                        loss.device)
-                payload, scales = compress_tree(delta, self._comp, u=u,
-                                                stacked=True)
-                deq = decompress_tree(payload, scales, self._comp)
-                params = tree_map(lambda p0, d: p0 + d.mean(dim=0),
-                                  state.params, deq)
-                if self._ef:
-                    residual = tree_map(torch.sub, delta, deq)
+            loss = self._round_loss(losses, svalid)
+            params, residual = self.average(state, p_new)
         o_carry = None if self.cfg.reset_local_opt else o_new
         return params, o_carry, loss, residual
+
+    def average(self, state: EngineState, p_new):
+        """Alg. 1/2 line 12, THE inter-machine collective: the machines'
+        new parameters ``p_new`` (stacked, this process's rows) averaged
+        into the next global parameters.  Returns ``(params, residual)``.
+
+        With a codec each machine compresses its parameter DELTA and the
+        average is over the dequantized deltas — what every machine gets
+        from the exchange of compressed payloads; under EF the
+        quantization error stays on the machine.  On shard_map the payloads
+        are all-gathered and every rank dequantizes and averages the
+        ``(P, …)`` table as the vmap backend does, so both backends give
+        the same bits from the same ``p_new``.
+        """
+        mesh, residual = self.mesh, state.comm_residual
+        with torch.no_grad():
+            if self._comp == "none":
+                if mesh is None:
+                    return tree_map(lambda x: x.mean(dim=0), p_new), residual
+                leaves = tree_leaves(p_new)
+                return tree_unflatten(p_new, mesh.all_reduce_mean(
+                    [x[0] for x in leaves], "averaging")), residual
+            delta = tree_map(lambda a, b: a - b, p_new, state.params)
+            if self._ef:
+                delta = tree_map(torch.add, delta, residual)
+            u = None
+            if self._uniforms is not None:
+                # every rank draws all P machines' uniforms, so the stream
+                # is the vmap backend's
+                u = [self._mine(x) for x in self._uniforms.draw(
+                    self.cfg.num_machines,
+                    [x[0].numel() for x in tree_leaves(delta)],
+                    tree_leaves(delta)[0].device)]
+            payload, scales = compress_tree(delta, self._comp, u=u,
+                                            stacked=True)
+            if mesh is not None:
+                # the collective: every machine's compressed payload
+                payload = tree_unflatten(payload, mesh.all_gather(
+                    tree_leaves(payload), "averaging"))
+                if scales is not None:
+                    scales = tree_unflatten(scales, mesh.all_gather(
+                        tree_leaves(scales), "averaging"))
+            deq = decompress_tree(payload, scales, self._comp)
+            params = tree_map(lambda p0, d: p0 + d.mean(dim=0),
+                              state.params, deq)
+            if self._ef:
+                residual = tree_map(lambda d, q: d - self._mine(q), delta,
+                                    deq)
+        return params, residual
 
     # ------------------------------------------------- modes sync and halo
     def _round_sync(self, state: EngineState, feats, labels,
@@ -310,7 +416,7 @@ class RoundProgram:
         """Per-step gradient averaging across machines sharing one set of
         parameters (GGS); in halo mode each step first fills the halo rows
         from the exchanged send buffers."""
-        P = self.cfg.num_machines
+        P, mesh = self._held, self.mesh
         halo = self.cfg.mode == "halo"
         if halo:
             tabs = (inputs.halo_send_idx, inputs.halo_recv_idx,
@@ -331,17 +437,27 @@ class RoundProgram:
                 # static); every machine sees the dequantized gather
                 payload, scales = compress_features(send_buffer(),
                                                     self._halo_comp)
-                gathered_comp = decompress_features(payload, scales,
-                                                    self._halo_comp)
+                if mesh is None:
+                    gathered_comp = decompress_features(payload, scales,
+                                                        self._halo_comp)
+
+            def exchange():
+                """What the all-gather hands every machine this step."""
+                if mesh is None:
+                    return (send_buffer() if self._halo_comp == "none"
+                            else gathered_comp)
+                if self._halo_comp == "none":
+                    return mesh.all_gather([send_buffer()], "halo")[0]
+                parts = [payload] + ([] if scales is None else [scales])
+                got = [mesh.all_gather([t], "halo")[0] for t in parts]
+                return decompress_features(got[0], got[1] if len(got) > 1
+                                           else None, self._halo_comp)
         p, o = state.params, state.local_opt_state
         losses = []
         for k, valid in enumerate(svalid):
             step_feats = feats
             if halo:
-                # the exchange: what the all-gather hands every machine
-                gathered = (send_buffer() if self._halo_comp == "none"
-                            else gathered_comp)
-                step_feats = halo_fill(feats, gathered, recv_idx, dest_idx,
+                step_feats = halo_fill(feats, exchange(), recv_idx, dest_idx,
                                        recv_valid)
             with torch.no_grad():
                 stacked = tree_map(
@@ -351,12 +467,23 @@ class RoundProgram:
                 inputs.masks[:, k], inputs.batches[:, k], labels,
                 inputs.bmasks[:, k])
             with torch.no_grad():
-                g = tree_map(lambda x: x.mean(dim=0), grads)
+                if mesh is None:
+                    g = tree_map(lambda x: x.mean(dim=0), grads)
+                else:
+                    g = tree_unflatten(grads, mesh.all_reduce_mean(
+                        [x[0] for x in tree_leaves(grads)], "gradients"))
             upd, o = masked_update(self.local_opt, g, o, p, valid)
             p = apply_updates(p, upd)
-            losses.append(loss.mean() * valid)
+            losses.append(loss)
         with torch.no_grad():
-            loss = _masked_mean(torch.stack(losses), svalid)
+            per_step = torch.stack(losses)                  # (K, held)
+            if mesh is not None:
+                # every machine's step losses, as the vmap backend holds them
+                per_step = torch.cat(mesh.all_gather(
+                    [per_step.t().contiguous()], "loss")).t().contiguous()
+            loss = _masked_mean(torch.stack(
+                [per_step[k].mean() * v for k, v in enumerate(svalid)]),
+                svalid)
         return p, o, loss, state.comm_residual
 
     # ------------------------------------------------------ correction phase
@@ -380,6 +507,18 @@ class RoundProgram:
             params = apply_updates(params, upd)
             losses.append(loss[0])
         return params, server_state, torch.stack(losses).mean()
+
+    def _lead_correction(self, params, server_state, inputs: RoundInputs):
+        """The correction on a shard_map group: the lead rank computes it
+        and broadcasts the parameters and the loss; the other ranks keep
+        their (unused) server state."""
+        closs = torch.zeros((), device=tree_leaves(params)[0].device)
+        if self.mesh.is_lead:
+            params, server_state, closs = self._correction(
+                params, server_state, inputs)
+        leaves = tree_leaves(params) + [closs]
+        got = self.mesh.broadcast(leaves)
+        return tree_unflatten(params, got[:-1]), server_state, got[-1]
 
     def run_round(self, state: EngineState, feats, labels,
                   inputs: RoundInputs) -> tuple:
@@ -405,8 +544,10 @@ class RoundProgram:
                  inputs.corr_masks, inputs.corr_batches, inputs.corr_bmasks),
                 static=(None if inputs.corr_agg is None
                         else inputs.corr_agg.layout,)))
-            params, server_state, closs = self._correction(
-                params, server_state, inputs)
+            correct = (self._correction if self.mesh is None
+                       else self._lead_correction)
+            params, server_state, closs = correct(params, server_state,
+                                                  inputs)
             metrics["corr_loss"] = closs
         return EngineState(params=params, local_opt_state=opt_state,
                            server_opt_state=server_state,
@@ -463,6 +604,45 @@ class ResumePoint:
     start_round: int
 
 
+def _prefetcher(sample_fn, bucketing: Optional[KBucketing], prefetch: bool,
+                device):
+    """``(draw, take)`` for :func:`run_schedule`: ``draw(r, k)`` samples
+    round r (padded to its bucket), on a side stream when prefetching on a
+    CUDA device; ``take(inputs)`` hands the drawn inputs to the compute
+    stream."""
+    dev = torch.device(device) if device is not None else None
+    side = None
+    if prefetch and dev is not None and dev.type == "cuda":
+        side = torch.cuda.Stream(dev)
+        # the side stream starts after everything enqueued so far (the
+        # sampler's device-resident stacks)
+        side.wait_stream(torch.cuda.current_stream(dev))
+
+    def sample(r, k):
+        inputs = sample_fn(r, k)
+        if bucketing is not None:
+            inputs = pad_inputs_to_bucket(inputs, bucketing.pad_length(k))
+        return inputs
+
+    def draw(r, k):
+        if side is None:
+            return sample(r, k)
+        with torch.cuda.stream(side):
+            return sample(r, k)
+
+    def take(inputs):
+        if side is not None:
+            compute = torch.cuda.current_stream(dev)
+            compute.wait_stream(side)
+            for f in dataclasses.fields(inputs):
+                t = getattr(inputs, f.name)
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    t.record_stream(compute)
+        return inputs
+
+    return draw, take
+
+
 def run_schedule(program, init_params, feats, labels,
                  sample_fn: Callable[[int, int], RoundInputs],
                  schedule: List[int],
@@ -474,8 +654,10 @@ def run_schedule(program, init_params, feats, labels,
                  bucketing: Optional[KBucketing] = None,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_keep: int = 3,
+                 prefetch: bool = False,
                  checkpoint_hook: Optional[Any] = None,
-                 resume: Optional[ResumePoint] = None) -> History:
+                 resume: Optional[ResumePoint] = None,
+                 device=None) -> History:
     """Run ``schedule[r]`` local steps per round r through the engine.
 
     ``sample_fn(round, k)`` performs the host-side batched sampling for one
@@ -494,6 +676,17 @@ def run_schedule(program, init_params, feats, labels,
     :func:`repro_torch.checkpoint.store.save_checkpoint` (step = round,
     newest ``checkpoint_keep`` kept), ready for
     ``repro_torch.serving.gnn.GNNServingEngine.from_checkpoint``.
+
+    ``prefetch=True`` double-buffers the sampling: round r+1's
+    ``sample_fn`` is issued right after round r is enqueued (and after
+    ``checkpoint_hook.after_round``), before anything blocks on round r
+    (its metrics, the evaluation).  On a CUDA ``device`` the draw runs on a
+    side stream; before round r+1 reads its inputs the compute stream waits
+    for the draw, and every input tensor is recorded on the compute stream
+    so the allocator cannot hand its memory out while round r+1 still
+    uses it.  Rounds are consumed strictly in order, so a host sampler
+    draws in the synchronous loop's order and the trajectory is the same
+    bit for bit.
 
     ``checkpoint_hook`` is the full-state checkpoint tap:
     ``hook.after_round(r, state)`` fires right after round r runs — where
@@ -515,15 +708,21 @@ def run_schedule(program, init_params, feats, labels,
         hist.meta.setdefault(key, [])
     bytes_cum = float(hist.bytes_cum[-1]) if hist.bytes_cum else 0.0
     steps_cum = int(hist.steps_cum[-1]) if hist.steps_cum else 0
+    draw, take = _prefetcher(sample_fn, bucketing, prefetch, device)
+    pending = (draw(start, schedule[start - 1])
+               if (prefetch and start <= len(schedule)) else None)
     for r, k in enumerate(schedule, start=1):
         if r < start:
             continue
-        inputs = sample_fn(r, k)
-        if bucketing is not None:
-            inputs = pad_inputs_to_bucket(inputs, bucketing.pad_length(k))
+        inputs = take(pending) if prefetch else draw(r, k)
         state, metrics = program.run_round(state, feats, labels, inputs)
         if checkpoint_hook is not None:
+            # BEFORE the prefetch draw: the snapshot must hold the RNG
+            # streams at "rounds 1..r drawn, nothing beyond"
             checkpoint_hook.after_round(r, state)
+        if prefetch:
+            # round r is enqueued and nothing has blocked on it yet
+            pending = draw(r + 1, schedule[r]) if r < len(schedule) else None
         hist.meta["local_loss"].append(float(metrics["local_loss"]))
         if "corr_loss" in metrics:
             hist.meta["corr_loss"].append(float(metrics["corr_loss"]))

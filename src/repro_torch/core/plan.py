@@ -33,9 +33,13 @@ full training state every ``every`` rounds through
 ``PlanTrainer.run(resume_from=...)`` continues such a run bit-identical to
 an uninterrupted one (:func:`repro_torch.launch.train.run_or_resume`).
 
-Not ported yet, and refused with the ROADMAP item that brings them:
-device-placed sampling and prefetch (item 10) and the device-per-machine
-backend (item 12).
+``SamplerSpec(placement="device")`` draws each round's tables and batches
+on the device from the JAX package's ``jax.random`` stream
+(:func:`repro_torch.graph.sampling.sample_round_device`), so both packages
+train on the same samples there too, and ``overlap`` prefetches round
+r+1's draw on a side stream while round r runs.  ``backend="shard_map"``
+runs the plan on a :class:`~repro_torch.launch.mesh.MachineMesh`, one
+process per machine (:mod:`repro_torch.core.engine`).
 """
 from __future__ import annotations
 
@@ -47,12 +51,13 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import (CheckpointManager,
-                                            CheckpointRefused, digest_json)
+                                            CheckpointRefused, TraceCounter,
+                                            digest_json, trace_signature)
 from repro_torch.comm.compress import (COMPRESSIONS, HALO_COMPRESSIONS,
                                        UniformStream,
                                        averaging_payload_bytes)
 from repro_torch.core.engine import (
-    EngineConfig, EngineState, History, ResumePoint, RoundInputs,
+    BACKENDS, EngineConfig, EngineState, History, ResumePoint, RoundInputs,
     RoundProgram, run_schedule,
 )
 from repro_torch.core.machine import make_eval_fn, make_machine_step
@@ -64,14 +69,16 @@ from repro_torch.graph.halo import (build_halo_plan, build_halo_program,
                                     ext_fanout)
 from repro_torch.graph.partition import PARTITION_METHODS, partition_graph
 from repro_torch.graph.sampling import (
-    _all_nodes_plan, sample_minibatch, sample_minibatch_batched,
-    sample_neighbors, sample_neighbors_batched,
+    DeviceCSR, _all_nodes_plan, build_device_csr, sample_minibatch,
+    sample_minibatch_batched, sample_neighbors, sample_neighbors_batched,
+    sample_round_device,
 )
 from repro_torch.models.gnn.agg import (
     LAYOUTS as AGG_LAYOUTS, build_agg_operands, choose_layout,
 )
 from repro_torch.models.gnn.model import GNNModel
 from repro_torch.optim.optimizers import OPTIMIZERS, make_optimizer
+from repro_torch.utils import threefry
 from repro_torch.utils.pytree import tree_bytes, tree_leaves
 
 
@@ -79,17 +86,13 @@ from repro_torch.utils.pytree import tree_bytes, tree_leaves
 PHASE_KINDS = ("local_steps", "averaging", "correction", "halo_exchange")
 #: K-bucketing grids (:class:`repro_torch.core.schedules.KBucketing`).
 BUCKET_MODES = ("geometric", "fit")
-#: Engine backends :func:`build_trainer` lowers onto.
-BACKENDS = ("vmap",)
+#: Where :class:`SamplerSpec` draws a round's tables and batches.
+PLACEMENTS = ("host", "device")
 
 
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(msg)
-
-
-def _not_ported(what: str, item: str) -> str:
-    return f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
 
 
 # --------------------------------------------------------------------------
@@ -186,23 +189,37 @@ class CommSpec:
 
 @dataclasses.dataclass(frozen=True)
 class SamplerSpec:
-    """Neighbor sampling (Eq. 4), drawn on the host."""
+    """Neighbor sampling (Eq. 4): where it runs and whether it overlaps.
+
+    ``placement="host"`` is the vectorized-numpy path with the JAX
+    package's host RNG streams.  ``placement="device"`` draws the whole
+    round on the device from the JAX package's documented ``jax.random``
+    stream (:mod:`repro_torch.graph.sampling`), one asynchronous batch of
+    kernels that can run while the previous round computes.  ``overlap``
+    prefetches round r+1's draw while round r runs (``None`` → on exactly
+    when placement is "device").  ``rng_compat`` needs host placement.
+    """
 
     fanout: Optional[int] = 10       # None = full neighbors
     fanout_ratio: Optional[float] = None
     full_graph: bool = False         # centralized reference: sample the
                                      # UNpartitioned graph (requires P=1)
-    placement: str = "host"          # only "host" is ported
-    overlap: Optional[bool] = None   # prefetch; only off is ported
+    placement: str = "host"          # "host" | "device"
+    overlap: Optional[bool] = None   # None → (placement == "device")
 
     def __post_init__(self):
         _check(self.fanout is None or self.fanout >= 1,
                "fanout must be ≥ 1 or None (full neighbors)")
         _check(self.fanout_ratio is None or 0.0 < self.fanout_ratio <= 1.0,
                "fanout_ratio must be in (0, 1]")
-        _check(self.placement == "host" and not self.overlap,
-               _not_ported("device-placed sampling and prefetch overlap",
-                           "10, the device sampler"))
+        _check(self.placement in PLACEMENTS,
+               f"unknown placement {self.placement!r}; "
+               f"choose one of {PLACEMENTS}")
+
+    @property
+    def resolved_overlap(self) -> bool:
+        return (self.placement == "device" if self.overlap is None
+                else bool(self.overlap))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -387,6 +404,11 @@ class TrainPlan:
             _check(all(p.kind != "halo_exchange" for p in self.phases),
                    "sampler.full_graph cannot be combined with "
                    "halo_exchange phases")
+        _check(not (self.sampler.placement == "device"
+                    and self.compile.rng_compat),
+               "sampler.placement='device' draws from the documented "
+               "jax.random stream, not the pre-vectorization host RNG "
+               "streams — rng_compat requires placement='host'")
 
     def describe(self) -> Dict:
         """JSON-able summary for ``History.meta`` (callables elided)."""
@@ -479,7 +501,7 @@ def _f32_mask(shape, fill: float = 1.0) -> np.ndarray:
 # RoundSampler — host-side sampling + the device copies of every view
 # --------------------------------------------------------------------------
 class RoundSampler:
-    """Partitioned views + host RNG streams for any plan.
+    """Partitioned views + RNG streams for any plan.
 
     One instance serves every round kind: padded per-machine local views,
     the server's full-neighbor eval/correction tables, the single shared
@@ -487,17 +509,26 @@ class RoundSampler:
     :meth:`ensure_halo`, the extended-graph views and
     :class:`~repro_torch.graph.halo.HaloProgram` of the halo rounds.  Every
     array the engine reads is copied to ``device`` once here or once per
-    round.
+    round.  With device placement the round's tables and batches are drawn
+    on the device from per-kind :class:`~repro_torch.graph.sampling.
+    DeviceCSR` stacks keyed ``fold_in(PRNGKey(seed), r)``.
+
+    With a ``mesh`` (the ``shard_map`` backend) this process is machine
+    ``mesh.rank``: it still draws every host stream for all P machines, so
+    the streams are the vmap backend's, but copies only its own machine's
+    rows to the device; a device-placed draw covers its machine alone.
     """
 
     def __init__(self, data: SyntheticDataset, model: GNNModel,
-                 plan: TrainPlan, device):
+                 plan: TrainPlan, device, mesh=None):
         self.data, self.model, self.plan = data, model, plan
         self.device = torch.device(device)
+        self.mesh = mesh
         comm, smp, loc, srv = plan.comm, plan.sampler, plan.local, plan.server
         self.num_machines = comm.num_machines
         self.rng_compat = plan.compile.rng_compat
         self.batch_size = loc.batch_size
+        self.placement = smp.placement
         self.partition = partition_graph(data.graph, comm.num_machines,
                                          method=comm.partition_method,
                                          seed=plan.seed)
@@ -519,8 +550,8 @@ class RoundSampler:
             nl = self.loaders[p].num_nodes
             feats[p, :nl] = self.loaders[p].features
             labels[p, :nl] = self.loaders[p].labels
-        self.feats = self._dev(feats)
-        self.labels = self._dev(labels)
+        self.feats = self._dev(self._mine(feats))
+        self.labels = self._dev(self._mine(labels))
 
         self.opt = make_optimizer(loc.optimizer, loc.lr)
         self.step = make_machine_step(model, self.opt)
@@ -553,8 +584,24 @@ class RoundSampler:
             params0, plan.comm.compression)
         self._halo_built = False
 
+        # device placement: per-kind DeviceCSR stacks, built once; the
+        # distinct (kind, num_steps, width, batch_size) draws are counted
+        # as the reference counts its sampler's jit traces
+        self._device_key = threefry.prng_key(plan.seed)
+        self._device_csrs: Dict[str, DeviceCSR] = {}
+        self._sampler_traces = TraceCounter()
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _mine(self, stacked):
+        """This process's machine rows of a ``(P, …)`` stack: all of them,
+        or a shard_map rank's one."""
+        return stacked if self.mesh is None else self.mesh.rows(stacked)
+
+    @property
+    def num_sampler_retraces(self) -> int:
+        return self._sampler_traces.count_value
 
     # ----------------------------------------------------------- rng snapshot
     def snapshot(self) -> Dict:
@@ -565,7 +612,8 @@ class RoundSampler:
         gen = lambda g: g.bit_generator.state
         return {"rng": gen(self.rng),
                 "loader_rngs": [gen(ld.sampler._rng) for ld in self.loaders],
-                "server_rng": gen(self.server_sampler._rng)}
+                "server_rng": gen(self.server_sampler._rng),
+                "sampler_traces": self._sampler_traces.snapshot()}
 
     def restore_snapshot(self, snap: Dict) -> None:
         self.rng.bit_generator.state = snap["rng"]
@@ -577,13 +625,80 @@ class RoundSampler:
         for ld, st in zip(self.loaders, loader_states):
             ld.sampler._rng.bit_generator.state = st
         self.server_sampler._rng.bit_generator.state = snap["server_rng"]
+        if "sampler_traces" in snap:
+            self._sampler_traces.restore(snap["sampler_traces"])
+
+    # ------------------------------------------------------- device sampling
+    def _device_csr(self, kind: str) -> DeviceCSR:
+        """The kind's :class:`DeviceCSR`, built once and cached: the whole
+        stack, or a shard_map rank's own machine at the stack's padded
+        shapes (``n_pad``, ``t_pad``, ``dmax``: the bits depend on them)."""
+        dcsr = self._device_csrs.get(kind)
+        if dcsr is not None:
+            return dcsr
+        if kind == "local":
+            graphs = [ld.sampler.graph for ld in self.loaders]
+            n_pad = self.n_max
+            pools = [ld.train_nodes for ld in self.loaders]
+            fanouts = [ld.sampler.fanout for ld in self.loaders]
+        elif kind == "ext":
+            self.ensure_halo()
+            graphs = list(self.halo_plan.ext_graphs)
+            n_pad = self.n_ext_max
+            pools = [ld.train_nodes for ld in self.loaders]
+            fanouts = [self.fanout_ext] * self.num_machines
+        elif kind == "full":
+            graphs, n_pad = [self.data.graph], self.data.num_nodes
+            pools, fanouts = [self.data.train_nodes], [self.fanout]
+        else:
+            raise ValueError(f"unknown round kind {kind!r}")
+        machines = list(range(len(graphs)))
+        if self.mesh is not None and len(graphs) > 1:
+            machines = [self.mesh.rank]
+        dcsr = build_device_csr(
+            [graphs[p] for p in machines], n_pad=n_pad,
+            train_nodes=[pools[p] for p in machines],
+            fanouts=[fanouts[p] for p in machines],
+            t_pad_min=max(max(len(t) for t in pools), self.batch_size),
+            device=self.device, machines=machines,
+            dmax=max(max(g.max_degree() for g in graphs), 1))
+        self._device_csrs[kind] = dcsr
+        return dcsr
+
+    def _round_width(self, kind: str) -> int:
+        return self.fanout_ext if kind == "ext" else self.fanout
+
+    def sample_round_on_device(self, desc: RoundDesc,
+                               k_pad: Optional[int] = None):
+        """One round's ``(tables, masks, batches, bmasks, step_valid)``
+        drawn on the device at the bucketed length ``k_pad`` (the per-round
+        key is ``fold_in(PRNGKey(seed), r)``; padded steps are real draws of
+        later step indices, flagged invalid in ``step_valid``)."""
+        k = desc.k if k_pad is None else k_pad
+        dcsr = self._device_csr(desc.kind)      # builds the halo view first
+        width = self._round_width(desc.kind)
+        self._sampler_traces.count(trace_signature(
+            (), static=(desc.kind, k, width, self.batch_size)))
+        tables, masks, batches, bmasks = sample_round_device(
+            dcsr, threefry.fold_in(self._device_key, desc.r), k, width,
+            self.batch_size)
+        svalid = None
+        if k_pad is not None:
+            svalid = [1.0] * desc.k + [0.0] * (k_pad - desc.k)
+        return tables, masks, batches, bmasks, svalid
 
     def prewarm(self, kinds, correction: bool = False) -> None:
-        """Build every per-(graph, fanout) sampling plan (and, with
-        ``correction``, the correction's aggregation operands) up front, so
-        no round pays the host-side build.  Skipped under ``rng_compat``."""
+        """Build every sampling structure up front, so no round pays the
+        build: host placement touches each graph's cached sampling plan
+        (skipped under ``rng_compat``), device placement builds each kind's
+        :class:`DeviceCSR`; ``correction`` also builds the correction's
+        aggregation operands."""
         if correction:
             self.correction_operands()
+        if self.placement == "device":
+            for kind in kinds:
+                self._device_csr(kind)
+            return
         if self.rng_compat:
             return
         if "local" in kinds:
@@ -636,10 +751,10 @@ class RoundSampler:
             d, dtype=fdtype, compression=halo_comp)
         hp = self.halo_program
         self.halo_inputs = dict(
-            halo_send_idx=self._dev(hp.send_idx),
-            halo_recv_idx=self._dev(hp.recv_idx),
-            halo_dest_idx=self._dev(hp.dest_idx),
-            halo_recv_valid=self._dev(hp.recv_valid))
+            halo_send_idx=self._dev(self._mine(hp.send_idx)),
+            halo_recv_idx=self._dev(self._mine(hp.recv_idx)),
+            halo_dest_idx=self._dev(self._mine(hp.dest_idx)),
+            halo_recv_valid=self._dev(self._mine(hp.recv_valid)))
         self._halo_built = True
 
     # ---------------------------------------------------------------- local
@@ -767,26 +882,38 @@ class RoundSampler:
                 data.train_nodes, B, k, self.rng)[None].astype(np.int32)
         return tables, masks, batches, _f32_mask((1, k, B))
 
-    def sample(self, desc: RoundDesc) -> RoundInputs:
+    def sample(self, desc: RoundDesc,
+               k_pad: Optional[int] = None) -> RoundInputs:
         """One round's :class:`RoundInputs` on the device.
 
-        Draw order per round matches the JAX package exactly: the round's
-        tables + batches first, then — only on rounds where the correction
-        phase is active — the server batches.
+        Host placement: the draw order per round is the JAX package's —
+        the round's tables + batches first, then, only on rounds where the
+        correction phase is active, the server batches.  Device placement:
+        the round is drawn on the device (at the bucketed length ``k_pad``
+        when given, the real prefix flagged in ``step_valid``); the
+        correction batches stay host-drawn from the shared RNG, so the
+        placement never perturbs the server stream.  No placement falls
+        back to the other.
         """
-        if desc.kind == "local":
-            arrays = self.sample_local_round(desc.k)
-        elif desc.kind == "ext":
-            arrays = self.sample_ext_round(desc.k)
-        elif desc.kind == "full":
-            arrays = self.sample_full_round(desc.k)
+        svalid = None
+        if self.placement == "device":
+            tables, masks, batches, bmasks, svalid = \
+                self.sample_round_on_device(desc, k_pad)
         else:
-            raise ValueError(f"unknown round kind {desc.kind!r}")
+            if desc.kind == "local":
+                arrays = self.sample_local_round(desc.k)
+            elif desc.kind == "ext":
+                arrays = self.sample_ext_round(desc.k)
+            elif desc.kind == "full":
+                arrays = self.sample_full_round(desc.k)
+            else:
+                raise ValueError(f"unknown round kind {desc.kind!r}")
+            tables, masks, batches, bmasks = (self._dev(self._mine(a))
+                                              for a in arrays)
         corr = self.sample_correction() if desc.correction else {}
         halo = self.halo_inputs if desc.mode == "halo" else {}
-        tables, masks, batches, bmasks = (self._dev(a) for a in arrays)
         return RoundInputs(tables=tables, masks=masks, batches=batches,
-                           bmasks=bmasks, **corr, **halo)
+                           bmasks=bmasks, step_valid=svalid, **corr, **halo)
 
     def round_feats_labels(self, kind: str) -> Tuple[Any, Any]:
         """The (feats, labels) device tensors a round kind trains on."""
@@ -796,16 +923,26 @@ class RoundSampler:
             self.ensure_halo()
             feats = (self.ext_feats if self.plan.comm.host_halo
                      else self.local_feats)
-            return self._dev(feats), self._dev(self.ext_labels)
+            return (self._dev(self._mine(feats)),
+                    self._dev(self._mine(self.ext_labels)))
         if kind == "full":
             return self.full_feats[None], self.full_labels[None]
         raise ValueError(f"unknown round kind {kind!r}")
 
     def evaluate(self, params, nodes):
-        loss, score = self.eval_fn(params, self.full_feats, self.full_table_d,
-                                   self.full_mask_d, self.full_labels,
-                                   self._dev(nodes))
-        return float(loss), float(score)
+        """Full-graph validation ``(loss, score)``; on a shard_map group
+        the lead rank evaluates and broadcasts the two numbers."""
+        if self.mesh is None or self.mesh.is_lead:
+            loss, score = self.eval_fn(params, self.full_feats,
+                                       self.full_table_d, self.full_mask_d,
+                                       self.full_labels, self._dev(nodes))
+            out = torch.tensor([float(loss), float(score)],
+                               dtype=torch.float64)
+        else:
+            out = torch.zeros(2, dtype=torch.float64)
+        if self.mesh is not None:
+            out = self.mesh.broadcast([out])[0]
+        return float(out[0]), float(out[1])
 
     def cut_stats(self) -> Dict:
         from repro_torch.graph.partition import cut_edge_stats
@@ -829,7 +966,8 @@ class _PlanProgram:
     """
 
     def __init__(self, model, sampler: RoundSampler,
-                 descs: List[RoundDesc], uniforms=UniformStream):
+                 descs: List[RoundDesc], uniforms=UniformStream,
+                 backend: str = "vmap"):
         plan = sampler.plan
         self.descs = descs
         self.sampler = sampler
@@ -845,13 +983,14 @@ class _PlanProgram:
                 model, sampler.opt,
                 self.server_opt if key in corr_keys else None,
                 EngineConfig(num_machines=plan.comm.num_machines,
-                             mode=mode, with_correction=key in corr_keys,
+                             mode=mode, backend=backend,
+                             with_correction=key in corr_keys,
                              reset_local_opt=(reset if mode == "local"
                                               else True),
                              compression=plan.comm.compression,
                              halo_compression=plan.comm.halo_compression,
                              comm_seed=plan.seed),
-                uniforms=uniforms)
+                uniforms=uniforms, mesh=sampler.mesh)
         self._data = {kind: sampler.round_feats_labels(kind)
                       for kind in {d.kind for d in descs}}
         self._cursor = 0
@@ -884,17 +1023,25 @@ class _PlanProgram:
         round carries the reference's scalar placeholder there.  One entry
         is the port's own: ``uniforms/<program>``, the uint8 state of the
         CPU generator the int8 codecs draw their stochastic-rounding
-        uniforms from (the JAX package folds stateless keys instead).  Call
-        :meth:`init_state` first to build the same tree as a template.
+        uniforms from (the JAX package folds stateless keys instead).
+        Under shard_map every rank takes part: the per-machine leaves are
+        gathered to the vmap layout, so the file is the same, and the lead
+        rank's tree is the one written.  Call :meth:`init_state` first to
+        build the same tree as a template.
         """
+        subs = {}
+        for k, s in self._sub.items():
+            prog = self.programs[k]
+            opt = s.local_opt_state
+            if opt is None:
+                opt = self._placeholder(state.params)
+            elif prog.cfg.mode == "local":      # stacked per machine
+                opt = prog.to_global(opt)
+            subs[self._key_str(k)] = {
+                "opt": opt, "residual": prog.to_global(s.comm_residual)}
         tree = {"params": state.params,
                 "server": self._server_state,
-                "subs": {self._key_str(k): {
-                    "opt": (s.local_opt_state
-                            if s.local_opt_state is not None
-                            else self._placeholder(state.params)),
-                    "residual": s.comm_residual}
-                    for k, s in self._sub.items()}}
+                "subs": subs}
         streams = {self._key_str(k): p.uniforms.get_state()
                    for k, p in self.programs.items()
                    if hasattr(p.uniforms, "get_state")}
@@ -935,11 +1082,12 @@ class _PlanProgram:
         for key, prog in self.programs.items():
             sub_t = tree["subs"][self._key_str(key)]
             keeps_opt = prog.cfg.mode != "local" or not prog.cfg.reset_local_opt
+            opt = sub_t["opt"] if keeps_opt else None
+            if prog.cfg.mode == "local":
+                opt = prog.to_machine(opt)      # a shard_map rank's rows
             self._sub[key] = EngineState(
-                params=params,
-                local_opt_state=sub_t["opt"] if keeps_opt else None,
-                server_opt_state=None,
-                comm_residual=sub_t["residual"])
+                params=params, local_opt_state=opt, server_opt_state=None,
+                comm_residual=prog.to_machine(sub_t["residual"]))
         for ks, st in tree.get("uniforms", {}).items():
             self.programs[self._key_by_str[ks]].uniforms.set_state(st)
         return EngineState(params=params, local_opt_state=None)
@@ -1027,13 +1175,15 @@ class _PlanCheckpointHook:
     def commit(self, r: int, state: EngineState, hist: History) -> None:
         if not self._due(r):
             return
-        train = {"round": r,
-                 "sampler": self._rng_snap,
-                 "program": self.program.train_state(),
-                 "history": hist.to_json()}
-        self.manager.save(r, self.program.snapshot_state(state), train=train,
-                          plan_digest=self.plan_digest,
-                          data_digest=self.data_digest)
+        tree = self.program.snapshot_state(state)   # collective on shard_map
+        if self.manager is not None:                # the writing rank
+            train = {"round": r,
+                     "sampler": self._rng_snap,
+                     "program": self.program.train_state(),
+                     "history": hist.to_json()}
+            self.manager.save(r, tree, train=train,
+                              plan_digest=self.plan_digest,
+                              data_digest=self.data_digest)
         self._rng_snap = None
 
 
@@ -1052,17 +1202,28 @@ class PlanTrainer:
     codecs from a seed (default :class:`repro_torch.comm.compress.
     UniformStream`, which draws on the host, so the card and the CPU see
     the same uniforms).
+
+    ``backend="shard_map"`` runs this process as one machine of ``mesh``
+    (a :class:`~repro_torch.launch.mesh.MachineMesh` of ``num_machines``
+    ranks, each calling :meth:`run`), on the mesh's device; the lead rank
+    writes the checkpoints and its History is the run's.
     """
 
     def __init__(self, data: SyntheticDataset, model: GNNModel,
                  plan: TrainPlan, backend: str = "vmap", device="cuda",
-                 uniforms=UniformStream):
+                 uniforms=UniformStream, mesh=None):
         _check(backend in BACKENDS,
-               _not_ported(f"backend {backend!r}", "12, the device-per-"
-                           "machine backend") if backend == "shard_map"
-               else f"unknown backend {backend!r}; choose one of {BACKENDS}")
+               f"unknown backend {backend!r}; choose one of {BACKENDS}")
+        if backend == "shard_map":
+            _check(mesh is not None
+                   and mesh.size == plan.comm.num_machines,
+                   "backend='shard_map' requires the MachineMesh of a group "
+                   f"of {plan.comm.num_machines} machines "
+                   "(repro_torch.launch.mesh.launch_machines)")
+            device = mesh.device
         self.data, self.model, self.plan = data, model, plan
         self.backend = backend
+        self.mesh = mesh if backend == "shard_map" else None
         self.device = torch.device(device)
         self.uniforms = uniforms
         self.descs = lower_plan(plan)
@@ -1122,16 +1283,20 @@ class PlanTrainer:
         digest differs from this trainer's are refused.
         """
         plan, data, model = self.plan, self.data, self.model
-        sampler = RoundSampler(data, model, plan, self.device)
+        sampler = RoundSampler(data, model, plan, self.device,
+                               mesh=self.mesh)
         sampler.prewarm({d.kind for d in self.descs},
                         correction=any(d.correction for d in self.descs))
-        program = _PlanProgram(model, sampler, self.descs, self.uniforms)
+        program = _PlanProgram(model, sampler, self.descs, self.uniforms,
+                               backend=self.backend)
         by_round = {row["round"]: row for row in self.accounting(sampler)}
         bucketing = plan.compile.bucketing_for(self.schedule,
                                                plan.local.local_k)
         meta: Dict = {"param_bytes": sampler.param_bytes,
                       "plan": plan.describe(),
                       "device": str(self.device),
+                      "sampler_placement": sampler.placement,
+                      "sampler_overlap": plan.sampler.resolved_overlap,
                       "corr_agg_layout": sampler.corr_agg_layout}
         if any(d.kind == "ext" for d in self.descs):
             meta.update({
@@ -1141,6 +1306,15 @@ class PlanTrainer:
                 "halo_max_send": sampler.halo_program.max_send,
                 "halo_max_halo": sampler.halo_program.max_halo})
         desc_by_round = {d.r: d for d in self.descs}
+        if sampler.placement == "device" and bucketing is not None:
+            # draw directly at the bucketed length (step_valid marks the
+            # real prefix): no host-side padding
+            def sample_fn(r, k):
+                return sampler.sample(desc_by_round[r],
+                                      k_pad=bucketing.pad_length(k))
+        else:
+            def sample_fn(r, k):
+                return sampler.sample(desc_by_round[r])
         pdig = plan_digest_of(plan, self.backend)
         ddig = dataset_digest(data)
         resume = None
@@ -1148,34 +1322,37 @@ class PlanTrainer:
             resume = self._restore(resume_from, resume_step, program,
                                    model.init(plan.seed, device=self.device),
                                    pdig, ddig)
+        lead = self.mesh is None or self.mesh.is_lead
         manager = hook = None
         if plan.checkpoint is not None:
             ck = plan.checkpoint
-            manager = CheckpointManager(ck.dir, keep=ck.keep,
-                                        async_=ck.async_,
-                                        queue_size=ck.queue_size)
+            if lead:                     # one writer per run
+                manager = CheckpointManager(ck.dir, keep=ck.keep,
+                                            async_=ck.async_,
+                                            queue_size=ck.queue_size)
             hook = _PlanCheckpointHook(manager, sampler, program, ck.every,
                                        pdig, ddig)
         try:
             hist = run_schedule(
                 program, model.init(plan.seed, device=self.device), None,
-                None,
-                lambda r, k: sampler.sample(desc_by_round[r]),
-                self.schedule,
+                None, sample_fn, self.schedule,
                 lambda p: sampler.evaluate(p, data.val_nodes),
                 plan.name,
                 bytes_per_round=lambda r, k: by_round[r]["bytes"],
                 steps_per_round=lambda r, k: by_round[r]["steps"],
                 meta=meta,
                 bucketing=bucketing,
-                checkpoint_dir=plan.checkpoint_dir,
+                checkpoint_dir=plan.checkpoint_dir if lead else None,
+                prefetch=plan.sampler.resolved_overlap,
                 checkpoint_hook=hook,
-                resume=resume)
+                resume=resume,
+                device=self.device)
         finally:
             if manager is not None:
                 manager.close()
         hist.meta["cut_stats"] = sampler.cut_stats()
         hist.meta["round_kinds"] = [d.kind for d in self.descs]
+        hist.meta["sampler_retraces"] = sampler.num_sampler_retraces
         hist.meta["device"] = str(self.device)   # where the run finished
         return hist
 
@@ -1216,16 +1393,18 @@ class PlanTrainer:
 
 def build_trainer(data: SyntheticDataset, model: GNNModel, plan: TrainPlan,
                   backend: str = "vmap", device="cuda",
-                  uniforms=UniformStream) -> PlanTrainer:
+                  uniforms=UniformStream, mesh=None) -> PlanTrainer:
     """Lower ``plan`` onto the round engine; run with ``.run() -> History``.
 
     Runs on ``device`` — the GPU unless the caller passes another (the
     tests pass ``"cpu"``, where the kernels' plain versions run).
+    ``backend="shard_map"`` runs this process as machine ``mesh.rank`` of
+    the mesh, on its device (every rank builds and runs the same plan).
     ``uniforms`` replaces the stochastic-rounding source (see
     :class:`PlanTrainer`).
     """
     return PlanTrainer(data, model, plan, backend=backend, device=device,
-                       uniforms=uniforms)
+                       uniforms=uniforms, mesh=mesh)
 
 
 # --------------------------------------------------------------------------

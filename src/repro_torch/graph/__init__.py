@@ -1,10 +1,12 @@
-"""Graph substrate: CSR containers, partitioning, host sampling, synthetic
-datasets and halo plans (numpy; copies of the JAX package's modules).
+"""Graph substrate: CSR containers, partitioning, sampling, synthetic
+datasets and halo plans (numpy, copies of the JAX package's modules; the
+device sampler in torch).
 
 * :mod:`repro_torch.graph.csr`        — CSR container + padded neighbor
   tables.
 * :mod:`repro_torch.graph.partition`  — partitioners + cut-edge stats.
-* :mod:`repro_torch.graph.sampling`   — neighbor sampling on the host.
+* :mod:`repro_torch.graph.sampling`   — neighbor sampling on the host and
+  on the device (the JAX package's ``jax.random`` stream, bit for bit).
 * :mod:`repro_torch.graph.datasets`   — synthetic SBM/R-MAT/grid graphs.
 * :mod:`repro_torch.graph.halo`       — halo exchange plans and programs.
 """
@@ -19,8 +21,15 @@ from repro_torch.graph.partition import (
     cut_edge_stats,
     extract_local_subgraph,
 )
-from repro_torch.graph.sampling import (NeighborSampler, sample_minibatch,
-                                        sample_neighbors)
+from repro_torch.graph.sampling import (
+    DeviceCSR,
+    NeighborSampler,
+    build_device_csr,
+    sample_minibatch,
+    sample_neighbors,
+    sample_round_device,
+    sample_serving_tables_device,
+)
 from repro_torch.graph.datasets import (SyntheticDataset, grid_graph,
                                         make_dataset, rmat_graph, sbm_graph)
 from repro_torch.graph.halo import (
@@ -45,6 +54,10 @@ __all__ = [
     "NeighborSampler",
     "sample_neighbors",
     "sample_minibatch",
+    "DeviceCSR",
+    "build_device_csr",
+    "sample_round_device",
+    "sample_serving_tables_device",
     "sbm_graph",
     "rmat_graph",
     "grid_graph",

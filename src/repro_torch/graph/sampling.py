@@ -16,16 +16,42 @@ Two execution paths produce the same *distribution* of tables:
 
 Both consume ``np.random.Generator`` streams exactly as the JAX package's
 host sampler does, so the same seeds give the same tables bit for bit.
-The device-resident sampler is not part of this module yet.
+
+**Device-resident sampling.**  A third path draws the whole round on the
+device: :func:`build_device_csr` stacks padded CSR shards into a
+:class:`DeviceCSR` once, and :func:`sample_round_device` /
+:func:`sample_serving_tables_device` produce the host paths' fixed-shape
+tables from the JAX package's documented ``jax.random`` stream, replayed
+bit for bit by :mod:`repro_torch.utils.threefry`:
+
+    round key  = fold_in(base_key, r)                  (caller supplies)
+    machine    = fold_in(round_key, p)
+    step       = fold_in(machine_key, s)
+    neighbors  = bits(fold_in(step_key, 0), (n_pad, dmax))
+    batch WOR  = bits(fold_in(step_key, 1), (t_pad,))
+    batch WR   = randint(fold_in(step_key, 2), (B,))
+
+so both packages draw identical tables, masks and batches on any device.
+Every step folds its own key, so a draw at a K-bucketed padded length
+reproduces the unbucketed stream on the real prefix, and a shard holding
+one machine (the ``shard_map`` backend's) draws that machine's part of the
+stacked draw exactly, given the stack's global ``n_pad``, ``t_pad`` and
+``dmax``.  Subsets are uniform without replacement by ranking random keys
+with an index tie-break: the reference's two key definitions (pairwise
+rank for ``dmax ≤ 128``, stable ``top_k`` above) become one ``int64`` sort
+key per slot with the slot index in its low bits, so ``torch.topk`` gives
+the reference's order whatever sort the device runs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.graph.csr import CSRGraph, gather_neighbor_rows, neighbor_spans
+from repro_torch.utils import threefry
 
 # Bound on the number of uniform keys materialized per vectorized draw
 # (steps × oversampled-rows × max-degree); larger rounds chunk the step axis.
@@ -296,3 +322,199 @@ class NeighborSampler:
         md = max(self.graph.max_degree(), 1)
         table, mask = gather_neighbor_rows(self.graph, batch, md)
         return batch.astype(np.int32), table, mask
+
+
+# --------------------------------------------------------------------------
+# Device-resident sampling (module docstring, "Device-resident sampling")
+# --------------------------------------------------------------------------
+#: Widths up to this use the reference's pairwise-rank key definition;
+#: wider rows its ``top_k`` one.
+_RANK_SELECT_MAX_WIDTH = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceCSR:
+    """Padded CSR shards + train pools, resident on the device.
+
+    Built once per ``(round kind, fanout)`` by :func:`build_device_csr` and
+    reused every round.  Arrays are stacked on a leading shard axis;
+    ``machines`` names the global machine index of each shard (the key
+    fold), ``range(P)`` for a full stack, ``(p,)`` for the one machine a
+    ``shard_map`` rank holds.
+    """
+
+    indices: torch.Tensor       # (S, e_pad) int64 — CSR indices, 0-padded
+    starts: torch.Tensor        # (S, n_pad) int64 — per-row span starts
+    degrees: torch.Tensor       # (S, n_pad) int64 — 0 on padded rows
+    train_nodes: torch.Tensor   # (S, t_pad) int64 — per-machine train pools
+    train_counts: torch.Tensor  # (S,) int64
+    fanouts: torch.Tensor       # (S,) int64 — per-machine effective fanout
+    dmax: int                   # max degree over ALL machines (key width)
+    machines: Tuple[int, ...]   # global machine index of each shard
+
+    @property
+    def num_machines(self) -> int:
+        return int(self.starts.shape[0])
+
+    @property
+    def n_pad(self) -> int:
+        return int(self.starts.shape[1])
+
+
+def build_device_csr(graphs: Sequence[CSRGraph], n_pad: Optional[int] = None,
+                     train_nodes: Optional[Sequence[np.ndarray]] = None,
+                     fanouts: Optional[Sequence[int]] = None,
+                     t_pad_min: int = 1, device="cuda",
+                     machines: Optional[Sequence[int]] = None,
+                     dmax: Optional[int] = None) -> DeviceCSR:
+    """Stack CSR shards into one :class:`DeviceCSR` on ``device``.
+
+    ``train_nodes`` may be omitted for table-only use (serving);
+    ``fanouts`` defaults to full width.  ``t_pad_min`` floors the
+    train-pool padding so fixed-size batches can always be gathered.  A
+    ``shard_map`` rank passes only its own graph with ``machines=(p,)`` and
+    the full stack's ``n_pad``, ``t_pad_min`` (the stack's ``t_pad``) and
+    ``dmax``: the bits are drawn at those shapes.
+    """
+    P = len(graphs)
+    if P == 0:
+        raise ValueError("build_device_csr needs at least one graph")
+    n_pad = max(g.num_nodes for g in graphs) if n_pad is None else int(n_pad)
+    e_pad = max(max(g.num_edges for g in graphs), 1)
+    pools = ([np.zeros(0, np.int64)] * P if train_nodes is None
+             else [np.asarray(t) for t in train_nodes])
+    t_pad = max(max(p.size for p in pools), int(t_pad_min), 1)
+    if dmax is None:
+        dmax = max(max(g.max_degree() for g in graphs), 1)
+    fo = [dmax] * P if fanouts is None else [int(f) for f in fanouts]
+    machines = tuple(range(P)) if machines is None else tuple(machines)
+    if len(machines) != P:
+        raise ValueError(f"{len(machines)} machine indices for {P} graphs")
+
+    indices = np.zeros((P, e_pad), np.int64)
+    starts = np.zeros((P, n_pad), np.int64)
+    degrees = np.zeros((P, n_pad), np.int64)
+    tn = np.zeros((P, t_pad), np.int64)
+    tc = np.zeros((P,), np.int64)
+    for p, g in enumerate(graphs):
+        if g.num_nodes > n_pad:
+            raise ValueError(f"graph {p} has {g.num_nodes} rows > n_pad "
+                             f"{n_pad}")
+        if g.max_degree() > dmax:
+            raise ValueError(f"graph {p} has degree {g.max_degree()} > "
+                             f"dmax {dmax}")
+        indices[p, : g.num_edges] = g.indices
+        starts[p, : g.num_nodes] = g.indptr[:-1]
+        degrees[p, : g.num_nodes] = np.diff(g.indptr)
+        tn[p, : pools[p].size] = pools[p]
+        tc[p] = pools[p].size
+    put = lambda a: torch.from_numpy(a).to(device)
+    return DeviceCSR(indices=put(indices), starts=put(starts),
+                     degrees=put(degrees), train_nodes=put(tn),
+                     train_counts=put(tc),
+                     fanouts=put(np.asarray(fo, np.int64)), dmax=int(dmax),
+                     machines=machines)
+
+
+def _rank_select(bits: torch.Tensor, valid: torch.Tensor,
+                 width: int) -> torch.Tensor:
+    """Indices of the ``width`` smallest keys per row, without replacement,
+    in the reference's order (``int64`` ``(…, width)``, zero-padded past
+    ``dmax``).
+
+    ``bits (…, dmax)`` are uint32 keys; ``valid`` marks real slots.  For
+    ``dmax ≤ 128`` the reference keys valid slots ``((bits >> (1+ib)) <<
+    ib) | idx`` and invalid ones ``(1 << 31) | idx``, which are distinct, so
+    its pairwise rank is their ascending order.  Above, it keys valid slots
+    ``bits >> 1`` and invalid ones ``0xffffffff`` and takes a stable
+    ``top_k``: ascending key, lowest index first — the order of the
+    ``int64`` key ``key << ib | idx``.  Either way ``topk`` of distinct keys
+    is the reference's selection on any device.
+    """
+    dmax = bits.shape[-1]
+    w = min(width, dmax)
+    ib = max(int(dmax - 1).bit_length(), 1)
+    idx = torch.arange(dmax, dtype=torch.int64, device=bits.device)
+    if dmax <= _RANK_SELECT_MAX_WIDTH:
+        keys = torch.where(valid, ((bits >> (1 + ib)) << ib) | idx,
+                           (1 << 31) | idx)
+    else:
+        keys = (torch.where(valid, bits >> 1, 0xFFFFFFFF) << ib) | idx
+    sel = torch.topk(keys, w, dim=-1, largest=False, sorted=True).indices
+    if w < width:
+        sel = torch.nn.functional.pad(sel, (0, width - w))
+    return sel
+
+
+def _neighbor_tables(bits: torch.Tensor, dcsr: DeviceCSR, width: int,
+                     fanouts: torch.Tensor) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """``(S, G, n_pad, width)`` tables + masks from ``(S, G, n_pad, dmax)``
+    bits, G draws per shard (the steps)."""
+    col = torch.arange(dcsr.dmax, device=bits.device)
+    deg = dcsr.degrees[:, None, :, None]                    # (S, 1, n, 1)
+    sel = _rank_select(bits, col < deg, width)              # (S, G, n, w)
+    eff = torch.minimum(dcsr.degrees, fanouts[:, None])     # (S, n)
+    valid = (torch.arange(width, device=bits.device)
+             < eff[:, None, :, None])
+    e_pad = dcsr.indices.shape[1]
+    gat = (dcsr.starts[:, None, :, None] + sel).clamp(0, e_pad - 1)
+    S = dcsr.num_machines
+    vals = torch.gather(dcsr.indices, 1, gat.reshape(S, -1)).reshape(
+        gat.shape)
+    table = torch.where(valid, vals, 0).to(torch.int32)
+    return table, valid.expand(table.shape).to(torch.float32).contiguous()
+
+
+def sample_round_device(dcsr: DeviceCSR, key: threefry.Key, num_steps: int,
+                        width: int, batch_size: int):
+    """One round's sampled inputs, drawn on the device.
+
+    Returns ``(tables, masks, batches, bmasks)`` shaped like the host
+    path's stacks — ``(S, K, n_pad, width)`` / ``(S, K, B)`` — from the
+    documented stream (module docstring); ``key`` is the per-round key
+    (the caller folds the round index).  Per-machine fanouts narrower than
+    ``width`` mask per row via ``dcsr.fanouts``.  Equal to the JAX
+    package's ``sample_round_device`` bit for bit.
+    """
+    dev = dcsr.starts.device
+    S, K, B = dcsr.num_machines, int(num_steps), int(batch_size)
+    steps = [threefry.fold_in(threefry.fold_in(key, p), s)
+             for p in dcsr.machines for s in range(K)]
+    bits = threefry.random_bits_many(
+        [threefry.fold_in(k, 0) for k in steps], (dcsr.n_pad, dcsr.dmax),
+        dev).reshape(S, K, dcsr.n_pad, dcsr.dmax)
+    tables, masks = _neighbor_tables(bits, dcsr, width, dcsr.fanouts)
+    del bits
+
+    t_pad = dcsr.train_nodes.shape[1]
+    count = dcsr.train_counts[:, None, None]                 # (S, 1, 1)
+    bbits = threefry.random_bits_many(
+        [threefry.fold_in(k, 1) for k in steps], (t_pad,), dev
+    ).reshape(S, K, t_pad)
+    wor = _rank_select(bbits, torch.arange(t_pad, device=dev) < count, B)
+    rep = threefry.randint_many(
+        [threefry.fold_in(k, 2) for k in steps], (B,), 0,
+        count.clamp_min(1).repeat_interleave(K, 0).reshape(S * K, 1),
+        dev).reshape(S, K, B)
+    sel = torch.where(count >= B, wor[..., :B], rep)
+    batches = torch.gather(dcsr.train_nodes, 1, sel.reshape(S, -1)
+                           ).reshape(S, K, B).to(torch.int32)
+    bmasks = torch.ones((S, K, B), dtype=torch.float32, device=dev)
+    return tables, masks, batches, bmasks
+
+
+def sample_serving_tables_device(dcsr: DeviceCSR, key: threefry.Key,
+                                 width: int):
+    """Device-side :func:`sample_serving_tables`: one wave's ``(P, n_pad,
+    width)`` tables + masks over P extended graphs, each machine keyed
+    ``fold_in(fold_in(key, p), 0)`` — the JAX package's draw, bit for
+    bit."""
+    steps = [threefry.fold_in(threefry.fold_in(key, p), 0)
+             for p in dcsr.machines]
+    bits = threefry.random_bits_many(
+        [threefry.fold_in(k, 0) for k in steps], (dcsr.n_pad, dcsr.dmax),
+        dcsr.starts.device)[:, None]
+    fanouts = torch.full_like(dcsr.fanouts, int(width))
+    tables, masks = _neighbor_tables(bits, dcsr, width, fanouts)
+    return tables[:, 0], masks[:, 0]

@@ -15,7 +15,7 @@ from repro_torch.core.plan import TrainPlan, build_trainer
 
 def resume(data, model, plan: TrainPlan, ckpt_dir: Optional[str] = None,
            step: Optional[int] = None, backend: str = "vmap",
-           device="cuda") -> History:
+           device="cuda", mesh=None) -> History:
     """Resume a checkpointed :class:`~repro_torch.core.plan.TrainPlan` run
     on ``device``.
 
@@ -31,18 +31,20 @@ def resume(data, model, plan: TrainPlan, ckpt_dir: Optional[str] = None,
                              "ckpt_dir= or set plan.checkpoint")
         ckpt_dir = plan.checkpoint.dir
     trainer = build_trainer(data, model, plan, backend=backend,
-                            device=device)
+                            device=device, mesh=mesh)
     return trainer.run(resume_from=ckpt_dir, resume_step=step)
 
 
 def run_or_resume(data, model, plan: TrainPlan, backend: str = "vmap",
-                  device="cuda") -> History:
+                  device="cuda", mesh=None) -> History:
     """Resume if a valid checkpoint exists, else run from the start.
 
     The idempotent form a preemptible job wants: the SAME command line
     works for the first launch and every relaunch after a kill
     (:mod:`repro_torch.checkpoint.chaos` drives it under SIGKILL).
-    Requires ``plan.checkpoint``.
+    Requires ``plan.checkpoint``.  Under ``backend="shard_map"`` every rank
+    calls it with its ``mesh``; each restores its own machine's slice of
+    the lead rank's checkpoint.
     """
     if plan.checkpoint is None:
         raise ValueError("run_or_resume requires plan.checkpoint "
@@ -50,7 +52,7 @@ def run_or_resume(data, model, plan: TrainPlan, backend: str = "vmap",
     have = CheckpointManager(plan.checkpoint.dir, keep=0,
                              async_=False).latest_step()
     trainer = build_trainer(data, model, plan, backend=backend,
-                            device=device)
+                            device=device, mesh=mesh)
     if have is None:
         return trainer.run()
     return trainer.run(resume_from=plan.checkpoint.dir)

@@ -30,7 +30,9 @@ Sampling stays deterministic in queue-independent terms:
 step)`` — *per-request* determinism (a request's sampled continuation never
 depends on what shared its wave) — where the JAX package folds ``jax.random``
 keys (``fold_request_key``); the draws differ from JAX's, the property is the
-same.  :func:`wave_rng` seeds a numpy generator from a wave's request ids.
+same.  :func:`wave_rng` seeds a numpy generator from a wave's request ids,
+and :func:`wave_key` folds them into the JAX package's ``jax.random`` key
+for the device sampler.
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ from typing import Any, Dict, Hashable, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.utils import threefry
 
 
 class ServingBackend:
@@ -122,6 +126,18 @@ def wave_rng(seed: int, uids: Sequence[int]) -> np.random.Generator:
     return np.random.default_rng(
         np.random.SeedSequence([int(seed) & 0xFFFFFFFF]
                                + [int(u) & 0xFFFFFFFF for u in uids]))
+
+
+def wave_key(seed: int, uids: Sequence[int]) -> threefry.Key:
+    """The JAX package's ``jax.random`` key for one wave's device-side
+    sampling, as two uint32 words (:mod:`repro_torch.utils.threefry`):
+    ``PRNGKey(seed)`` folded with each uid in submission order, so a wave
+    of the same requests draws the same tables on every replay,
+    independent of previous waves."""
+    key = threefry.prng_key(int(seed) & 0x7FFFFFFF)
+    for u in uids:
+        key = threefry.fold_in(key, int(u) & 0x7FFFFFFF)
+    return key
 
 
 class WaveScheduler:

@@ -23,7 +23,12 @@ caller passes another):
   kernel launch per wave on the card).
 * Neighbor tables come from the host sampler
   (:func:`~repro_torch.graph.sampling.sample_serving_tables`, numpy, so
-  they are bit-equal to the JAX package's).  Full width (``fanout=None``)
+  they are bit-equal to the JAX package's), or with
+  ``sampler_placement="device"`` from the device sampler
+  (:func:`~repro_torch.graph.sampling.sample_serving_tables_device` over
+  one device-resident stack of the extended graphs, keyed by
+  :func:`repro_torch.serving.core.wave_key`: the JAX package's
+  ``jax.random`` tables, bit for bit).  Full width (``fanout=None``)
   reproduces the single-machine full-graph forward; narrower widths
   subsample.  Widths round up to a geometric grid, so each width bucket is
   one input signature (``num_retraces`` counts distinct signatures, as
@@ -40,10 +45,8 @@ caller passes another):
   machines' masked-mean losses.  The refined params and the optimizer
   state are wave-local; the stored params are never mutated.
 
-Sampling is deterministic per wave content
-(:func:`repro_torch.serving.core.wave_rng` over the request uids).
-``sampler_placement="device"`` keys the JAX package's ``jax.random``
-device sampler (ROADMAP Queue 1 item 10) and is refused.  Batch-statistics
+Sampling is deterministic per wave content (:func:`repro_torch.serving.
+core.wave_rng` / ``wave_key`` over the request uids).  Batch-statistics
 architectures (``B`` ops) are refused: their statistics depend on the
 partition's padded row set.
 """
@@ -66,13 +69,16 @@ from repro_torch.graph.datasets import SyntheticDataset
 from repro_torch.graph.halo import (build_halo_program, build_inference_plan,
                                     cut_crossing_mask)
 from repro_torch.graph.partition import Partition, partition_graph
-from repro_torch.graph.sampling import sample_minibatch, sample_serving_tables
+from repro_torch.graph.sampling import (build_device_csr, sample_minibatch,
+                                        sample_serving_tables,
+                                        sample_serving_tables_device)
 from repro_torch.models.gnn.agg import (AggOperands, choose_layout,
                                         stacked_edge_operands)
 from repro_torch.models.gnn.model import GNNModel
 from repro_torch.optim.optimizers import adam, apply_updates, sgd
 from repro_torch.serving.core import (ServingBackend, SlotBackend,
-                                      SlotScheduler, WaveScheduler, wave_rng)
+                                      SlotScheduler, WaveScheduler, wave_key,
+                                      wave_rng)
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -141,12 +147,7 @@ class GNNBackend(ServingBackend):
                  agg_layout: Optional[str] = None,
                  halo_compression: str = "none", device="cuda"):
         check_compression(halo_compression, halo=True)
-        if sampler_placement == "device":
-            raise ValueError(
-                "sampler_placement='device' (the jax.random-keyed device "
-                "sampler) is not ported yet (ROADMAP Queue 1 item 10, the "
-                "device sampler)")
-        if sampler_placement != "host":
+        if sampler_placement not in ("host", "device"):
             raise ValueError(f"unknown sampler_placement "
                              f"{sampler_placement!r}; choose 'host' or "
                              "'device'")
@@ -240,9 +241,27 @@ class GNNBackend(ServingBackend):
             self.program.send_idx, self.program.recv_idx,
             self.program.dest_idx, self.program.recv_valid))
         self.sampler_placement = sampler_placement
+        if sampler_placement == "device":
+            # the wave's tables are drawn on the device from one padded
+            # stack of the extended graphs, built once
+            self._dcsr = build_device_csr(list(self.plan.ext_graphs),
+                                          n_pad=self.n_ext_pad,
+                                          device=self.device)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _tables(self, width: int, uids: Sequence[int],
+                rng: np.random.Generator):
+        """One wave's ``(P, n_ext_pad, width)`` tables and masks on the
+        device: drawn there under ``wave_key(seed, uids)``, or on the host
+        from ``rng``."""
+        if self.sampler_placement == "device":
+            return sample_serving_tables_device(
+                self._dcsr, wave_key(self.seed, uids), width)
+        tables, masks = sample_serving_tables(self.plan.ext_graphs, width,
+                                              rng, self.n_ext_pad)
+        return self._dev(tables), self._dev(masks)
 
     @property
     def num_retraces(self) -> int:
@@ -344,11 +363,11 @@ class GNNBackend(ServingBackend):
                  ) -> List[GNNServeResult]:
         t0 = time.perf_counter()
         width = self._width(wave[0])        # bucketed: all equal
-        rng = wave_rng(self.seed, [r.uid for r in wave])
-        tables, masks = sample_serving_tables(
-            self.plan.ext_graphs, width, rng, self.n_ext_pad)
+        uids = [r.uid for r in wave]
+        rng = wave_rng(self.seed, uids)
+        tables, masks = self._tables(width, uids, rng)
         cbatches, cbmasks = self._correction_batches(rng)
-        logits = self._serve(self._dev(tables), self._dev(masks),
+        logits = self._serve(tables, masks,
                              self._dev(cbatches), self._dev(cbmasks),
                              self._agg_for_width(width)).cpu().numpy()
         self._widths_compiled.add(width)
@@ -443,10 +462,8 @@ class GNNSlotBackend(GNNBackend, SlotBackend):
                 self._ext = self._exchange()
             self.exchange_runs += 1
             self._bytes_cum += self.exchange_bytes_per_wave
-        tables, masks = sample_serving_tables(
-            self.plan.ext_graphs, width, wave_rng(self.seed, [width]),
-            self.n_ext_pad)
-        tables, masks = self._dev(tables), self._dev(masks)
+        tables, masks = self._tables(width, [width],
+                                     wave_rng(self.seed, [width]))
         agg = self._agg_for_width(width)
         self._forward_traces.count(trace_signature(
             (tables, masks), static=(None if agg is None else agg.layout,)))

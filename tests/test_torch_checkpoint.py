@@ -462,12 +462,14 @@ def test_chaos_sigkill_trial_resumes_bit_identical():
     run_chaos(kill_round=2, kill_mode="self", device="cpu")
 
 
-def test_chaos_refuses_unported_trials():
-    from repro_torch.checkpoint.chaos import default_spec, run_trial
-    for kw, item in ((dict(backend="shard_map"), "12"),
-                     (dict(placement="device"), "10")):
-        with pytest.raises(ValueError, match=f"Queue 1 item {item}"):
-            run_trial(default_spec(**kw), 2)
+def test_chaos_device_placement_trial_runs():
+    """A device-placed trial, refused before the device sampler was ported,
+    now runs: SIGKILLed after round 2, resumed bit-identical (the device
+    stream is stateless per round).  The shard_map trial is in
+    ``test_torch_sharded.py``."""
+    from repro_torch.checkpoint.chaos import run_chaos
+    run_chaos(placement="device", kill_round=2, kill_mode="self",
+              device="cpu")
 
 
 def test_quickstart_checkpoint_section_resumes_exactly():

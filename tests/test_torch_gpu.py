@@ -458,3 +458,129 @@ def test_run_llcg_on_card_keeps_its_tensors_there(cuda, monkeypatch):
                                rtol=1e-3, atol=1e-3)
     assert hist.bytes_cum == cpu_hist.bytes_cum
     assert hist.steps_cum == cpu_hist.steps_cum
+
+
+# --------------------------------------------------------------------------
+# the device sampler, the prefetch stream and the shard_map backend
+# --------------------------------------------------------------------------
+def _sampling_setting(placement="device", kind="llcg", **comm):
+    import dataclasses
+    from repro_torch.core import plan as P
+    from repro_torch.graph.datasets import sbm_graph
+    from repro_torch.models.gnn.model import build_model
+    data = sbm_graph(num_nodes=400, num_classes=4, feature_dim=8, seed=0)
+    model = build_model("SBSBS", 8, 4, hidden_dim=16)
+    cfg = P.DistConfig(num_machines=2, rounds=2, local_k=3, batch_size=16,
+                       server_batch_size=32, fanout=6,
+                       partition_method="random", seed=0)
+    plan = {"llcg": P.llcg_plan, "ggs": P.ggs_plan}[kind](cfg)
+    return data, model, dataclasses.replace(
+        plan, comm=dataclasses.replace(plan.comm, **comm),
+        sampler=dataclasses.replace(plan.sampler, placement=placement))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["llcg", "ggs"])
+def test_device_sampler_on_card_equals_cpu(cuda, kind):
+    """The same draw on the card and on the CPU, bit for bit: integer
+    arithmetic and a sort of distinct keys on both."""
+    from repro_torch.core.plan import RoundSampler, lower_plan
+    data, model, plan = _sampling_setting(kind=kind)
+    desc = lower_plan(plan)[0]
+    draws = [RoundSampler(data, model, plan, dev).sample_round_on_device(
+        desc, k_pad=desc.k + 2) for dev in (cuda, "cpu")]
+    for a, b in zip(draws[0][:4], draws[1][:4]):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+    assert draws[0][4] == draws[1][4]
+
+
+@pytest.mark.gpu
+def test_wide_rank_select_on_card_equals_cpu(hub_graph, cuda):
+    """Rows wider than 128 slots (the reference's ``top_k`` keys) and train
+    pools over 128, card against CPU."""
+    from repro_torch.graph import sampling as S
+    from repro_torch.utils import threefry
+    pool = np.arange(0, 3000, 7)
+    key = threefry.fold_in(threefry.prng_key(1), 3)
+    outs = []
+    for dev in (cuda, "cpu"):
+        dcsr = S.build_device_csr([hub_graph], train_nodes=[pool],
+                                  fanouts=[12], t_pad_min=64, device=dev)
+        assert dcsr.dmax > S._RANK_SELECT_MAX_WIDTH
+        outs.append(S.sample_round_device(dcsr, key, 3, 16, 64)
+                    + S.sample_serving_tables_device(dcsr, key, 300))
+    for a, b in zip(*outs):
+        assert torch.equal(a.cpu(), b)
+
+
+_PREFETCH_RUN = r"""
+import dataclasses, json, sys
+import torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+sys.path.insert(0, sys.argv[1])
+from test_torch_gpu import _sampling_setting
+from repro_torch.core.plan import build_trainer
+from repro_torch.utils.pytree import tree_leaves
+data, model, plan = _sampling_setting()
+out = []
+for overlap in (True, False):
+    p = dataclasses.replace(plan, sampler=dataclasses.replace(
+        plan.sampler, overlap=overlap))
+    h = build_trainer(data, model, p).run()
+    out.append(torch.cat([x.reshape(-1).cpu() for x in
+                          tree_leaves(h.meta["final_params"])]))
+print(json.dumps({"equal": bool(torch.equal(*out)),
+                  "max": float((out[0] - out[1]).abs().max())}))
+"""
+
+
+@pytest.mark.gpu
+def test_side_stream_prefetch_under_a_fresh_allocator(cuda):
+    """A device-placed run prefetching its draws on a side stream equals
+    the synchronous run bit for bit, in a fresh process (an empty caching
+    allocator, whose first reuse of the tables' memory would show a
+    missing ``record_stream``), under deterministic algorithms."""
+    import json
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(here, "..", "src"),
+                    os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", _PREFETCH_RUN, here],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["equal"], out
+
+
+def _two_ranks(mesh):
+    from repro_torch.core.plan import build_trainer
+    data, model, plan = _sampling_setting(compression="int8_ef")
+    hist = build_trainer(data, model, plan, backend="shard_map",
+                         mesh=mesh).run()
+    return hist, mesh.gather_wire_bytes(), str(mesh.device)
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_share_one_card(cuda):
+    """Two shard_map ranks on ``cuda:0`` over gloo (NCCL refuses two ranks
+    on one device): the vmap backend's trajectory within 1e-4 (the local
+    rounds run as batches of one, which cuBLAS may compute in another
+    order), the accounting's bytes at the collectives."""
+    from repro_torch.core.plan import build_trainer
+    from repro_torch.launch.mesh import launch_machines
+    from repro_torch.utils.pytree import tree_leaves
+    hist, wire, dev = launch_machines(_two_ranks, 2, device="cuda")
+    assert dev.startswith("cuda") and hist.meta["device"] == dev
+    ref = build_trainer(*_sampling_setting(compression="int8_ef")).run()
+    assert hist.bytes_cum == ref.bytes_cum
+    assert 2 * sum(w["averaging"] for w in wire) == hist.bytes_cum[-1]
+    np.testing.assert_allclose(hist.train_loss, ref.train_loss, atol=1e-4)
+    for a, b in zip(tree_leaves(hist.meta["final_params"]),
+                    tree_leaves(ref.meta["final_params"])):
+        assert float((a - b).abs().max()) <= 1e-4

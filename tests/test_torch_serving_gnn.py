@@ -381,8 +381,8 @@ def test_wave_retraces_bounded_by_width_buckets(grid):
 REFUSED = {
     "batch_stats_arch": (dict(arch="BSS"), {}, "batch statistics"),
     "bcsr_kernel": ({}, dict(agg_layout="bcsr_kernel"), "train-side"),
-    "device_sampler": ({}, dict(sampler_placement="device"),
-                       r"ROADMAP Queue 1 item 10"),
+    "unknown_placement": ({}, dict(sampler_placement="tpu"),
+                          "sampler_placement"),
     "slot_correction": ({}, dict(scheduler="slot", correction_steps=2),
                         "wave-scoped"),
     "halo_int8_ef": ({}, dict(halo_compression="int8_ef"),
@@ -400,6 +400,19 @@ def test_refusals(grid, case):
     with pytest.raises(ValueError, match=match):
         GNNServingEngine(model, model.init(0, device="cpu"), data,
                          num_machines=P, device="cpu", **kw)
+
+
+def test_device_sampler_option_runs(grid):
+    """``sampler_placement="device"``, refused before the device sampler
+    was ported, serves: at full width the device-drawn tables are the
+    full neighbor tables, so predictions equal the host placement's."""
+    reqs = _reqs(grid[1].num_nodes, None)
+    _, host, _, _, _ = _serve_both(grid, "SS", reqs)
+    _, dev, _, eng, _ = _serve_both(grid, "SS", reqs,
+                                    sampler_placement="device")
+    assert eng.stats()["sampler_placement"] == "device"
+    assert {u: r.predictions for u, r in dev.items()} == \
+        {u: r.predictions for u, r in host.items()}
 
 
 def test_request_validation(grid):

@@ -188,18 +188,43 @@ def test_default_device_is_cuda():
     assert trainer.device == torch.device("cuda")
 
 
-_REFUSED = {
-    "device_sampler": lambda: P.SamplerSpec(placement="device"),
-    "overlap": lambda: P.SamplerSpec(overlap=True),
-    "shard_map": lambda: P.build_trainer(
-        None, None, P.llcg_plan(P.DistConfig()), backend="shard_map"),
+def _run_sharded(mesh, data, model, plan):
+    return P.build_trainer(data, model, plan, backend="shard_map",
+                           mesh=mesh).run()
+
+
+_SAMPLER_OPTIONS = {
+    "device_sampler": dict(placement="device"),
+    "overlap": dict(overlap=True),
+    "shard_map": {},
 }
 
 
-@pytest.mark.parametrize("option", sorted(_REFUSED))
-def test_unported_options_are_refused_with_their_roadmap_item(option):
-    with pytest.raises(ValueError, match=r"ROADMAP Queue 1 item \d+"):
-        _REFUSED[option]()
+@pytest.mark.parametrize("option", sorted(_SAMPLER_OPTIONS))
+def test_sampler_and_backend_options_run(option):
+    """The options refused before the device sampler and the
+    device-per-machine backend were ported now run, and train as the
+    host-placed, synchronous vmap run does (the device stream draws other
+    samples, so its run is held to the same accounting only)."""
+    from repro_torch.launch.mesh import launch_machines
+    data = sbm_graph(num_nodes=60, num_classes=3, feature_dim=8, seed=0)
+    model = build_model("GG", data.feature_dim, data.num_classes,
+                        hidden_dim=8)
+    base = P.psgd_pa_plan(P.DistConfig(num_machines=2, rounds=2))
+    plan = dataclasses.replace(base, sampler=dataclasses.replace(
+        base.sampler, **_SAMPLER_OPTIONS[option]))
+    if option == "shard_map":
+        hist = launch_machines(_run_sharded, 2, data, model, plan,
+                               device="cpu")
+    else:
+        hist = P.build_trainer(data, model, plan, device="cpu").run()
+    ref = P.build_trainer(data, model, base, device="cpu").run()
+    assert hist.rounds == [1, 2] and hist.bytes_cum == ref.bytes_cum
+    assert hist.meta["sampler_placement"] == plan.sampler.placement
+    assert hist.meta["sampler_overlap"] == plan.sampler.resolved_overlap
+    if option != "device_sampler":
+        np.testing.assert_allclose(hist.train_loss, ref.train_loss,
+                                   rtol=0, atol=LOSS_TOL)
 
 
 _CHECKPOINT_OPTIONS = {

@@ -339,7 +339,8 @@ def test_exports_are_the_references_ported_names():
         assert name in C.__all__
     for name in ("build_model", "sym_aggregate"):
         assert name in repro_torch.models.gnn.__all__
-    for name in ("sbm_graph", "partition_graph", "cut_edge_stats"):
+    for name in ("sbm_graph", "partition_graph", "cut_edge_stats",
+                 # the device sampler, ported with the reference's names
+                 "DeviceCSR", "build_device_csr", "sample_round_device",
+                 "sample_serving_tables_device"):
         assert name in repro_torch.graph.__all__
-    # not ported: nothing that would work is exported under their names
-    assert not hasattr(repro_torch.graph, "DeviceCSR")
