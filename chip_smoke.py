@@ -22,8 +22,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    ones; the SpMM runs on the slice graph, a 16,384-node SBM graph and the
    same with 16 hubs of 4,096 neighbors; the chunked linear scan is
    checked in both conventions (RWKV6's strict one at the serving shapes,
-   ragged and large; the plain one at Mamba2 widths) and must fit two CTAs
-   on each SM.  The ``csr`` aggregation layout (plain PyTorch, no kernel
+   ragged and large; the plain one at Mamba2 widths) and in the plain
+   convention's scalar-decay mode at zamba2's prefill shapes ((448, 192)
+   and the ragged (448, 77), with and without a carried state, and at −3
+   per step, where the factored form overflows), also against the
+   one-token recurrence replayed, and must fit two CTAs on each SM in
+   every mode.  The ``csr`` aggregation layout (plain PyTorch, no kernel
    of its own) is timed at config A's shape and on config F3's graph,
    forward and forward + backward, eager and CUDA-graph replay, against
    the SpMM (mean) and the padded fused edge-softmax route (GAT), and held
@@ -95,6 +99,23 @@ After E1, E3 serves E1's 8 requests through ``scheduler="slot"``: a
 batch-1 prefill per request (24 scan launches each, 192 in all) and the
 same tokens as E1's waves.
 
+Last, config Z serves zamba2-7b at full width (81 layers: 68 Mamba2
+blocks on the scan's scalar-decay mode and 13 applications of one shared
+attention block; 5.78 B random f32 weights drawn once on the CPU, ~42 s,
+and copied to the card; the host copy serves Z2).  Z1 serves E1's 8
+requests through ``ServingEngine`` in the bfloat16 config, batch 4,
+``max_seq`` 256: exactly 136 scan launches (68 per prefill), every logit
+finite, the same tokens when served again; prints time to first token, ms
+per decode step, tokens/s, peak device memory and the busy share of the
+77-token wave served alone.  Z2 runs one 77-token prompt and 4
+teacher-forced decode steps at batch 1, each layer on the card fed the
+CPU's input and state, output and every state leaf (conv tail, h, each
+shared application's K/V cache and positions) within 1e-3 ×
+max(1, max|cpu|); the card's own chain is printed against the CPU's, not
+gated.  Z3: ``prefill(x[:T])`` then ``decode_step(x[T])`` equals the last
+logits of ``prefill(x[:T+1])`` within 2e-4 × max(1, max|logits|), T 76
+and 128.
+
 With ``--baseline DIR`` (DIR: the root of an unpacked earlier commit, its
 ``src/repro_torch`` beside this script's), a last phase times the quantize,
 dequantize and edge-softmax wrappers of both packages at phase 2's shapes,
@@ -156,6 +177,10 @@ SERVE_TOL = 1e-4
 E_PROMPTS = (192,) * 4 + (77,) * 4
 E_NEW_TOKENS = 32
 E_DECODE_STEPS = 4
+# config Z: zamba2-7b served with E's requests; Z3's prefill lengths
+Z_SEED = 0
+Z_MAX_SEQ = 256
+Z3_LENGTHS = (76, 128)
 
 
 class SmokeFailure(Exception):
@@ -456,13 +481,15 @@ def _grouped_cases(round_table: list) -> list:
 
 
 def _scan_ops(bh: int, t: int, chunk: int, dk: int, dv: int, strict: bool,
-              with_h0: bool) -> float:
+              with_h0: bool, scalar: bool = False) -> float:
     """Operations the scan needs on this run's inputs: per head and chunk of
     l real steps (the last chunk cut to its length), the masked products
     q~k~ᵀ and A·V over the l(l+1)/2 kept pairs (l(l−1)/2 when strict), the
     inter-chunk read q~·h_in (none in the first chunk when h0 is zero), the
     state update (k~P_L)ᵀV, 2-3 exponentials per (step, key) element and
-    the strict bonus, as multiply-adds counted twice."""
+    the strict bonus, as multiply-adds counted twice.  ``scalar``: the
+    scalar-decay mode's exponentials instead, one per kept pair and two
+    per step."""
     total = 0.0
     for c0 in range(0, t, chunk):
         ln = min(chunk, t - c0)
@@ -470,34 +497,56 @@ def _scan_ops(bh: int, t: int, chunk: int, dk: int, dv: int, strict: bool,
         total += 2.0 * pairs * (dk + dv) + 2.0 * ln * dk * dv
         if c0 or with_h0:
             total += 2.0 * ln * dk * dv
-        total += (3 if strict else 2) * ln * dk
+        if scalar:
+            total += pairs + 2 * ln
+        else:
+            total += (3 if strict else 2) * ln * dk
         if strict:
             total += 2.0 * ln * (dk + dv)
     return bh * total
 
 
 def _scan_case(bh: int, t: int, d: int, strict: bool, with_h0: bool,
-               label: str, seed: int, chunk: int = 64) -> dict:
+               label: str, seed: int, chunk: int = 64,
+               scalar_decay: float = 0.0) -> dict:
     """``ops.linear_scan`` (the kernel; a ragged T masked inside it) vs the
     plain chunked form on the card; dk = dv = ``d``.  A ragged case also
-    times the kernel alone on inputs padded to whole chunks."""
+    times the kernel alone on inputs padded to whole chunks.
+
+    ``scalar_decay`` > 0: the scalar-decay mode (Mamba2's), log_w (BH, T)
+    of −``scalar_decay`` per step (below 1: −``scalar_decay``·U(0, 1)),
+    held against its plain segsum form and against the one-token
+    recurrence ``scan_decode_step`` replayed step by step; where a chunk's
+    summed |log_w| passes ~88.7 the factored form, fed the same decay
+    broadcast over dk, must be the one that is not finite."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.linear_scan import linear_scan_chunked
-    from repro_torch.kernels.ref import chunked_scan_ref
+    from repro_torch.kernels.ref import (chunked_scan_ref,
+                                         chunked_scan_scalar_ref)
+    from repro_torch.models.transformer.scan_common import scan_decode_step
 
+    scalar = scalar_decay > 0
     rng = np.random.default_rng(seed)
     f = lambda *shape: torch.from_numpy(
         rng.standard_normal(shape).astype(np.float32)).cuda()
     q, k, v = f(bh, t, d), f(bh, t, d), f(bh, t, d)
-    lw = torch.from_numpy((-0.15 * rng.random((bh, t, d))).astype(
-        np.float32)).cuda()
+    if not scalar:
+        lw = torch.from_numpy((-0.15 * rng.random((bh, t, d))).astype(
+            np.float32)).cuda()
+    elif scalar_decay < 1:
+        lw = torch.from_numpy((-scalar_decay * rng.random((bh, t))).astype(
+            np.float32)).cuda()
+    else:
+        lw = torch.full((bh, t), -scalar_decay, device="cuda")
     h0 = f(bh, d, d) if with_h0 else None
     u = f(bh, d) * 0.3 if strict else None
     pad = -t % chunk
     padded = [torch.nn.functional.pad(x, (0, 0, 0, pad))
-              for x in (q, k, v, lw)]
+              for x in (q, k, v)]
+    padded.append(torch.nn.functional.pad(
+        lw, (0, pad) if scalar else (0, 0, 0, pad)))
 
     def kernel():
         return ops.linear_scan(q, k, v, lw, h0, chunk=chunk, strict=strict,
@@ -508,26 +557,57 @@ def _scan_case(bh: int, t: int, d: int, strict: bool, with_h0: bool,
                                    strict=strict)
 
     def plain():
-        y, h = chunked_scan_ref(*padded, h0, chunk=chunk, strict=strict, u=u)
+        if scalar:
+            y, h = chunked_scan_scalar_ref(*padded, h0, chunk=chunk)
+        else:
+            y, h = chunked_scan_ref(*padded, h0, chunk=chunk, strict=strict,
+                                    u=u)
         return y[:, :t], h
 
     (y, h), (y_r, h_r) = kernel(), plain()
     torch.cuda.synchronize()
     err = max(float((y - y_r).abs().max()), float((h - h_r).abs().max()))
     tol = SCAN_TOL * max(1.0, float(y_r.abs().max()), float(h_r.abs().max()))
-    name = (f"{'strict' if strict else 'plain'} BH={bh} T={t} dk=dv={d} "
-            f"L={chunk}{' h0' if with_h0 else ''}")
+    name = (f"{'strict' if strict else 'plain'}"
+            f"{' scalar-decay' if scalar else ''} BH={bh} T={t} dk=dv={d} "
+            f"L={chunk}{' h0' if with_h0 else ''}"
+            f"{f' log_w -{scalar_decay}' if scalar else ''}")
     _check(math.isfinite(err) and err <= tol,
            f"linear_scan {name}: max |kernel - plain| {err} > {tol}")
+    case = {"label": label, "shape": name, "max_abs_err": err, "tol": tol}
+    if scalar:
+        hs = torch.zeros(bh, d, d, device="cuda") if h0 is None else h0
+        ys = []
+        for i in range(t):
+            y_i, hs = scan_decode_step(q[:, i], k[:, i], v[:, i],
+                                       lw[:, i, None].expand(bh, d), hs)
+            ys.append(y_i)
+        y_s = torch.stack(ys, dim=1)
+        err_s = max(float((y - y_s).abs().max()),
+                    float((h - hs).abs().max()))
+        tol_s = SCAN_TOL * max(1.0, float(y_s.abs().max()),
+                               float(hs.abs().max()))
+        _check(math.isfinite(err_s) and err_s <= tol_s,
+               f"linear_scan {name}: max |kernel - sequential| {err_s} > "
+               f"{tol_s}")
+        y_f, _ = chunked_scan_ref(*padded[:3],
+                                  padded[3][..., None].expand(-1, -1, d), h0,
+                                  chunk=chunk)
+        factored_finite = bool(torch.isfinite(y_f).all())
+        _check(factored_finite is (scalar_decay * chunk < 88.7),
+               f"linear_scan {name}: the factored form is "
+               f"{'' if factored_finite else 'not '}finite")
+        case.update(max_abs_err_sequential=err_s, tol_sequential=tol_s,
+                    factored_form_finite=factored_finite)
     # each input read once, each output written once, at the real T
-    nbytes = 4 * (bh * t * 5 * d + bh * d * d * (2 if with_h0 else 1)
+    nbytes = 4 * (bh * t * (4 * d + (1 if scalar else d))
+                  + bh * d * d * (2 if with_h0 else 1)
                   + (bh * d if strict else 0))
     bound_ms, bound_by = _bound(
-        nbytes, _scan_ops(bh, t, chunk, d, d, strict, with_h0))
-    case = {"label": label, "shape": name, "max_abs_err": err, "tol": tol,
-            "ms": _time_ms(kernel), "device_ms": _graph_ms(kernel),
-            "plain_ms": _time_ms(plain), "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+        nbytes, _scan_ops(bh, t, chunk, d, d, strict, with_h0, scalar))
+    case.update({"ms": _time_ms(kernel), "device_ms": _graph_ms(kernel),
+                 "plain_ms": _time_ms(plain), "library_ms": None,
+                 "bound_ms": bound_ms, "bound_by": bound_by})
     if pad:
         case.update(padded_to=t + pad,
                     kernel_alone_ms=_time_ms(kernel_alone),
@@ -1988,9 +2068,10 @@ def _config_e(kernels) -> dict:
         layer_check("embedding", lm._embed(p_gpu, toks.cuda()), h)
         for n, (group, key, kind, idx) in enumerate(lm._layers()):
             out_g, st_g, _ = B.block_prefill(
-                kind, lm._index(p_gpu[group][key], idx), h.cuda(), cfg)
+                kind, lm._layer_params(p_gpu, group, key, idx), h.cuda(),
+                cfg, 512)
             out_c, st_c, _ = B.block_prefill(
-                kind, lm._index(p_cpu[group][key], idx), h, cfg)
+                kind, lm._layer_params(p_cpu, group, key, idx), h, cfg, 512)
             layer_check(f"layer {n} output", out_g, out_c)
             for name in st_c:
                 layer_check(f"layer {n} state {name}", st_g[name],
@@ -2084,6 +2165,211 @@ def _config_e(kernels) -> dict:
           f"{time.perf_counter() - t0:.1f} s; worst {worst[0][1]} "
           f"{worst[0][2]:.3e} ({worst[0][0]:.3f} of its tolerance)")
     return counts, counts3
+
+
+def _host_ram() -> str:
+    """The machine's RAM and what is available of it, from /proc/meminfo."""
+    try:
+        with open("/proc/meminfo") as f:
+            info = dict(line.split(":", 1) for line in f)
+        gib = lambda key: int(info[key].split()[0]) / 2 ** 20
+        return (f"{gib('MemTotal'):.1f} GiB, {gib('MemAvailable'):.1f} GiB "
+                f"available")
+    except (OSError, KeyError, ValueError):
+        return "not read"
+
+
+def _config_z(kernels) -> dict:
+    """Config Z: zamba2-7b at full width (81 layers: 68 Mamba2 blocks and
+    13 applications of the one shared attention block), random f32 weights
+    drawn once on the CPU and copied to the card; the CPU copy serves Z2.
+    Z1 serves E's 8 requests through ``ServingEngine`` in the config's
+    bfloat16 (embedding rows rounded, layers in f32); Z2 holds the card
+    against the CPU layer by layer, prefill and 4 teacher-forced decode
+    steps; Z3 holds prefill + one decode step against the longer prefill.
+    Returns Z1's launch counts."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import blocks as B
+    from repro_torch.models.transformer.model import LM
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("zamba2-7b")
+    lm = LM(cfg)
+    n_mamba = cfg.layer_plan().count("mamba2")
+    n_shared = cfg.layer_plan().count("shared_attn")
+    print(f"config Z: host RAM {_host_ram()} before the draw")
+    t0 = time.perf_counter()
+    p_cpu = lm.init(Z_SEED, "cpu")           # one host copy, Z2's CPU side
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_gpu = tree_map(lambda x: x.cuda(), p_cpu)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(p_cpu))
+    print(f"config Z: {cfg.name}, {cfg.num_layers} layers ({n_mamba} mamba2, "
+          f"{n_shared} shared_attn applications of one set), d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, ssm {cfg.ssm}, {n_params} parameters (f32), "
+          f"dtype {cfg.dtype}; init on the CPU {init_s:.1f} s, copy to the "
+          f"card {time.perf_counter() - t0:.1f} s; host RAM {_host_ram()} "
+          f"holding one host copy")
+
+    # ---- Z1: serving through the engine, greedy, the bf16 config
+    rng = np.random.default_rng(Z_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in E_PROMPTS]
+    reqs = list(enumerate(prompts))
+    finite = []
+
+    def serve(batch, check_logits: bool = False):
+        eng = ServingEngine(cfg, params=p_gpu, batch_size=4,
+                            max_seq=Z_MAX_SEQ)
+        if check_logits:                  # every logit the engine samples from
+            sample = eng.backend._sample
+
+            def checked(logits, wave, step):
+                finite.append(torch.isfinite(logits).all())
+                return sample(logits, wave, step)
+            eng.backend._sample = checked
+        for uid, prompt in batch:
+            eng.submit(Request(uid=uid, prompt=prompt,
+                               max_new_tokens=E_NEW_TOKENS))
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        return eng, {r.uid: r for r in res}, time.perf_counter() - t0
+
+    warm, first, _ = serve(reqs)          # warm-up; also the repeat check
+    for w in warm.stats()["wave_log"]:
+        print(f"config Z1 warm-up wave {w['wave']}: {w['prompt_len']} prompt "
+              f"tokens; time to first token {w['ttft_s'] * 1e3:.3f} ms")
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    eng, res, wall = serve(reqs, check_logits=True)
+    counts = {k.__name__: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _check(sorted(res) == list(range(len(prompts))),
+           f"config Z1: served {sorted(res)}")
+    _check(all(len(r.tokens) == E_NEW_TOKENS for r in res.values()),
+           "config Z1: a request did not get its tokens")
+    _check(bool(torch.stack(finite).all()), "config Z1: a logit is not "
+           "finite")
+    _check(all(res[u].tokens == first[u].tokens for u in res),
+           "config Z1: the same requests served again gave other tokens")
+    want = n_mamba * len(set(E_PROMPTS))
+    _check(counts["linear_scan_chunked"] == want,
+           f"config Z1 launched linear_scan_chunked "
+           f"{counts['linear_scan_chunked']} times, not {want}")
+    n_tok = sum(len(r.tokens) for r in res.values())
+    for w in eng.stats()["wave_log"]:
+        print(f"config Z1 wave {w['wave']}: {w['requests']} requests x "
+              f"{w['prompt_len']} prompt tokens; time to first token "
+              f"{w['ttft_s'] * 1e3:.3f} ms; {w['decode_steps']} decode steps "
+              f"{w['decode_s'] / max(1, w['decode_steps']) * 1e3:.3f} ms each")
+    busy = _device_busy_share(lambda: serve(reqs[4:]))
+    print(f"config Z1: {n_tok} tokens in {wall:.4f} s = {n_tok / wall:.2f} "
+          f"generated tokens/s; peak memory allocated {peak_gb:.3f} GB; "
+          f"launches {counts}; tokens of uid 0: {res[0].tokens[:8]}...; "
+          f"device busy {busy} of the {min(E_PROMPTS)}-token wave served "
+          f"alone")
+
+    # ---- Z2: one 77-token prompt at batch 1, the card against the CPU
+    # layer by layer (each layer on the card takes the CPU's input to it
+    # and, in decode, the CPU's state), every state leaf: the conv tail and
+    # h of each Mamba2 block, the K/V cache and positions of each shared
+    # application; then 4 teacher-forced decode steps the same way.  End to
+    # end, the card's own chain is printed, not gated (as E1)
+    worst = []
+    check = lambda what, gpu, cpu: _close_to_cpu("Z2", what, gpu, cpu, worst)
+    to_gpu = lambda tree: tree_map(lambda x: x.cuda(), tree)
+    plen = min(E_PROMPTS)
+    toks = torch.tensor([prompts[-1]])
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (E_DECODE_STEPS, 1)))
+    layers = list(lm._layers())
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h = lm._embed(p_cpu, toks)
+        check("embedding", lm._embed(p_gpu, toks.cuda()), h)
+        emb0, emb0_g = h, h.cuda()
+        states = []
+        for n, (group, key, kind, idx) in enumerate(layers):
+            out_g, st_g, _ = B.block_prefill(
+                kind, lm._layer_params(p_gpu, group, key, idx), h.cuda(),
+                cfg, Z_MAX_SEQ, emb0=emb0_g)
+            out_c, st_c, _ = B.block_prefill(
+                kind, lm._layer_params(p_cpu, group, key, idx), h, cfg,
+                Z_MAX_SEQ, emb0=emb0)
+            check(f"prefill layer {n} ({kind}) output", out_g, out_c)
+            for name in st_c:
+                check(f"prefill layer {n} ({kind}) state {name}", st_g[name],
+                      st_c[name])
+            states.append(st_c)
+            h = out_c
+        cpu_logits = [lm._head(p_cpu, h[:, -1])]
+        check("prefill logits", lm._head(p_gpu, h[:, -1].cuda()),
+              cpu_logits[0])
+        for step in range(E_DECODE_STEPS):
+            h = lm._embed(p_cpu, feed[step])[:, None]
+            emb0, emb0_g = h, h.cuda()
+            for n, (group, key, kind, idx) in enumerate(layers):
+                out_g, st_g = B.block_decode(
+                    kind, lm._layer_params(p_gpu, group, key, idx), h.cuda(),
+                    cfg, to_gpu(states[n]), plen + step, Z_MAX_SEQ,
+                    emb0=emb0_g)
+                out_c, st_c = B.block_decode(
+                    kind, lm._layer_params(p_cpu, group, key, idx), h, cfg,
+                    states[n], plen + step, Z_MAX_SEQ, emb0=emb0)
+                check(f"decode step {step} layer {n} ({kind}) output", out_g,
+                      out_c)
+                for name in st_c:
+                    check(f"decode step {step} layer {n} ({kind}) state "
+                          f"{name}", st_g[name], st_c[name])
+                states[n] = st_c
+                h = out_c
+            cpu_logits.append(lm._head(p_cpu, h[:, 0]))
+            check(f"decode step {step} logits",
+                  lm._head(p_gpu, h[:, 0].cuda()), cpu_logits[-1])
+        # the card's own chain, end to end
+        lg, sg = lm.prefill(p_gpu, {"tokens": toks.cuda()},
+                            max_seq=Z_MAX_SEQ)
+        e2e = [float((lg.cpu() - cpu_logits[0]).abs().max())]
+        for step in range(E_DECODE_STEPS):
+            lg, sg = lm.decode_step(p_gpu, sg, feed[step].cuda(),
+                                    plen + step, max_seq=Z_MAX_SEQ)
+            e2e.append(float((lg.cpu() - cpu_logits[step + 1]).abs().max()))
+    worst.sort(reverse=True)
+    print(f"config Z2: card vs CPU, {cfg.dtype} config, 1 x {plen} prompt + "
+          f"{E_DECODE_STEPS} teacher-forced decode steps, layer by layer: "
+          f"{len(worst)} comparisons in {time.perf_counter() - t0:.1f} s; "
+          f"worst {worst[0][1]} {worst[0][2]:.3e} ({worst[0][0]:.3f} of its "
+          f"tolerance); end to end, max |card - cpu| of the logits (prefill, "
+          f"then each decode step): {[f'{x:.3e}' for x in e2e]} of max |cpu| "
+          f"{float(cpu_logits[0].abs().max()):.3f}")
+
+    # ---- Z3: prefill(x[:T]) + decode_step(x[T]) == prefill(x[:T+1])[-1]
+    # on the card: the shared caches, the conv tails and the scan states
+    # carried together
+    for t in Z3_LENGTHS:
+        x = torch.tensor([prompts[0][:t + 1]], device="cuda")
+        with torch.no_grad():
+            _, st = lm.prefill(p_gpu, {"tokens": x[:, :t]}, max_seq=Z_MAX_SEQ)
+            got, _ = lm.decode_step(p_gpu, st, x[:, t], t, max_seq=Z_MAX_SEQ)
+            want, _ = lm.prefill(p_gpu, {"tokens": x}, max_seq=Z_MAX_SEQ)
+        err = float((got - want).abs().max())
+        tol = SCAN_TOL * max(1.0, float(want.abs().max()))
+        _check(math.isfinite(err) and err <= tol,
+               f"config Z3: prefill({t}) + decode vs prefill({t + 1}): max "
+               f"|diff| {err} > {tol}")
+        print(f"config Z3: prefill({t}) + 1 decode step vs prefill({t + 1})"
+              f": max |diff| of the logits {err:.3e} (tolerance {tol:.3e})")
+    return counts
 
 
 def main(argv) -> int:
@@ -2214,14 +2500,30 @@ def main(argv) -> int:
         grouped_cases = _grouped_cases(round_table)
         # RWKV6 serving: batch 4 × 32 heads, prompts of 192 and 77 (two
         # chunks, the second ragged) tokens; a larger strict case with a
-        # carried state; the
-        # plain convention at zamba2-7b's Mamba2 widths (112 heads × batch 2,
-        # state 64, head 64)
+        # carried state; the plain convention with a per-key decay (the
+        # JAX API's plain mode; no model path of the port runs it, Mamba2
+        # takes the scalar-decay mode below)
         scan_cases = [_scan_case(128, 192, 64, True, False, "slice", 40),
                       _scan_case(128, 77, 64, True, False, "slice ragged",
                                  41),
                       _scan_case(512, 2048, 64, True, True, "large", 42),
-                      _scan_case(224, 1024, 64, False, True, "mamba2", 43)]
+                      _scan_case(224, 1024, 64, False, True,
+                                 "plain per-key decay", 43)]
+        # the scalar-decay mode at zamba2's prefill shapes (batch 4 x 112
+        # heads, state 64, head 64; prompts of 192 and 77 tokens), with and
+        # without a carried state, and at −3 per step, where a chunk sums
+        # to 192 and the factored form overflows
+        scan_cases += [
+            _scan_case(448, 192, 64, False, False, "zamba2", 44,
+                       scalar_decay=0.3),
+            _scan_case(448, 77, 64, False, False, "zamba2 ragged", 45,
+                       scalar_decay=0.3),
+            _scan_case(448, 192, 64, False, True, "zamba2 h0", 46,
+                       scalar_decay=0.3),
+            _scan_case(448, 77, 64, False, True, "zamba2 ragged h0", 47,
+                       scalar_decay=0.3),
+            _scan_case(448, 192, 64, False, False, "zamba2 strong decay", 48,
+                       scalar_decay=3.0)]
         for c in spmm_cases:
             print(f"spmm_csr {json.dumps(c)}")
         for c in esm_cases:
@@ -2238,8 +2540,9 @@ def main(argv) -> int:
         for c in (_csr_case(data.graph, "slice", 70),
                   _csr_case(f3[0].graph, "F3", 71, iters=5)):
             print(f"csr_layout {json.dumps(c)}")
-        occ = {conv: ctas_per_sm(conv == "strict")
-               for conv in ("strict", "plain")}
+        occ = {conv: ctas_per_sm(conv == "strict",
+                                 scalar_decay=conv == "scalar-decay")
+               for conv in ("strict", "plain", "scalar-decay")}
         print(f"linear_scan_chunked: CTAs per SM {occ} (two per batch·head)")
         _check(min(occ.values()) >= 2, f"linear_scan_chunked fits "
                f"{occ} CTAs per SM, not 2")
@@ -2280,6 +2583,7 @@ def main(argv) -> int:
         counts.update(_phase_s(data, cfg, plans, f3, all_kernels))
         counts.update(_phase_m(card))
         counts["E"], counts["E3"] = _config_e(all_kernels)
+        counts["Z1"] = _config_z(all_kernels)
         if baseline is not None:
             _compare(baseline, {
                 "quant": [list(s[:3]) for s in quant_shapes],

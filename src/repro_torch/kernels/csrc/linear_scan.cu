@@ -25,6 +25,20 @@
 // before the sum, as in the reference, so the kernel is finite exactly
 // where the reference is.
 //
+// Scalar-decay mode (plain convention only): log_w is one value per step
+// and batch·head, (BH, T), as Mamba2's decay is a per-head scalar.  Within
+// a chunk, with c_t = cumsum log_w (Mamba2's SSD "segsum"),
+//   A      = mask(Q K^T) (*) exp(c_t - c_s)     (s <= t)
+//   y      = A V + diag(exp(c_t)) Q h_in
+//   h_out  = exp(c_L) h_in + (K (*) exp(c_L - c_s))^T V
+// For log_w <= 0 every exponent is <= 0, so nothing overflows however
+// strong the decay (Mamba2 clamps nothing: at zamba2's init a chunk's
+// summed |log_w| reaches ~127, where the factored form is inf).  q and k
+// are not scaled; each decay is exp of a difference of two values of c in
+// shared memory, taken where A's tile is written and, for the state
+// update, once per step.  The mode reads log_w 64x less than the
+// broadcast (BH, T, dk) operand.
+//
 // Bound.  Per chunk and head 2(L^2 dk + L^2 dv + 2 L dk dv) f32 operations
 // (half of each L x L product is masked) against 4 (3 dk + 2 dv) L bytes:
 // at 64/64/64 the bytes bound the work on the card (see chip_smoke.py's
@@ -170,6 +184,21 @@ __device__ __forceinline__ FragA frag_a_t(const float* m, int ld, int r0,
   return f;
 }
 
+// A[r][k] = m[(k0 + k) * ld + r0 + r] * scale[k0 + k]: a transposed read
+// scaled along the depth (the scalar-decay state update)
+__device__ __forceinline__ FragA frag_a_tk(const float* m, int ld, int r0,
+                                           int k0, const float* scale, int g,
+                                           int t) {
+  FragA f;
+  const float* p = m + (k0 + t) * ld + r0 + g;
+  const float s0 = scale[k0 + t], s4 = scale[k0 + t + 4];
+  split(p[0] * s0, f.hi[0], f.lo[0]);
+  split(p[8] * s0, f.hi[1], f.lo[1]);
+  split(p[4 * ld] * s4, f.hi[2], f.lo[2]);
+  split(p[4 * ld + 8] * s4, f.hi[3], f.lo[3]);
+  return f;
+}
+
 // B[k][n] = m[(n0 + n) * ld + k0 + k]: the rows of m are B's columns
 __device__ __forceinline__ FragB frag_b_t(const float* m, int ld, int n0,
                                           int k0, int g, int t) {
@@ -270,9 +299,19 @@ __device__ __forceinline__ void load_log_w(const Args& a, long long bh, int c0,
             a.dk, a.chunk, n, width, a.vec_lw, tid);
 }
 
-template <bool kStrict>
+// The scalar-decay mode's log_w of the chunk, (BH, T): kMax steps into sl,
+// zeros past the chunk's last step.  Each CTA of the pair loads it whole.
+__device__ __forceinline__ void load_log_w_scalar(const Args& a, long long bh,
+                                                  int c0, float* sl, int tid) {
+  if (tid >= kMax) return;
+  const bool ok = tid < min(a.chunk, a.t_len - c0);
+  cp_async4(sl + tid, a.log_w + bh * a.t_len + c0 + (ok ? tid : 0), ok);
+}
+
+template <bool kStrict, bool kScalar>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 2)
 linear_scan_kernel(const Args a) {
+  static_assert(!(kStrict && kScalar), "the scalar decay is plain only");
   namespace cg = cooperative_groups;
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                      // [2][kTile] q, then q~: [t][j]
@@ -284,6 +323,11 @@ linear_scan_kernel(const Args a) {
   float* sb = pl + 2 * kMax;             // bonus per step
   float* su = sb + kMax;                 // u
   float* bp = su + kMax;                 // [rank][warp][t] partial bonus
+  // the scalar-decay mode's own, in the space of the four above: pl holds
+  // each chunk's log_w (double buffer), then c_t, exp(c_t), exp(c_L - c_t)
+  float* sc = sb;
+  float* se = su;
+  float* sd = bp;
 
   // the two CTAs of a batch·head form a cluster: rank r owns state columns
   // 32r.. and scans key columns 32r..; each writes what it shares (q~, k~,
@@ -324,9 +368,11 @@ linear_scan_kernel(const Args a) {
   // copy groups, in order: q and k of a chunk (during the previous chunk's
   // products), then its log_w (into A's tile, free once A V is done), then
   // its v; a wait for all but the newest group finds the first two landed
+  // (the scalar mode's log_w comes with q and k, into pl)
   if (a.t_len > 0) load_qk(a, bh, 0, j_lo, sq, sk, tid);
+  if (kScalar && a.t_len > 0) load_log_w_scalar(a, bh, 0, pl, tid);
   cp_async_commit();
-  if (a.t_len > 0) load_log_w(a, bh, 0, j_lo, sa, tid);
+  if (!kScalar && a.t_len > 0) load_log_w(a, bh, 0, j_lo, sa, tid);
   cp_async_commit();
   if (a.t_len > 0) load_v(a, bh, 0, col0, wv, sv, tid);
   cp_async_commit();
@@ -345,10 +391,42 @@ linear_scan_kernel(const Args a) {
     cp_async_wait_prior();               // this chunk's q, k and log_w
     __syncthreads();
 
-    // ---- decays of this CTA's key columns: a scan over the steps, q and k
-    // scaled in place here and in the other CTA.  Every step of the lane is
-    // independent but for the carry, a chain of adds.
-    {
+    if constexpr (kScalar) {
+      // ---- the chunk's decays: warp 0 scans log_w, two steps a lane
+      // (zeros past the chunk, so step 63 holds c_L), in each CTA; q and k
+      // stay as they are, and this CTA's half of them goes to the other
+      if (warp == 0) {
+        float x0 = plb[lane], x1 = plb[lane + 32];
+#pragma unroll
+        for (int off = 1; off < 32; off *= 2) {
+          const float y0 = __shfl_up_sync(full, x0, off);
+          const float y1 = __shfl_up_sync(full, x1, off);
+          if (lane >= off) {
+            x0 += y0;
+            x1 += y1;
+          }
+        }
+        x1 += __shfl_sync(full, x0, 31);
+        const float cl = __shfl_sync(full, x1, 31);
+        sc[lane] = x0;
+        sc[lane + 32] = x1;
+        se[lane] = expf(x0);
+        se[lane + 32] = expf(x1);
+        sd[lane] = expf(cl - x0);
+        sd[lane + 32] = expf(cl - x1);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int at = (sa_ + 16 * i) * kLS + j0;
+        *reinterpret_cast<float2*>(both(sqb) + at) =
+            *reinterpret_cast<const float2*>(sqb + at);
+        *reinterpret_cast<float2*>(both(skb) + at) =
+            *reinterpret_cast<const float2*>(skb + at);
+      }
+    } else {
+      // ---- decays of this CTA's key columns: a scan over the steps, q and
+      // k scaled in place here and in the other CTA.  Every step of the lane
+      // is independent but for the carry, a chain of adds.
       float2 x[4];                       // log_w, then its in-block scan
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -424,6 +502,9 @@ linear_scan_kernel(const Args a) {
     if (c0 + a.chunk < a.t_len) {
       load_qk(a, bh, c0 + a.chunk, j_lo, sq + (buf ^ 1) * kTile,
               sk + (buf ^ 1) * kTile, tid);
+      if (kScalar) {
+        load_log_w_scalar(a, bh, c0 + a.chunk, pl + (buf ^ 1) * kMax, tid);
+      }
     }
     cp_async_commit();
     pair.sync();                         // q~, k~, P_L and the partials of
@@ -478,9 +559,13 @@ linear_scan_kernel(const Args a) {
               const int t = ar + g + 8 * h;
               const bool k0_ = kStrict ? s0 < t : s0 <= t;
               const bool k1_ = kStrict ? s0 + 1 < t : s0 + 1 <= t;
-              const float2 val =
-                  make_float2(k0_ ? acc[i].get(2 * h) : 0.f,
-                              k1_ ? acc[i].get(2 * h + 1) : 0.f);
+              float2 val = make_float2(k0_ ? acc[i].get(2 * h) : 0.f,
+                                       k1_ ? acc[i].get(2 * h + 1) : 0.f);
+              if constexpr (kScalar) {   // (q_t . k_s) exp(c_t - c_s)
+                const float ct = sc[t];
+                if (k0_) val.x *= expf(ct - sc[s0]);
+                if (k1_) val.y *= expf(ct - sc[s0 + 1]);
+              }
               *reinterpret_cast<float2*>(sa + t * kLS + s0) = val;
               *reinterpret_cast<float2*>(sa_other + t * kLS + s0) = val;
             }
@@ -498,8 +583,31 @@ linear_scan_kernel(const Args a) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) col[i] = nc + 8 * i < wv;
     const bool y_rows = m0 < n, h_rows = m0 < a.dk;
-    const float pl0 = plb[m0 + g], pl8 = plb[m0 + g + 8];
+    // the state's decay on row j: P_L of key column j, or exp(c_L)
+    const float pl0 = kScalar ? se[kMax - 1] : plb[m0 + g];
+    const float pl8 = kScalar ? se[kMax - 1] : plb[m0 + g + 8];
     Acc ya[2], ha[2];
+    if constexpr (kScalar) {   // exp(c_t) q_t h_in first, then A V onto it
+      if (y_rows && (c0 > 0 || a.h0 != nullptr)) {
+#pragma unroll
+        for (int k0 = 0; k0 < kMax; k0 += 8) {
+          if (k0 >= dk8) break;
+          const FragA fq = frag_a(sqb, kLS, m0, k0, g, t4);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (col[i]) mma3(ya[i], fq, frag_b(sh, kVS, k0, nc + 8 * i, g, t4));
+          }
+        }
+        const float e0 = se[m0 + g], e8 = se[m0 + g + 8];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ya[i].big[e] *= e < 2 ? e0 : e8;
+            ya[i].small[e] *= e < 2 ? e0 : e8;
+          }
+      }
+    }
     const int s_y = min(chunk8, m0 + 16);      // A is zero past the rows
 #pragma unroll
     for (int k0 = 0; k0 < kMax; k0 += 8) {
@@ -516,15 +624,16 @@ linear_scan_kernel(const Args a) {
           if (col[i]) mma3(ya[i], fa, fv[i]);
         }
       }
-      if (h_rows) {                      // (k~ (*) P_L)^T V
-        const FragA fk = frag_a_t(skb, kLS, m0, k0, pl0, pl8, g, t4);
+      if (h_rows) {        // (k~ (*) P_L)^T V, or (k (*) exp(c_L - c_s))^T V
+        const FragA fk = kScalar ? frag_a_tk(skb, kLS, m0, k0, sd, g, t4)
+                                 : frag_a_t(skb, kLS, m0, k0, pl0, pl8, g, t4);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           if (col[i]) mma3(ha[i], fk, fv[i]);
         }
       }
     }
-    if (y_rows && (c0 > 0 || a.h0 != nullptr)) {  // + q~ h_in
+    if (!kScalar && y_rows && (c0 > 0 || a.h0 != nullptr)) {  // + q~ h_in
 #pragma unroll
       for (int k0 = 0; k0 < kMax; k0 += 8) {
         if (k0 >= dk8) break;
@@ -558,7 +667,9 @@ linear_scan_kernel(const Args a) {
       }
     __syncthreads();                     // every read of v and h_in is done
 
-    if (c0 + a.chunk < a.t_len) load_log_w(a, bh, c0 + a.chunk, j_lo, sa, tid);
+    if (!kScalar && c0 + a.chunk < a.t_len) {
+      load_log_w(a, bh, c0 + a.chunk, j_lo, sa, tid);
+    }
     cp_async_commit();
     if (c0 + a.chunk < a.t_len) load_v(a, bh, c0 + a.chunk, col0, wv, sv, tid);
     cp_async_commit();
@@ -583,9 +694,9 @@ linear_scan_kernel(const Args a) {
 
 constexpr int kMaxDevices = 64;
 
-// The shared-memory opt-in, once per device and convention: later launches
-// may be inside a CUDA-graph capture, where only stream work belongs.
-template <bool kStrict>
+// The shared-memory opt-in, once per device and mode: later launches may be
+// inside a CUDA-graph capture, where only stream work belongs.
+template <bool kStrict, bool kScalar>
 int opt_in() {
   static bool done[kMaxDevices] = {};
   int dev = 0;
@@ -593,11 +704,11 @@ int opt_in() {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (!done[dev]) {
-    err = cudaFuncSetAttribute(linear_scan_kernel<kStrict>,
+    err = cudaFuncSetAttribute(linear_scan_kernel<kStrict, kScalar>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(linear_scan_kernel<kStrict>,
+    err = cudaFuncSetAttribute(linear_scan_kernel<kStrict, kScalar>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -606,44 +717,18 @@ int opt_in() {
   return 0;
 }
 
-template <bool kStrict>
+template <bool kStrict, bool kScalar>
 int launch(const Args& a, int bh, cudaStream_t stream) {
-  const int err = opt_in<kStrict>();
+  const int err = opt_in<kStrict, kScalar>();
   if (err != 0) return err;
-  linear_scan_kernel<kStrict><<<bh * 2, kThreads, kSmemBytes, stream>>>(a);
+  linear_scan_kernel<kStrict, kScalar>
+      <<<bh * 2, kThreads, kSmemBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// h0 and u may be null; u is read only when strict != 0.  Any T >= 0.
-extern "C" int linear_scan_chunked_f32(const float* q, const float* k,
-                                       const float* v, const float* log_w,
-                                       const float* h0, const float* u,
-                                       float* y, float* h_out, int bh, int t,
-                                       int dk, int dv, int chunk, int strict,
-                                       void* stream) {
-  if (chunk < 1 || chunk > kMax || dk < 1 || dk > kMax || dv < 1 ||
-      dv > kMax || t < 0 || bh < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (bh == 0) return 0;
-  auto aligned = [](const float* p) {
-    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
-  };
-  Args a{q, k, v, log_w, h0, u, y, h_out, t, dk, dv, chunk,
-         dk % 4 == 0 && aligned(q) && aligned(k),
-         dk % 4 == 0 && aligned(log_w), dv % 4 == 0 && aligned(v)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return strict ? launch<true>(a, bh, s) : launch<false>(a, bh, s);
-}
-
-// CTAs of the kernel that fit on one SM at once (after the opt-in): the
-// clusters of two the device holds at once, as CTAs per SM; or a negative
-// cudaError_t.
-extern "C" int linear_scan_ctas_per_sm(int strict) {
-  int err = strict ? opt_in<true>() : opt_in<false>();
+template <bool kStrict, bool kScalar>
+int ctas_per_sm() {
+  int err = opt_in<kStrict, kScalar>();
   if (err != 0) return -err;
   int dev = 0, sms = 0, clusters = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -655,9 +740,43 @@ extern "C" int linear_scan_ctas_per_sm(int strict) {
   cfg.gridDim = dim3(2 * sms * 4);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kSmemBytes;
-  e = strict ? cudaOccupancyMaxActiveClusters(
-                   &clusters, linear_scan_kernel<true>, &cfg)
-             : cudaOccupancyMaxActiveClusters(
-                   &clusters, linear_scan_kernel<false>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(
+      &clusters, linear_scan_kernel<kStrict, kScalar>, &cfg);
   return e == cudaSuccess ? 2 * clusters / sms : -static_cast<int>(e);
+}
+
+}  // namespace
+
+// Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
+// h0 and u may be null; u is read only when strict != 0.  Any T >= 0.
+// scalar != 0: log_w is (BH, T), one decay per step and batch·head (the
+// plain convention only).
+extern "C" int linear_scan_chunked_f32(const float* q, const float* k,
+                                       const float* v, const float* log_w,
+                                       const float* h0, const float* u,
+                                       float* y, float* h_out, int bh, int t,
+                                       int dk, int dv, int chunk, int strict,
+                                       int scalar, void* stream) {
+  if (chunk < 1 || chunk > kMax || dk < 1 || dk > kMax || dv < 1 ||
+      dv > kMax || t < 0 || bh < 0 || (strict && scalar)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (bh == 0) return 0;
+  auto aligned = [](const float* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  };
+  Args a{q, k, v, log_w, h0, u, y, h_out, t, dk, dv, chunk,
+         dk % 4 == 0 && aligned(q) && aligned(k),
+         dk % 4 == 0 && aligned(log_w), dv % 4 == 0 && aligned(v)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scalar) return launch<false, true>(a, bh, s);
+  return strict ? launch<true, false>(a, bh, s) : launch<false, false>(a, bh, s);
+}
+
+// CTAs of the kernel that fit on one SM at once (after the opt-in): the
+// clusters of two the device holds at once, as CTAs per SM; or a negative
+// cudaError_t.  mode: 0 plain, 1 strict, 2 plain with the scalar decay.
+extern "C" int linear_scan_ctas_per_sm(int mode) {
+  if (mode == 2) return ctas_per_sm<false, true>();
+  return mode == 1 ? ctas_per_sm<true, false>() : ctas_per_sm<false, false>();
 }

@@ -3,15 +3,19 @@ hand-written CUDA kernel for Hopper.
 
 Replaces the JAX package's Pallas TPU kernel ``linear_scan_chunked``
 (``src/repro/kernels/linear_scan.py``), in both of its conventions
-(``strict=True`` for RWKV6, ``False`` for Mamba2).  The kernel
-(``csrc/linear_scan.cu``) runs two CTAs per batch·head, each owning 32 dv
-columns of the state in shared memory, and walks the chunks in order,
-loading the next chunk's tiles while the current one computes; a ragged T
-is masked inside the kernel.  The plain version is
-:func:`repro_torch.kernels.ref.chunked_scan_ref`, which takes whole chunks:
-on a CPU tensor the wrapper pads a ragged T for it.  On a CUDA tensor the
-wrapper launches the kernel or raises, and counts the launch in
-``linear_scan_chunked.launches``.
+(``strict=True`` for RWKV6, ``False`` for Mamba2), and adds a scalar-decay
+mode of the plain convention for Mamba2, whose decay is one value per step
+and head: ``log_w`` of shape (BH, T), computed in the segsum form with
+every exponent ≤ 0, where the reference's factored form overflows f32.
+The kernel (``csrc/linear_scan.cu``) runs two CTAs per batch·head, each
+owning 32 dv columns of the state in shared memory, and walks the chunks in
+order, loading the next chunk's tiles while the current one computes; a
+ragged T is masked inside the kernel.  The plain versions are
+:func:`repro_torch.kernels.ref.chunked_scan_ref` and, for the scalar
+decay, :func:`~repro_torch.kernels.ref.chunked_scan_scalar_ref`, which take
+whole chunks: on a CPU tensor the wrapper pads a ragged T for them.  On a
+CUDA tensor the wrapper launches the kernel or raises, and counts the
+launch in ``linear_scan_chunked.launches``.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import chunked_scan_ref
+from repro_torch.kernels.ref import chunked_scan_ref, chunked_scan_scalar_ref
 
 #: chunk, dk and dv limit of the kernel's shared-memory tiles
 MAX_DIM = 64
@@ -34,7 +38,7 @@ def _kernel():
     if not _ENTRY:
         lib = build.load("linear_scan")
         fn = lib.linear_scan_chunked_f32
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         occ = lib.linear_scan_ctas_per_sm
@@ -44,11 +48,12 @@ def _kernel():
     return _ENTRY[0]
 
 
-def ctas_per_sm(strict: bool) -> int:
+def ctas_per_sm(strict: bool, scalar_decay: bool = False) -> int:
     """CTAs of the kernel that fit on one SM of the current device at
-    once (the occupancy its shared memory and registers allow)."""
+    once (the occupancy its shared memory and registers allow), in the
+    strict, the plain or the plain scalar-decay mode."""
     _kernel()
-    n = _ENTRY[1](int(strict))
+    n = _ENTRY[1](2 if scalar_decay else int(strict))
     if n < 0:
         raise RuntimeError(f"linear_scan occupancy query failed "
                            f"(cudaError {-n})")
@@ -63,18 +68,25 @@ def linear_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched chunked scan.
 
-    q,k,log_w: (BH, T, dk); v: (BH, T, dv); h0: (BH, dk, dv) or None
-    (zeros); u: (BH, dk) strict-mode bonus or None.  ``T % chunk == 0``
-    unless ``ragged``: then the last chunk's missing steps count as zero
-    inputs with decay 1 (``h_T`` unchanged by them), masked in the kernel
-    and padded for the plain version.  Returns (y (BH,T,dv) f32, h_T
-    (BH,dk,dv) f32).
+    q,k: (BH, T, dk); v: (BH, T, dv); log_w: (BH, T, dk), or (BH, T) for
+    the scalar-decay mode (one decay per step and batch·head; the plain
+    convention only); h0: (BH, dk, dv) or None (zeros); u: (BH, dk)
+    strict-mode bonus or None.  ``T % chunk == 0`` unless ``ragged``: then
+    the last chunk's missing steps count as zero inputs with decay 1
+    (``h_T`` unchanged by them), masked in the kernel and padded for the
+    plain version.  Returns (y (BH,T,dv) f32, h_T (BH,dk,dv) f32).
     """
-    if q.dim() != 3 or k.shape != q.shape or log_w.shape != q.shape \
+    scalar = log_w.dim() == 2
+    if q.dim() != 3 or k.shape != q.shape \
+            or log_w.shape not in (q.shape, q.shape[:2]) \
             or v.dim() != 3 or v.shape[:2] != q.shape[:2]:
-        raise ValueError(f"q, k, log_w must be (BH, T, dk) and v (BH, T, dv)"
-                         f", got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(log_w.shape)}, {tuple(v.shape)}")
+        raise ValueError(f"q, k must be (BH, T, dk), log_w (BH, T, dk) or "
+                         f"(BH, T) and v (BH, T, dv), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(log_w.shape)}, "
+                         f"{tuple(v.shape)}")
+    if scalar and strict:
+        raise ValueError("the scalar decay (log_w of shape (BH, T)) takes "
+                         "the plain convention, not strict")
     bh, t, dk = q.shape
     dv = v.shape[-1]
     if h0 is not None and h0.shape != (bh, dk, dv):
@@ -87,10 +99,15 @@ def linear_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         pad = -t % chunk
         if pad:                   # q = k = v = 0, log_w = 0: no input, decay 1
-            q, k, v, log_w = (torch.nn.functional.pad(x, (0, 0, 0, pad))
-                              for x in (q, k, v, log_w))
-        y, h_t = chunked_scan_ref(q, k, v, log_w, h0, chunk=chunk,
-                                  strict=strict, u=u)
+            q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad))
+                       for x in (q, k, v))
+            log_w = torch.nn.functional.pad(
+                log_w, (0, pad) if scalar else (0, 0, 0, pad))
+        if scalar:
+            y, h_t = chunked_scan_scalar_ref(q, k, v, log_w, h0, chunk=chunk)
+        else:
+            y, h_t = chunked_scan_ref(q, k, v, log_w, h0, chunk=chunk,
+                                      strict=strict, u=u)
         return y[:, :t], h_t
     ops = [x for x in (q, k, v, log_w, h0, u) if x is not None]
     if q.device.type != "cuda" or any(x.device != q.device for x in ops):
@@ -114,7 +131,7 @@ def linear_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = build.launch_on(q.get_device(), _kernel(), q.data_ptr(),
                           k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
                           ptr(h0), ptr(u), y.data_ptr(), h_t.data_ptr(), bh,
-                          t, dk, dv, chunk, int(strict))
+                          t, dk, dv, chunk, int(strict), int(scalar))
     if err != 0:
         raise RuntimeError(f"linear_scan_chunked kernel launch failed "
                            f"(cudaError {err})")

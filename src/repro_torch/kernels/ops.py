@@ -143,9 +143,12 @@ def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched gated linear recurrence.
 
-    q,k,log_w: (BH, T, dk); v: (BH, T, dv).  ``strict``/``u`` select the
-    RWKV6 output convention (y_t reads h_{t−1} + u-bonus).  Returns
-    (y (BH,T,dv) f32, h_T (BH,dk,dv) f32).
+    q,k: (BH, T, dk); v: (BH, T, dv); log_w: (BH, T, dk), or (BH, T) for a
+    decay that is one value per step and batch·head (Mamba2's), which runs
+    the scan's scalar-decay mode: the segsum form, finite however strong
+    the decay.  ``strict``/``u`` select the RWKV6 output convention (y_t
+    reads h_{t−1} + u-bonus).  Returns (y (BH,T,dv) f32, h_T (BH,dk,dv)
+    f32).
 
     A T that is not a multiple of ``chunk`` runs as is: the kernel masks
     the last chunk; the plain version on the CPU takes it zero-padded

@@ -185,3 +185,48 @@ def chunked_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bonus = torch.einsum("btd,btd->bt", q, u.float()[:, None, :] * k)
         y = y + bonus[..., None] * v
     return y, h
+
+
+def chunked_scan_scalar_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, log_w: torch.Tensor,
+                            h0: torch.Tensor | None = None, chunk: int = 64
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain-convention recurrence for a decay that is one value per
+    step and head (Mamba2's), in the chunked segsum form of Mamba2's SSD:
+    within a chunk of L steps, with ``c_t = Σ_{s≤t} log_w_s``::
+
+      A[t,s]     = (q_t·k_s)·exp(c_t − c_s)   for s ≤ t
+      y          = A V + exp(c_t)·(Q h_in)
+      h_out      = exp(c_L)·h_in + Σ_s exp(c_L − c_s) k_s v_sᵀ
+
+    The same recurrence as :func:`chunked_scan_ref` with ``log_w``
+    broadcast over dk, but for ``log_w ≤ 0`` every exponent is ≤ 0, so it
+    stays finite where the factored form's ``exp(−c)`` overflows (a
+    chunk's summed |log_w| past ~88.7).  ``T % chunk == 0``, as in
+    :func:`chunked_scan_ref`.
+
+    q,k: (BH, T, dk); v: (BH, T, dv); log_w: (BH, T); h0: (BH, dk, dv) or
+    None.  Returns (y (BH,T,dv) f32, h_T (BH,dk,dv) f32).
+    """
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    if t % chunk:
+        raise ValueError(f"T={t} is not a multiple of chunk={chunk}")
+    q, k, v, lw = (x.float() for x in (q, k, v, log_w))
+    h = (torch.zeros(bh, dk, dv, dtype=torch.float32, device=q.device)
+         if h0 is None else h0.float())
+    idx = torch.arange(chunk, device=q.device)
+    mask = idx[:, None] >= idx[None, :]
+    ys = []
+    for c0 in range(0, t, chunk):
+        qx, kx, vx = (x[:, c0:c0 + chunk] for x in (q, k, v))
+        c = torch.cumsum(lw[:, c0:c0 + chunk], dim=1)          # (BH, L)
+        seg = (c[:, :, None] - c[:, None, :]).masked_fill(~mask, -torch.inf)
+        attn = torch.einsum("btd,bsd->bts", qx, kx) * torch.exp(seg)
+        y = torch.einsum("bts,bsv->btv", attn, vx)
+        ys.append(y + torch.exp(c)[:, :, None] *
+                  torch.einsum("btd,bdv->btv", qx, h))
+        c_l = c[:, -1:]                                        # (BH, 1)
+        h = torch.exp(c_l)[:, :, None] * h + torch.einsum(
+            "bsd,bsv->bdv", kx * torch.exp(c_l - c)[:, :, None], vx)
+    return torch.cat(ys, dim=1), h

@@ -1,29 +1,43 @@
-"""Block-level init/forward/decode dispatch.
+"""Block-level init/forward/prefill/decode dispatch.
 
-A *block* is one residual layer.  The port has the ``rwkv6`` kind — RWKV6
-time-mix + channel-mix, each with its own pre-norm.  Every other kind of the
-JAX package (``full``, ``swa``, ``moe``, ``moe_swa``, ``mamba2``,
-``shared_attn``) raises ``ValueError``: it is ROADMAP Queue 1 item 13's
-work.
+A *block* is one residual layer.  The port has three kinds:
+
+  rwkv6       — RWKV6 time-mix + channel-mix, each with its own pre-norm.
+  mamba2      — pre-norm Mamba2 (SSD) mixer (no separate FFN — Mamba style).
+  shared_attn — Zamba2's shared transformer block: concat(h, emb0)
+                (2·d_model, emb0 the layer stack's input embeddings) through
+                its RMSNorm and full causal attention back to d_model, then
+                its own pre-norm GLU MLP.  One parameter set serves every
+                application (the caller passes it), each with its own KV
+                cache.
+
+The JAX package's other kinds (``full``, ``swa``, ``moe``, ``moe_swa``)
+raise ``ValueError``: ROADMAP.md Queue 1 item 13.2's work.
 
 ``block_forward`` returns ``(h, aux)`` (aux: the MoE load-balance loss,
 zero here); ``block_prefill`` ``(h, state, aux)``; ``block_decode``
-``(h, new_state)``.
+``(h, new_state)``.  ``max_seq`` sizes the attention caches and
+``position`` indexes them; the recurrent kinds read neither.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.models.transformer import attention as A
+from repro_torch.models.transformer import mamba2 as M2
+from repro_torch.models.transformer import mlp as FF
 from repro_torch.models.transformer import rwkv6 as R6
+from repro_torch.models.transformer.attention import CacheSpec
 from repro_torch.models.transformer.config import ModelConfig
 from repro_torch.models.transformer.norms import rms_norm
 
 
 def _unported(kind: str) -> ValueError:
     return ValueError(f"block kind {kind!r} is not ported yet (ROADMAP.md "
-                      "Queue 1 item 13); the port has 'rwkv6'")
+                      "Queue 1 item 13.2); the port has 'rwkv6', 'mamba2' "
+                      "and 'shared_attn'")
 
 
 def init_block_params(kind: str, cfg: ModelConfig, rng) -> Dict:
@@ -31,10 +45,29 @@ def init_block_params(kind: str, cfg: ModelConfig, rng) -> Dict:
     if kind == "rwkv6":
         return {"ln1": torch.zeros(d), "ln2": torch.zeros(d),
                 **R6.init_rwkv6_params(cfg, rng)}
+    if kind == "mamba2":
+        return {"ln": torch.zeros(d),
+                "mamba": M2.init_mamba2_params(cfg, rng)}
+    if kind == "shared_attn":
+        return {"ln": torch.zeros(2 * d),
+                "attn": A.init_attn_params(cfg, rng, d_model=2 * d),
+                "ln2": torch.zeros(d), "mlp": FF.init_mlp_params(cfg, rng)}
     raise _unported(kind)
 
 
-def block_forward(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig
+def _shared_attn_in(params: Dict, h: torch.Tensor, emb0: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    return rms_norm(torch.cat([h, emb0], dim=-1), params["ln"], cfg.norm_eps)
+
+
+def _shared_attn_out(params: Dict, h: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    x2 = rms_norm(h, params["ln2"], cfg.norm_eps)
+    return h + FF.mlp_forward(params["mlp"], x2, cfg)
+
+
+def block_forward(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
+                  emb0: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind == "rwkv6":
@@ -44,17 +77,36 @@ def block_forward(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig
         x = rms_norm(h, params["ln2"], cfg.norm_eps)
         ffn, _ = R6.rwkv6_channel_mix(params, x)
         return h + ffn, aux
+    if kind == "mamba2":
+        x = rms_norm(h, params["ln"], cfg.norm_eps)
+        return h + M2.mamba2_forward(params["mamba"], x, cfg), aux
+    if kind == "shared_attn":
+        x = _shared_attn_in(params, h, emb0, cfg)
+        h = h + A.attn_forward(params["attn"], x, cfg)
+        return _shared_attn_out(params, h, cfg), aux
     raise _unported(kind)
 
 
-def init_block_state(kind: str, cfg: ModelConfig, batch: int, dtype,
-                     device) -> Dict:
+def cache_spec_for(kind: str, cfg: ModelConfig,
+                   max_seq: int) -> Optional[CacheSpec]:
+    """The attention cache of a kind, or None for the recurrent kinds."""
+    return CacheSpec("full", max_seq) if kind == "shared_attn" else None
+
+
+def init_block_state(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
+                     dtype, device) -> Dict:
+    spec = cache_spec_for(kind, cfg, max_seq)
+    if spec is not None:
+        return A.init_cache(cfg, batch, spec, dtype, device)
+    if kind == "mamba2":
+        return M2.init_mamba2_state(cfg, batch, dtype, device)
     if kind == "rwkv6":
         return R6.init_rwkv6_state(cfg, batch, dtype, device)
     raise _unported(kind)
 
 
-def block_prefill(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig
+def block_prefill(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
+                  max_seq: int, emb0: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Forward + state construction.  Returns (h, state, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -65,11 +117,22 @@ def block_prefill(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig
         x2 = rms_norm(h, params["ln2"], cfg.norm_eps)
         ffn, x_ffn = R6.rwkv6_channel_mix(params, x2)
         return h + ffn, {"x_att": x_att, "x_ffn": x_ffn, "h": h_t}, aux
+    if kind == "mamba2":
+        x = rms_norm(h, params["ln"], cfg.norm_eps)
+        y, state = M2.mamba2_prefill(params["mamba"], x, cfg)
+        return h + y, state, aux
+    if kind == "shared_attn":
+        x = _shared_attn_in(params, h, emb0, cfg)
+        att, cache = A.attn_prefill(params["attn"], x, cfg,
+                                    cache_spec_for(kind, cfg, max_seq))
+        return _shared_attn_out(params, h + att, cfg), cache, aux
     raise _unported(kind)
 
 
 def block_decode(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
-                 state: Dict) -> Tuple[torch.Tensor, Dict]:
+                 state: Dict, position: int, max_seq: int,
+                 emb0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict]:
     """One-token step.  h: (B, 1, d)."""
     if kind == "rwkv6":
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
@@ -78,4 +141,13 @@ def block_decode(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
         x2 = rms_norm(h, params["ln2"], cfg.norm_eps)
         ffn, _ = R6.rwkv6_channel_mix(params, x2, state["x_ffn"])
         return h + ffn, {"x_att": x_att, "x_ffn": x2, "h": h_t}
+    if kind == "mamba2":
+        x = rms_norm(h, params["ln"], cfg.norm_eps)
+        y, state = M2.mamba2_decode(params["mamba"], x, cfg, state)
+        return h + y, state
+    if kind == "shared_attn":
+        x = _shared_attn_in(params, h, emb0, cfg)
+        att, cache = A.attn_decode(params["attn"], x, cfg, state, position,
+                                   cache_spec_for(kind, cfg, max_seq))
+        return _shared_attn_out(params, h + att, cfg), cache
     raise _unported(kind)

@@ -5,28 +5,35 @@ weights and states compare leaf for leaf:
 
   params["units"][str(i)] — pattern entry i, stacked (n_units, count, …)
   params["rem"][str(i)]   — remainder entry i, stacked (count, …)
-  states["units"][str(i)], states["rem"][str(i)], states["emb0_last"]
+  params["shared"]        — the one ``shared_attn`` set (zamba2), reused at
+                            every application; ``units`` has no key for it
+  states["units"][str(i)], states["units"][f"s{i}"] (a shared entry's
+  caches, stacked (n_units, …)), states["rem"][str(i)], states["emb0_last"]
 
 Where the JAX package ``lax.scan``\\ s over units and layers, the port loops
 over the stacked axes in Python; each layer's parameters are views into the
-stacks.  Weights stay f32 and are cast to the stream's dtype at use.  As in
-the JAX package, the embedding scale promotes the stream to f32, so a
-bfloat16 config rounds only the embedding rows to bfloat16 (ROADMAP.md
-Queue 3, quirk 3).
+stacks.  Every block gets ``emb0``, the layer stack's input embeddings (the
+prompt's in prefill, the current token's in decode), which the shared block
+concatenates to its input.  Weights stay f32 and are cast to the stream's
+dtype at use.  As in the JAX package, the embedding scale promotes the
+stream to f32, so a bfloat16 config rounds only the embedding rows to
+bfloat16 (ROADMAP.md Queue 3, quirk 3).
 
 Entry points:
-  init(seed, device)                → params (drawn on the CPU, then moved)
+  init(seed, device)                → params (drawn on the CPU a layer at a
+                                      time, each copied into its stack on
+                                      ``device``)
   forward(params, batch)            → (logits, aux)
   prefill(params, batch, max_seq)   → (logits_last, states)
   decode_step(params, states, token, position, max_seq) → (logits, states)
 
-The token frontend only: the audio and vision frontends, the
-``shared_attn`` parameter set and ``loss`` (training) are later slices
-(ROADMAP.md Queue 1 item 13).
+The token frontend only: the audio and vision frontends and ``loss``
+(training) are later slices (ROADMAP.md Queue 1 item 13).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -62,33 +69,56 @@ class LM:
     def dtype(self) -> torch.dtype:
         return _DTYPES[self.cfg.dtype]
 
-    def _entries(self):
-        """``(group, key, kind, leading dims)`` of every stacked entry, in
-        layer order: the pattern's entries unit by unit, then the
-        remainder."""
+    def _entries(self) -> List[Tuple[str, str, str, Tuple[int, ...]]]:
+        """``(group, key, kind, leading dims)`` of every stacked state
+        entry: the pattern's (a ``shared_attn`` entry i under ``f"s{i}"``,
+        one application per unit), then the remainder's.  The parameters
+        have the same entries but the shared ones (:meth:`_layer_params`)."""
         n_units = self.cfg.resolved_units()
-        units = [("units", str(i), kind, (n_units, cnt))
+        for kind, cnt in self.cfg.pattern:
+            if kind == "shared_attn" and cnt != 1:
+                raise ValueError(f"{self.cfg.name}: a shared_attn entry of "
+                                 f"count {cnt} is not ported (the port "
+                                 "applies the shared block once per unit)")
+        units = [("units", f"s{i}", kind, (n_units,))
+                 if kind == "shared_attn" else
+                 ("units", str(i), kind, (n_units, cnt))
                  for i, (kind, cnt) in enumerate(self.cfg.pattern)]
         rem = [("rem", str(i), kind, (cnt,))
                for i, (kind, cnt) in enumerate(self.cfg.remainder)]
-        return units, rem
+        return units + rem
 
     def _layers(self):
         """``(group, key, kind, index)`` of every layer in depth order, the
         index into the entry's stacked leading axes."""
-        units, rem = self._entries()
+        entries = self._entries()
         for u in range(self.cfg.resolved_units()):
-            for group, key, kind, (_, cnt) in units:
-                for c in range(cnt):
-                    yield group, key, kind, (u, c)
-        for group, key, kind, (cnt,) in rem:
-            for c in range(cnt):
-                yield group, key, kind, (c,)
+            for group, key, kind, dims in entries:
+                if group == "units":
+                    for rest in itertools.product(*map(range, dims[1:])):
+                        yield group, key, kind, (u, *rest)
+        for group, key, kind, dims in entries:
+            if group == "rem":
+                for c in range(dims[0]):
+                    yield group, key, kind, (c,)
+
+    def _layer_params(self, params: Dict, group: str, key: str,
+                      idx: Tuple[int, ...]) -> Dict:
+        """A layer's parameters: views into its entry's stacks, or the one
+        shared set."""
+        if key.startswith("s"):
+            return params["shared"]
+        return self._index(params[group][key], idx)
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int, device="cuda") -> Dict:
         """Random f32 weights from ``seed``: drawn on the CPU generator, so
-        the same seed gives the same weights on every device."""
+        the same seed gives the same weights on every device.  Each layer
+        is drawn on the CPU and copied into its entry's stack, allocated on
+        ``device`` (the GPU unless the caller passes another): the host
+        holds one layer at a time.  The stream's order is the JAX
+        package's: embeddings, the pattern's entries, the shared set, the
+        remainder's entries."""
         cfg = self.cfg
         rng = TorchRng(seed)
         d = cfg.d_model
@@ -99,19 +129,33 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = (rng.standard_normal((d, cfg.vocab_size))
                                  / math.sqrt(d))
+        params = tree_map(lambda x: x.to(device), params)
 
-        def stack_init(kind: str, dims: Tuple[int, ...]):
+        def stack_init(kind: str, dims: Tuple[int, ...]) -> Dict:
             base = rng.fork()
-            layers = [B.init_block_params(kind, cfg, base.fork())
-                      for _ in range(math.prod(dims))]
-            return _stack(layers, dims)
+            stacks = None
+            for n in range(math.prod(dims)):
+                layer = B.init_block_params(kind, cfg, base.fork())
+                if stacks is None:
+                    stacks = tree_map(lambda x: torch.empty(
+                        (math.prod(dims), *x.shape), dtype=x.dtype,
+                        device=device), layer)
+                tree_map(lambda s, x: s[n].copy_(x), stacks, layer)
+            return tree_map(lambda s: s.reshape(*dims, *s.shape[1:]),
+                            stacks)
 
-        units, rem = self._entries()
+        entries = self._entries()
         params["units"] = {key: stack_init(kind, dims)
-                           for _, key, kind, dims in units}
+                           for group, key, kind, dims in entries
+                           if group == "units" and kind != "shared_attn"}
+        if any(kind == "shared_attn" for _, _, kind, _ in entries):
+            params["shared"] = tree_map(
+                lambda x: x.to(device),
+                B.init_block_params("shared_attn", cfg, rng.fork()))
         params["rem"] = {key: stack_init(kind, dims)
-                         for _, key, kind, dims in rem}
-        return tree_map(lambda x: x.to(device), params)
+                         for group, key, kind, dims in entries
+                         if group == "rem"}
+        return params
 
     # -------------------------------------------------------------- helpers
     def _embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -132,9 +176,8 @@ class LM:
         lists: Dict[Tuple[str, str], List[Dict]] = {}
         for (group, key, _, _), st in zip(self._layers(), per_layer):
             lists.setdefault((group, key), []).append(st)
-        units, rem = self._entries()
         states: Dict[str, Any] = {"units": {}, "rem": {}}
-        for group, key, _, dims in units + rem:
+        for group, key, _, dims in self._entries():
             states[group][key] = _stack(lists[(group, key)], dims)
         return states
 
@@ -146,10 +189,12 @@ class LM:
     def forward(self, params: Dict, batch: Dict
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         h = self._embed(params, batch["tokens"])
+        emb0 = h
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for group, key, kind, idx in self._layers():
-            h, a = B.block_forward(kind, self._index(params[group][key], idx),
-                                   h, self.cfg)
+            h, a = B.block_forward(
+                kind, self._layer_params(params, group, key, idx), h,
+                self.cfg, emb0=emb0)
             aux = aux + a
         return self._head(params, h), aux
 
@@ -158,14 +203,15 @@ class LM:
                 last_index: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
         """``last_index`` selects which row's logits (and ``emb0_last``) to
-        return instead of the final row.  ``max_seq`` sizes attention
-        caches, which the recurrent kinds do not have."""
+        return instead of the final row.  ``max_seq`` sizes the attention
+        caches (the recurrent kinds have none)."""
         h = self._embed(params, batch["tokens"])
         emb0 = h
         per_layer = []
         for group, key, kind, idx in self._layers():
             h, st, _ = B.block_prefill(
-                kind, self._index(params[group][key], idx), h, self.cfg)
+                kind, self._layer_params(params, group, key, idx), h,
+                self.cfg, max_seq, emb0=emb0)
             per_layer.append(st)
         states = self._stacked_states(per_layer)
         row = -1 if last_index is None else int(last_index)
@@ -175,8 +221,8 @@ class LM:
     def init_states(self, params: Dict, batch: int, max_seq: int) -> Dict:
         """Zero decode states (no prefill)."""
         device = params["embed"].device
-        per_layer = [B.init_block_state(kind, self.cfg, batch, self.dtype,
-                                        device)
+        per_layer = [B.init_block_state(kind, self.cfg, batch, max_seq,
+                                        self.dtype, device)
                      for _, _, kind, _ in self._layers()]
         states = self._stacked_states(per_layer)
         states["emb0_last"] = torch.zeros((batch, 1, self.cfg.d_model),
@@ -187,16 +233,17 @@ class LM:
     def decode_step(self, params: Dict, states: Dict, token: torch.Tensor,
                     position: int, max_seq: int
                     ) -> Tuple[torch.Tensor, Dict]:
-        """token: (B,) int.  ``position`` and ``max_seq`` index attention
-        caches, which the recurrent kinds do not have."""
+        """token: (B,) int; ``position``: the token's index in the
+        sequence, its slot in the attention caches of ``max_seq`` slots
+        (the recurrent kinds read neither)."""
         h = self._embed(params, token)[:, None]
         emb0 = h
         per_layer = []
         for group, key, kind, idx in self._layers():
-            h, st = B.block_decode(kind,
-                                   self._index(params[group][key], idx), h,
-                                   self.cfg,
-                                   self._index(states[group][key], idx))
+            h, st = B.block_decode(
+                kind, self._layer_params(params, group, key, idx), h,
+                self.cfg, self._index(states[group][key], idx), position,
+                max_seq, emb0=emb0)
             per_layer.append(st)
         new_states = self._stacked_states(per_layer)
         new_states["emb0_last"] = emb0

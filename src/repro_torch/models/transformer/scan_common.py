@@ -30,6 +30,11 @@ def chunked_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q,k,log_w: (BH, T, dk); v: (BH, T, dv); u: (BH, dk) bonus (strict
     only).  Returns (y (BH,T,dv) f32, h_T (BH,dk,dv) f32).
 
+    The scalar-decay route: ``log_w`` of shape (BH, T), one decay per step
+    and batch·head (Mamba2's, not broadcast over dk), takes the scan's
+    segsum form, finite where the JAX package's factored form overflows
+    (ROADMAP.md Queue 3) and equal to it wherever that is finite.
+
     ``use_pallas`` is kept for the JAX signature and ignored: the route
     follows the tensors' device.
     """

@@ -4,8 +4,11 @@ One *backend* of the wave scheduler in :mod:`repro_torch.serving.core`.  The
 bucket key is the prompt length (every request in a wave shares positions,
 so no pad token enters a request's state), a wave runs one prefill and up
 to N decode steps, and per-request generation stops are tracked host-side.
-On the card the prefill runs each RWKV6 layer's time-mix scan through the
-hand-written scan kernel; decode is the one-token recurrence.
+On the card the prefill runs each RWKV6 layer's time-mix scan and each
+Mamba2 layer's SSD scan through the hand-written scan kernel; decode is the
+one-token recurrence.  Attention caches (zamba2's shared block) are sized
+to ``max_seq`` at prefill, and the decode step at wave position
+``plen + step`` writes its slot.
 
 Sampling is greedy or temperature.  Temperature draws Gumbel noise from a
 CPU generator seeded per ``(request uid, decode step)``
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import TraceCounter, trace_signature
+from repro_torch.models.transformer import blocks as B
 from repro_torch.models.transformer.config import ModelConfig
 from repro_torch.models.transformer.model import LM
 from repro_torch.serving.core import (ServingBackend, SlotBackend,
@@ -222,11 +226,11 @@ class LMSlotBackend(SlotBackend):
     slots with one batched decode; free slots decode garbage that is never
     read, so occupancy never changes the step's shapes.
 
-    Recurrent kinds (rwkv6, the one kind the port has) cannot take padded
-    prompts (:func:`padded_prefill_safe`), so buckets are exact lengths;
-    their decode reads no position, so the step passes none per slot
-    (attention kinds, ROADMAP Queue 1 item 13, will need per-slot
-    positions here).  Sampling: :class:`LMBackend`'s per-``(uid, step)``
+    Recurrent kinds (rwkv6, mamba2) cannot take padded prompts
+    (:func:`padded_prefill_safe`), so buckets are exact lengths; their
+    decode reads no position, so the step passes none per slot.  A config
+    with an attention cache (zamba2's shared block) needs per-slot
+    positions and is refused (ROADMAP.md Queue 1 item 13).  Sampling: :class:`LMBackend`'s per-``(uid, step)``
     generators, ``step`` the request's OWN token index.
     """
 
@@ -236,6 +240,12 @@ class LMSlotBackend(SlotBackend):
             raise ValueError(f"{cfg.name} is encoder-only — cannot serve")
         if num_slots < 1:
             raise ValueError("num_slots must be ≥ 1")
+        if any(B.cache_spec_for(kind, cfg, max_seq) is not None
+               for kind in cfg.layer_plan()):
+            raise ValueError(
+                f"{cfg.name} has an attention cache: the slot scheduler "
+                "decodes its pool at one position for every slot and needs "
+                "per-slot positions for it (ROADMAP.md Queue 1 item 13)")
         self.cfg = cfg
         self.model = LM(cfg)
         self.max_seq = max_seq

@@ -338,9 +338,51 @@ def test_linear_scan_kernel_overflows_where_the_reference_does(cuda, decay,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("decay", [0.15, 3.0], ids=["mild", "strong"])
+@pytest.mark.parametrize("bh,t,dk,dv,chunk,with_h0", [
+    (2, 64, 8, 16, 16, False), (3, 128, 16, 24, 32, True),
+    (5, 77, 64, 64, 64, False), (3, 70, 20, 30, 24, True),
+    (2, 33, 64, 64, 1, True), (448, 192, 64, 64, 64, False),
+    (448, 77, 64, 64, 64, True)])
+def test_linear_scan_scalar_decay_kernel_matches_plain_on_card(
+        cuda, bh, t, dk, dv, chunk, with_h0, decay):
+    """The scalar-decay mode (log_w of shape (BH, T), Mamba2's) against its
+    plain segsum form on the card and against the sequential recurrence,
+    at odd widths, ragged T, chunks below 64 and zamba2's prefill shapes;
+    at −3 per step a 64-step chunk sums past the factored form's overflow
+    and both stay finite."""
+    rng = np.random.default_rng(bh * 1000 + t + 7)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    q, k, v = f(bh, t, dk), f(bh, t, dk), f(bh, t, dv)
+    lw = torch.from_numpy((-decay * rng.random((bh, t))).astype(
+        np.float32)).to(cuda) if decay < 1 else torch.full(
+            (bh, t), -decay, device=cuda)
+    h0 = f(bh, dk, dv) if with_h0 else None
+    before = linear_scan_chunked.launches
+    y, h = ops.linear_scan(q, k, v, lw, h0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert linear_scan_chunked.launches == before + 1
+    pad = -t % chunk
+    y_r, h_r = ref.chunked_scan_scalar_ref(
+        torch.nn.functional.pad(q, (0, 0, 0, pad)),
+        torch.nn.functional.pad(k, (0, 0, 0, pad)),
+        torch.nn.functional.pad(v, (0, 0, 0, pad)),
+        torch.nn.functional.pad(lw, (0, pad)), h0, chunk=chunk)
+    y_r = y_r[:, :t]
+    y_s, h_s = ref.linear_scan_batched_ref(q, k, v, lw[:, :, None].expand(
+        bh, t, dk), h0)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    for got, want in ((y, y_r), (h, h_r), (y, y_s), (h, h_s)):
+        tol = SCAN_TOL * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
 def test_linear_scan_kernel_fits_two_ctas_per_sm(cuda):
     from repro_torch.kernels.linear_scan import ctas_per_sm
     assert ctas_per_sm(True) >= 2 and ctas_per_sm(False) >= 2
+    assert ctas_per_sm(False, scalar_decay=True) >= 2
 
 
 @pytest.mark.gpu
@@ -351,6 +393,9 @@ def test_linear_scan_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(2, 64, 8, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         linear_scan_chunked(q, q, q, q, chunk=64)
+    q = torch.zeros(2, 64, 8, device=cuda)
+    with pytest.raises(ValueError, match="plain convention"):
+        linear_scan_chunked(q, q, q, q[:, :, 0], chunk=64, strict=True)
 
 
 @pytest.mark.gpu
@@ -375,6 +420,37 @@ def test_rwkv6_prefill_on_card_matches_cpu(cuda):
     lg, _ = model.decode_step(p_gpu, sg, tok.to(cuda), 77, max_seq=128)
     lc, _ = model.decode_step(p_cpu, sc, tok, 77, max_seq=128)
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_zamba2_prefill_and_decode_on_card_match_cpu(cuda):
+    """The smoke zamba2 model (two units: one shared attention set applied
+    twice, two Mamba2 blocks on the scan's scalar-decay mode) on the card
+    against the same weights on the CPU: prefill logits and every state
+    leaf, then decode steps against the caches."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer.model import LM
+    from repro_torch.utils.pytree import flatten_with_paths, tree_map
+    model = LM(dataclasses.replace(get_smoke_config("zamba2-7b"), n_units=2,
+                                   num_layers=4))
+    p_cpu = model.init(0, "cpu")
+    p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 77)))
+    before = linear_scan_chunked.launches
+    lg, sg = model.prefill(p_gpu, {"tokens": toks.to(cuda)}, max_seq=96)
+    assert linear_scan_chunked.launches == before + 2      # one per mamba2
+    lc, sc = model.prefill(p_cpu, {"tokens": toks}, max_seq=96)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for (k, a), (_, b) in zip(flatten_with_paths(sg), flatten_with_paths(sc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4,
+                                   msg=k)
+    for step in range(3):
+        tok = toks[:, step]
+        lg, sg = model.decode_step(p_gpu, sg, tok.to(cuda), 77 + step,
+                                   max_seq=96)
+        lc, sc = model.decode_step(p_cpu, sc, tok, 77 + step, max_seq=96)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu

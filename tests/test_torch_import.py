@@ -56,6 +56,10 @@ def test_every_module_imports_without_jax(probe):
                 "repro_torch.models.transformer.initutils",
                 "repro_torch.models.transformer.scan_common",
                 "repro_torch.models.transformer.rwkv6",
+                "repro_torch.models.transformer.rope",
+                "repro_torch.models.transformer.mlp",
+                "repro_torch.models.transformer.attention",
+                "repro_torch.models.transformer.mamba2",
                 "repro_torch.models.transformer.blocks",
                 "repro_torch.models.transformer.model",
                 "repro_torch.serving.core", "repro_torch.serving.engine",
