@@ -1,12 +1,14 @@
 """The paper's experimental settings as synthetic analogs, and the
 architecture registry: ``get_config(arch_id)`` resolves one of the ten
 transformer-family ``ModelConfig``\\ s (copies of the JAX package's data-only
-modules), ``get_smoke_config`` its tiny same-family variant for CPU tests.
+modules), ``get_long_context_config`` its long-context serving variant
+where one exists, ``get_smoke_config`` its tiny same-family variant for CPU
+tests.
 """
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from repro_torch.models.transformer.config import ModelConfig, reduced_variant
 
@@ -33,6 +35,24 @@ def get_config(arch_id: str) -> ModelConfig:
     cfg = mod.CONFIG
     cfg.validate()
     return cfg
+
+
+def get_long_context_config(arch_id: str) -> Optional[ModelConfig]:
+    """The long-context (500k-token decode) serving variant, as the JAX
+    package's: a sub-quadratic stack (recurrent, windowed or hybrid) is
+    its own; gemma3's is its module's ``LONG_CONTEXT_CONFIG`` (the global
+    layers windowed too); a full-attention or encoder-only stack has none
+    (None)."""
+    cfg = get_config(arch_id)
+    if not cfg.supports_decode():
+        return None
+    if cfg.subquadratic():
+        return cfg
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    lc = getattr(mod, "LONG_CONTEXT_CONFIG", None)
+    if lc is not None:
+        lc.validate()
+    return lc
 
 
 def get_smoke_config(arch_id: str, **overrides) -> ModelConfig:

@@ -1,54 +1,46 @@
-"""GQA attention with RoPE and a full KV cache, as the JAX package's
-``models/transformer/attention.py``.
+"""GQA attention with RoPE, sliding windows and KV caches, as the JAX
+package's ``models/transformer/attention.py``.
 
 Three entry points, pure functions over a params dict:
 
-* :func:`attn_forward` — full-sequence causal attention.
+* :func:`attn_forward` — full-sequence causal attention; ``window`` bounds
+  the lookback of sliding-window layers.
 * :func:`attn_prefill` — the same, and the KV cache for decoding.
-* :func:`attn_decode`  — one token against the cache.
+* :func:`attn_decode`  — one token against the cache.  Full-attention
+  layers keep an append cache of ``max_seq`` slots; sliding-window layers
+  a ring of ``min(window, max_seq)`` slots, position ``p`` at slot
+  ``p % length``.
 
 GQA reshapes Q to (…, kv_heads, q_per_kv, hd) so the einsums contract per
-KV group; scores are masked with −1e30 and the softmax taken in f32, as in
-the JAX package.  The JAX attention is einsums, not a Pallas kernel, so
-the port keeps it in torch ops.  The ``"ring"`` cache of sliding-window
-stacks, ``kv_cache_dtype="int8"``, ``qk_norm`` and ``logit_softcap``
-belong to the full/swa stacks and raise ``ValueError`` (ROADMAP.md Queue 1
-item 13.2).
+KV group; ``qk_norm`` RMS-normalizes q and k before RoPE, ``logit_softcap``
+squashes the scores with ``c·tanh(s/c)`` before the mask; scores are
+masked with −1e30 and the softmax taken in f32, as in the JAX package.
+``kv_cache_dtype="int8"`` stores k and v as int8 with an f32 scale per
+(row, slot, head) (:func:`_quantize`, the JAX package's own rounding, not
+the int8 wire codec of ``kernels/quantize.py``).  The JAX attention is
+einsums, not a Pallas kernel, so the port keeps it in torch ops.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.models.transformer.config import ModelConfig
+from repro_torch.models.transformer.norms import rms_norm
 from repro_torch.models.transformer.rope import apply_rope, rope_angles
 
 _NO_POS = -(10 ** 9)        # a cache slot's position before it is written
-
-
-def _unported(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP.md Queue 1 item "
-                      "13.2)")
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.qk_norm:
-        raise _unported(f"{cfg.name}: qk_norm")
-    if cfg.logit_softcap > 0:
-        raise _unported(f"{cfg.name}: logit_softcap")
-    if cfg.kv_cache_dtype == "int8":
-        raise _unported(f"{cfg.name}: the int8 KV cache")
 
 
 def init_attn_params(cfg: ModelConfig, rng, d_model: Optional[int] = None
                      ) -> Dict[str, torch.Tensor]:
     """f32 CPU tensors drawn from ``rng`` (a :class:`TorchRng`) in the JAX
     package's order; ``d_model`` overrides the input width (zamba2's shared
-    block takes 2·d_model), the output is ``cfg.d_model`` wide."""
-    _check_supported(cfg)
+    block takes 2·d_model), the output is ``cfg.d_model`` wide.  The
+    ``qk_norm`` scales are zeros and draw nothing."""
     d = d_model or cfg.d_model
     hd = cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
@@ -56,13 +48,18 @@ def init_attn_params(cfg: ModelConfig, rng, d_model: Optional[int] = None
     def dense(shape):
         return rng.standard_normal(shape) / math.sqrt(shape[0])
 
-    return {"wq": dense((d, h * hd)), "wk": dense((d, kv * hd)),
-            "wv": dense((d, kv * hd)), "wo": dense((h * hd, cfg.d_model))}
+    p = {"wq": dense((d, h * hd)), "wk": dense((d, kv * hd)),
+         "wv": dense((d, kv * hd)), "wo": dense((h * hd, cfg.d_model))}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros(hd)
+        p["k_norm"] = torch.zeros(hd)
+    return p
 
 
 def _project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor):
-    _check_supported(cfg)
+    """q, k, v of ``x`` (B, S, d); ``positions`` (S,) or, a row each,
+    (B, S)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
@@ -70,16 +67,23 @@ def _project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     q = (x @ params["wq"].to(dt)).reshape(b, s, h, hd)
     k = (x @ params["wk"].to(dt)).reshape(b, s, kv, hd)
     v = (x @ params["wv"].to(dt)).reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
     """q: (B,S,H,hd), k: (B,T,Kv,hd) → scores (B,Kv,G,S,T)."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, s, kv, h // kv, hd)
-    return torch.einsum("bskgd,btkd->bkgst", qg, k) / math.sqrt(hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k) / math.sqrt(hd)
+    if cfg.logit_softcap > 0:
+        scores = cfg.logit_softcap * torch.tanh(scores / cfg.logit_softcap)
+    return scores
 
 
 def _gqa_output(probs: torch.Tensor, v: torch.Tensor, params: Dict,
@@ -92,93 +96,174 @@ def _gqa_output(probs: torch.Tensor, v: torch.Tensor, params: Dict,
 def _attend(params: Dict, q, k, v, valid: torch.Tensor, cfg: ModelConfig,
             dtype) -> torch.Tensor:
     """Masked (−1e30) f32 softmax over the keys, then the output
-    projection; ``valid`` broadcasts against the (S, T) score axes."""
+    projection; ``valid`` broadcasts against the (B,Kv,G,S,T) scores."""
     b, s = q.shape[:2]
-    scores = _gqa_scores(q, k.to(q.dtype)).float().masked_fill(~valid, -1e30)
+    scores = _gqa_scores(q, k.to(q.dtype), cfg).float().masked_fill(
+        ~valid, -1e30)
     probs = torch.softmax(scores, dim=-1).to(dtype)
     return _gqa_output(probs, v.to(dtype), params, cfg, b, s)
 
 
-def attn_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig
-                 ) -> torch.Tensor:
-    """Causal attention over the full sequence."""
-    return _causal(params, x, cfg)[0]
-
-
-def _causal(params: Dict, x: torch.Tensor, cfg: ModelConfig):
-    """Causal attention's output, and the keys, values and positions it
-    attended to."""
+def _causal(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+            window: Optional[int]):
+    """Causal (optionally windowed) attention's output, and the keys,
+    values and positions it attended to."""
     positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project_qkv(params, x, cfg, positions)
-    mask = positions[None, :] <= positions[:, None]
+    qpos, kpos = positions[:, None], positions[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
     return _attend(params, q, k, v, mask, cfg, x.dtype), k, v, positions
 
 
+def attn_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """Causal (optionally windowed) attention over the full sequence."""
+    return _causal(params, x, cfg, window)[0]
+
+
 # --------------------------------------------------------------------------
-# KV cache
+# KV caches
 # --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
-    kind: str          # "full" (the port's one kind; "ring": item 13.2)
-    length: int        # max_seq
+    kind: str          # "full" | "ring"
+    length: int        # max_seq for full, min(window, max_seq) for ring
+
+    def __post_init__(self):
+        if self.kind not in ("full", "ring"):
+            raise ValueError(f"unknown KV cache kind {self.kind!r}; the "
+                             "caches are 'full' and 'ring'")
 
 
-def _check_spec(spec: CacheSpec) -> None:
-    if spec.kind != "full":
-        raise _unported(f"the {spec.kind!r} KV cache")
+def _quantized(cfg: ModelConfig) -> bool:
+    return cfg.kv_cache_dtype == "int8"
 
 
 def init_cache(cfg: ModelConfig, batch: int, spec: CacheSpec, dtype,
                device) -> Dict[str, torch.Tensor]:
-    """Empty cache: zero k/v in ``dtype`` and every slot's position
-    −10⁹ (never valid)."""
-    _check_supported(cfg)
-    _check_spec(spec)
+    """Empty cache: zero k/v in ``dtype`` (int8 codes and zero f32 scales
+    per (row, slot, head) under ``kv_cache_dtype="int8"``) and every
+    slot's position −10⁹ (never valid)."""
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (batch, spec.length, kv, hd)
+    pos = torch.full((spec.length,), _NO_POS, dtype=torch.int32,
+                     device=device)
+    if _quantized(cfg):
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], device=device),
+                "v_scale": torch.zeros(shape[:3], device=device),
+                "pos": pos}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((spec.length,), _NO_POS, dtype=torch.int32,
-                              device=device)}
+            "pos": pos}
+
+
+def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the head_dim axis: scale ``max|x| / 127``
+    floored at 1e-8, codes rounded half to even (as ``jnp.round``) and
+    clipped to ±127."""
+    x32 = x.float()
+    scale = (x32.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(x32 / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def attn_prefill(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                 spec: CacheSpec) -> Tuple[torch.Tensor, Dict]:
+                 spec: CacheSpec, window: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence attention and the cache of its keys and values, in
-    ``x``'s dtype, padded to ``spec.length`` slots."""
-    _check_spec(spec)
-    s = x.shape[1]
-    if s > spec.length:
-        raise ValueError(f"a prefill of {s} tokens exceeds the cache's "
-                         f"{spec.length} slots")
-    out, k, v, positions = _causal(params, x, cfg)
-    pad = spec.length - s
-    pos = torch.cat([positions.to(torch.int32),
-                     torch.full((pad,), _NO_POS, dtype=torch.int32,
-                                device=x.device)])
-    return out, {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
-                 "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)),
-                 "pos": pos}
+    ``x``'s dtype (or int8).  A full cache pads to ``spec.length`` slots; a
+    ring keeps the last ``min(s, length)`` positions, position ``p`` at
+    slot ``p % length``, the other slots at position −10⁹."""
+    b, s = x.shape[:2]
+    L = spec.length
+    out, k, v, positions = _causal(params, x, cfg, window)
+    pos = torch.full((L,), _NO_POS, dtype=torch.int32, device=x.device)
+    if spec.kind == "ring":
+        take = min(s, L)
+        slots = positions[-take:] % L
+        cache_k = k.new_zeros((b, L) + k.shape[2:])
+        cache_v = v.new_zeros((b, L) + v.shape[2:])
+        cache_k[:, slots] = k[:, -take:]
+        cache_v[:, slots] = v[:, -take:]
+        pos[slots] = positions[-take:].to(torch.int32)
+    else:
+        if s > L:
+            raise ValueError(f"a prefill of {s} tokens exceeds the cache's "
+                             f"{L} slots")
+        pad = L - s
+        cache_k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        cache_v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        pos[:s] = positions.to(torch.int32)
+    if _quantized(cfg):
+        kq, ks = _quantize(cache_k)
+        vq, vs = _quantize(cache_v)
+        return out, {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs,
+                     "pos": pos}
+    return out, {"k": cache_k, "v": cache_v, "pos": pos}
 
 
 def attn_decode(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                cache: Dict, position: int, spec: CacheSpec
+                cache: Dict, position: Union[int, torch.Tensor],
+                spec: CacheSpec, window: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
-    """One-token decode.  x: (B, 1, d); ``position`` the token's index,
-    which is also its cache slot.  The cache is not modified: the new one
-    is a copy with slot ``position`` written, as the JAX package's
-    ``dynamic_update_slice``."""
-    _check_spec(spec)
-    position = int(position)
-    if not 0 <= position < spec.length:
-        raise ValueError(f"position {position} is outside the cache's "
-                         f"{spec.length} slots")
-    q, k, v = _project_qkv(params, x, cfg,
-                           torch.tensor([position], device=x.device))
-    new = {name: cache[name].clone() for name in ("k", "v", "pos")}
-    new["k"][:, position] = k[:, 0].to(new["k"].dtype)
-    new["v"][:, position] = v[:, 0].to(new["v"].dtype)
-    new["pos"][position] = position
-    valid = (new["pos"] >= 0) & (new["pos"] <= position)
-    return _attend(params, q, new["k"], new["v"], valid, cfg,
-                   x.dtype), new
+    """One-token decode.  x: (B, 1, d).  ``position`` is the token's index:
+    an int shared by every row (a wave), or a (B,) int tensor, each row's
+    own (a slot pool), whose cache then holds positions per row, ``pos``
+    (B, L) (an (L,) one is taken as every row's).  Each row writes slot
+    ``position`` (``position % L`` in a ring) and attends to the slots
+    whose position lies in ``(position − w, position]``, ``w`` the window
+    (a ring's length without one).  The cache is not modified: the new
+    one is a copy, as the JAX package's ``dynamic_update_slice``."""
+    b = x.shape[0]
+    L = spec.length
+    per_row = isinstance(position, torch.Tensor)
+    if per_row:
+        position = position.to(device=x.device, dtype=torch.long)
+        # a full cache's slot clamps to the last, as dynamic_update_slice
+        slot = position % L if spec.kind == "ring" else \
+            position.clamp(0, L - 1)
+        at = (torch.arange(b, device=x.device), slot)
+        cur = position[:, None]                           # (B, 1)
+        angles_at = cur
+    else:
+        position = int(position)
+        if spec.kind == "full" and not 0 <= position < L:
+            raise ValueError(f"position {position} is outside the cache's "
+                             f"{L} slots")
+        slot = position % L
+        at = (slice(None), slot)
+        cur = position
+        angles_at = torch.tensor([position], device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, angles_at)
+    new = {name: t.clone() for name, t in cache.items() if name != "pos"}
+    if _quantized(cfg):
+        new["k"][at], new["k_scale"][at] = _quantize(k[:, 0])
+        new["v"][at], new["v_scale"][at] = _quantize(v[:, 0])
+        cache_k = _dequantize(new["k"], new["k_scale"], x.dtype)
+        cache_v = _dequantize(new["v"], new["v_scale"], x.dtype)
+    else:
+        new["k"][at] = k[:, 0].to(new["k"].dtype)
+        new["v"][at] = v[:, 0].to(new["v"].dtype)
+        cache_k, cache_v = new["k"], new["v"]
+    if per_row:
+        pos = cache["pos"].expand(b, L).clone()
+        pos[at] = position.to(torch.int32)
+    else:
+        pos = cache["pos"].clone()
+        pos[slot] = position
+    new["pos"] = pos
+    valid = (pos >= 0) & (pos <= cur)
+    if spec.kind == "ring" or window is not None:
+        w = window if window is not None else L
+        valid &= pos > cur - w
+    if per_row:
+        valid = valid[:, None, None, None, :]
+    return _attend(params, q, cache_k, cache_v, valid, cfg, x.dtype), new

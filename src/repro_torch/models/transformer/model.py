@@ -27,15 +27,19 @@ Entry points:
   prefill(params, batch, max_seq)   → (logits_last, states)
   decode_step(params, states, token, position, max_seq) → (logits, states)
 
-The token frontend only: the audio and vision frontends and ``loss``
-(training) are later slices (ROADMAP.md Queue 1 item 13).
+``position`` is an int shared by the batch (a wave), or a (B,) tensor, each
+row at its own (a slot pool, whose states carry the per-row layout of
+:func:`per_row_positions`).
+
+The token frontend only: the audio and vision frontends (ROADMAP.md Queue
+1 item 13.2b) and ``loss`` (training, item 13.4) are later slices.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -43,7 +47,7 @@ from repro_torch.models.transformer import blocks as B
 from repro_torch.models.transformer.config import ModelConfig
 from repro_torch.models.transformer.initutils import TorchRng
 from repro_torch.models.transformer.norms import rms_norm
-from repro_torch.utils.pytree import tree_map
+from repro_torch.utils.pytree import map_with_paths, tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -55,6 +59,18 @@ def _stack(trees: List[Dict], dim_sizes: Tuple[int, ...]) -> Dict:
         *dim_sizes, *xs[0].shape), *trees)
 
 
+def per_row_positions(states: Dict, batch: int) -> Dict:
+    """``states`` with every attention cache's ``pos`` leaf, (…, L), given
+    a batch axis before its slots, (…, batch, L): the layout of states
+    whose rows decode at their own positions (``decode_step`` with a (B,)
+    ``position``), as a slot pool's, which the JAX package stacks per
+    slot.  Other leaves are returned as they are."""
+    return map_with_paths(
+        lambda k, x: x.unsqueeze(-2).expand(*x.shape[:-1], batch,
+                                            x.shape[-1])
+        if k.rsplit("/", 1)[-1] == "pos" else x, states)
+
+
 @dataclasses.dataclass(frozen=True)
 class LM:
     cfg: ModelConfig
@@ -63,7 +79,7 @@ class LM:
         if self.cfg.frontend is not None:
             raise ValueError(f"{self.cfg.name}: the {self.cfg.frontend} "
                              "frontend is not ported yet (ROADMAP.md Queue 1 "
-                             "item 13)")
+                             "item 13.2b)")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -231,10 +247,10 @@ class LM:
 
     # ------------------------------------------------------------ decode step
     def decode_step(self, params: Dict, states: Dict, token: torch.Tensor,
-                    position: int, max_seq: int
+                    position: Union[int, torch.Tensor], max_seq: int
                     ) -> Tuple[torch.Tensor, Dict]:
         """token: (B,) int; ``position``: the token's index in the
-        sequence, its slot in the attention caches of ``max_seq`` slots
+        sequence, an int for every row or a (B,) int tensor, a row each
         (the recurrent kinds read neither)."""
         h = self._embed(params, token)[:, None]
         emb0 = h

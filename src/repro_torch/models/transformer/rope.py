@@ -18,7 +18,9 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); cos/sin: (seq, head_dim/2),
+    """x: (batch, seq, heads, head_dim); cos/sin: (seq, head_dim/2), one
+    angle per position shared by every row, or (batch, seq, head_dim/2),
+    each row at its own positions (a slot pool's decode step); either is
     broadcast over the heads axis."""
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]

@@ -6,9 +6,10 @@ so no pad token enters a request's state), a wave runs one prefill and up
 to N decode steps, and per-request generation stops are tracked host-side.
 On the card the prefill runs each RWKV6 layer's time-mix scan and each
 Mamba2 layer's SSD scan through the hand-written scan kernel; decode is the
-one-token recurrence.  Attention caches (zamba2's shared block) are sized
-to ``max_seq`` at prefill, and the decode step at wave position
-``plen + step`` writes its slot.
+one-token recurrence.  Attention caches are sized at prefill (``max_seq``
+slots for full attention, a ring of ``min(window, max_seq)`` for sliding
+windows), and the decode step at wave position ``plen + step`` writes its
+slot.
 
 Sampling is greedy or temperature.  Temperature draws Gumbel noise from a
 CPU generator seeded per ``(request uid, decode step)``
@@ -23,6 +24,8 @@ or token budget), stamped after the step's device work is forced.
 :class:`~repro_torch.serving.core.SlotScheduler`: a persistent pool of
 per-slot decode states, requests ``prefill → insert(slot) → step``-ped,
 admitted into free slots and retired individually the step they finish.
+Each slot decodes at its own position.  Prompts are right-padded to a
+power-of-two bucket where padding is exact (:func:`padded_prefill_safe`).
 Sampling draws from the same per-``(uid, own token index)`` generators,
 so a request's continuation is independent of its co-residents, their
 slots and the admission order.
@@ -40,9 +43,8 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import TraceCounter, trace_signature
-from repro_torch.models.transformer import blocks as B
 from repro_torch.models.transformer.config import ModelConfig
-from repro_torch.models.transformer.model import LM
+from repro_torch.models.transformer.model import LM, per_row_positions
 from repro_torch.serving.core import (ServingBackend, SlotBackend,
                                       SlotScheduler, WaveScheduler,
                                       request_generator)
@@ -215,23 +217,29 @@ def padded_prefill_safe(cfg: ModelConfig, max_seq: int) -> bool:
 class LMSlotBackend(SlotBackend):
     """Continuous-batching LM execution: a per-slot decode-state pool.
 
-    Pool layout: the model's batch-``num_slots`` decode state, each leaf's
-    batch axis split into (slot, rows per request) and moved to the front,
-    so ``pool[slot]`` is one request's batch-1 state (a view: the step
-    decodes the whole pool in the model's batch layout with no copy).
-    ``admit`` runs a batch-1 prefill per prompt-length bucket — on the card
-    every RWKV6 layer's scan through the scan kernel — samples the first
-    token and copies the prefill's state into the slot, a full overwrite,
-    so slot reuse leaks nothing between requests.  ``step`` advances ALL
-    slots with one batched decode; free slots decode garbage that is never
-    read, so occupancy never changes the step's shapes.
+    Pool layout: the model's batch-``num_slots`` decode state in the
+    per-row layout (:func:`~repro_torch.models.transformer.model.
+    per_row_positions`: each attention cache holds its slots' positions
+    per row), each leaf's batch axis split into (slot, rows per request)
+    and moved to the front, so ``pool[slot]`` is one request's batch-1
+    state (a view: the step decodes the whole pool in the model's batch
+    layout with no copy).  ``admit`` runs a batch-1 prefill per prompt
+    bucket — on the card every RWKV6 and Mamba2 layer's scan through the
+    scan kernel — samples the first token and copies the prefill's state
+    into the slot, a full overwrite, so slot reuse leaks nothing between
+    requests.  ``step`` advances ALL slots with one batched decode, each
+    at its own position (the JAX package's ``vmap`` over slots); free
+    slots decode garbage at position 0 that is never read, so occupancy
+    never changes the step's shapes.
 
-    Recurrent kinds (rwkv6, mamba2) cannot take padded prompts
-    (:func:`padded_prefill_safe`), so buckets are exact lengths; their
-    decode reads no position, so the step passes none per slot.  A config
-    with an attention cache (zamba2's shared block) needs per-slot
-    positions and is refused (ROADMAP.md Queue 1 item 13).  Sampling: :class:`LMBackend`'s per-``(uid, step)``
-    generators, ``step`` the request's OWN token index.
+    :attr:`prefill_bucket`: ``"pow2"`` where :func:`padded_prefill_safe`
+    says padding is exact — each prompt right-padded to ``min(max(8, next
+    power of two), max_seq)``, the logits read at its last real token (the
+    cache's pad entries carry positions past the prompt, so decode's
+    validity mask hides them until the decode stream overwrites them) —
+    else ``"exact"``, each prompt prefilled at its length.  Sampling:
+    :class:`LMBackend`'s per-``(uid, step)`` generators, ``step`` the
+    request's OWN token index.
     """
 
     def __init__(self, cfg: ModelConfig, params=None, num_slots: int = 4,
@@ -240,12 +248,6 @@ class LMSlotBackend(SlotBackend):
             raise ValueError(f"{cfg.name} is encoder-only — cannot serve")
         if num_slots < 1:
             raise ValueError("num_slots must be ≥ 1")
-        if any(B.cache_spec_for(kind, cfg, max_seq) is not None
-               for kind in cfg.layer_plan()):
-            raise ValueError(
-                f"{cfg.name} has an attention cache: the slot scheduler "
-                "decodes its pool at one position for every slot and needs "
-                "per-slot positions for it (ROADMAP.md Queue 1 item 13)")
         self.cfg = cfg
         self.model = LM(cfg)
         self.max_seq = max_seq
@@ -255,7 +257,7 @@ class LMSlotBackend(SlotBackend):
             self.model.init(seed, self.device)
         self._sample_seed = seed + 1         # LMBackend's generators
         # distinct prefill / step input signatures: the programs a compiled
-        # path would build (one per prompt-length bucket, one step)
+        # path would build (one per prompt bucket, one step)
         self._prefill_traces = TraceCounter()
         self._step_traces = TraceCounter()
         self._prefill_lens: set = set()
@@ -263,6 +265,7 @@ class LMSlotBackend(SlotBackend):
         self._pool_batch = None    # the batch-num_slots decode state
         S = self._num_slots
         self._tokens = np.zeros(S, np.int64)
+        self._positions = np.zeros(S, np.int64)
         self._steps = np.zeros(S, np.int64)
         self._slots: List[Optional[Dict]] = [None] * S
         self._generate_steps = 0
@@ -270,11 +273,10 @@ class LMSlotBackend(SlotBackend):
     # ------------------------------------------------------------- the pool
     def _batch_axes(self) -> Dict[str, tuple]:
         """Per state leaf: (batch axis, rows per request), read off the
-        zero states of batch 1 and 2."""
-        one = dict(flatten_with_paths(self.model.init_states(
-            self.params, 1, self.max_seq)))
-        two = dict(flatten_with_paths(self.model.init_states(
-            self.params, 2, self.max_seq)))
+        per-row zero states of batch 1 and 2."""
+        one, two = (dict(flatten_with_paths(per_row_positions(
+            self.model.init_states(self.params, b, self.max_seq), b)))
+            for b in (1, 2))
         axes = {}
         for key, a in one.items():
             diff = [i for i, (x, y) in enumerate(zip(a.shape, two[key].shape))
@@ -308,6 +310,11 @@ class LMSlotBackend(SlotBackend):
         return self._num_slots
 
     @property
+    def prefill_bucket(self) -> str:
+        return ("pow2" if padded_prefill_safe(self.cfg, self.max_seq)
+                else "exact")
+
+    @property
     def prefill_retraces(self) -> int:
         return self._prefill_traces.count_value
 
@@ -324,7 +331,10 @@ class LMSlotBackend(SlotBackend):
             raise ValueError(f"request {req.uid} has an empty prompt")
 
     def bucket_key(self, req: Request) -> int:
-        return len(req.prompt)
+        plen = len(req.prompt)
+        if self.prefill_bucket == "exact":
+            return plen
+        return min(max(8, 1 << (plen - 1).bit_length()), self.max_seq)
 
     def _sample(self, row: torch.Tensor, temperature: float, uid: int,
                 step: int) -> int:
@@ -340,24 +350,29 @@ class LMSlotBackend(SlotBackend):
                            wave=self._generate_steps)
 
     def admit(self, slot: int, req: Request) -> Optional[ServeResult]:
-        """Batch-1 prefill of the request's bucket, first-token sample and
-        the copy of its state into ``slot``; returns the finished result
+        """Batch-1 prefill of the request's bucket (the prompt right-padded
+        with token 0), first-token sample at its last real token and the
+        copy of its state into ``slot``; returns the finished result
         instead when the request completes at admission (zero token
         budget, or EOS as the first sampled token — the slot's state is
         then simply never read)."""
         t0 = time.perf_counter()
         plen = len(req.prompt)
-        toks = np.asarray([req.prompt], np.int64)
+        bucket = self.bucket_key(req)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :plen] = req.prompt
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         self._prefill_traces.count(trace_signature(batch))
         with torch.no_grad():
             logits, state = self.model.prefill(self.params, batch,
-                                               max_seq=self.max_seq)
+                                               max_seq=self.max_seq,
+                                               last_index=plen - 1)
+            state = per_row_positions(state, 1)
             if self._pool is None:
                 self._alloc_pool(state)
             map_with_paths(lambda k, x: self._pool_at(k, slot).copy_(x),
                            state)
-        self._prefill_lens.add(plen)
+        self._prefill_lens.add(bucket)
         entry = {"req": req, "tokens": [], "t0": t0}
         if req.max_new_tokens == 0:
             return self._result(entry, time.perf_counter())
@@ -369,6 +384,7 @@ class LMSlotBackend(SlotBackend):
             return self._result(entry, time.perf_counter())
         self._slots[slot] = entry
         self._tokens[slot] = tok0
+        self._positions[slot] = plen
         self._steps[slot] = 1
         return None
 
@@ -379,13 +395,15 @@ class LMSlotBackend(SlotBackend):
         return node[slot]
 
     def step(self) -> Dict[int, ServeResult]:
-        """One decode step of the whole pool; returns the slots that
-        finished."""
+        """One decode step of the whole pool, each slot at its own
+        position; returns the slots that finished."""
         tokens = torch.from_numpy(self._tokens).to(self.device)
-        self._step_traces.count(trace_signature((tokens, self._pool_batch)))
+        positions = torch.from_numpy(self._positions).to(self.device)
+        self._step_traces.count(trace_signature((tokens, positions,
+                                                 self._pool_batch)))
         with torch.no_grad():
             logits, new = self.model.decode_step(
-                self.params, self._pool_batch, tokens, 0,
+                self.params, self._pool_batch, tokens, positions,
                 max_seq=self.max_seq)
         self._pool_batch = new
         self._pool = self._views(new)
@@ -401,6 +419,7 @@ class LMSlotBackend(SlotBackend):
                               int(self._steps[slot]))
                  if req.temperature > 0 else int(greedy[slot]))
             self._tokens[slot] = t
+            self._positions[slot] += 1
             self._steps[slot] += 1
             if req.eos_id is not None and t == req.eos_id:
                 finished[slot] = self._result(entry, now)
@@ -410,12 +429,13 @@ class LMSlotBackend(SlotBackend):
                     finished[slot] = self._result(entry, now)
         for slot in finished:
             self._slots[slot] = None
+            self._positions[slot] = 0    # retired slots decode junk at 0
             self._steps[slot] = 0
         return finished
 
     def stats(self) -> Dict:
         return {"max_seq": self.max_seq,
-                "prefill_bucket": "exact",
+                "prefill_bucket": self.prefill_bucket,
                 "prefill_lens_compiled": sorted(self._prefill_lens),
                 "prefill_retraces": self.prefill_retraces,
                 "step_retraces": self.step_retraces,

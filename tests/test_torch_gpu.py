@@ -454,6 +454,80 @@ def test_zamba2_prefill_and_decode_on_card_match_cpu(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma3-1b", "h2o-danube-3-4b",
+                                  "stablelm-12b", "starcoder2-15b"])
+def test_dense_prefill_and_decode_on_card_match_cpu(cuda, arch):
+    """The smoke dense stacks (``full`` / ``swa``, ring caches that wrap,
+    gemma3's ``qk_norm``, starcoder2's GELU MLP) on the card against the
+    same weights on the CPU: prefill logits and every state leaf (the
+    positions exactly), then decode steps; no kernel launches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer.model import LM
+    from repro_torch.utils.pytree import flatten_with_paths, tree_map
+    model = LM(get_smoke_config(arch))
+    p_cpu = model.init(0, "cpu")
+    p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 80)))
+    before = linear_scan_chunked.launches
+    lg, sg = model.prefill(p_gpu, {"tokens": toks.to(cuda)}, max_seq=96)
+    lc, sc = model.prefill(p_cpu, {"tokens": toks}, max_seq=96)
+    for step in range(9):
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        for (k, a), (_, b) in zip(flatten_with_paths(sg),
+                                  flatten_with_paths(sc)):
+            if k.endswith("pos"):
+                assert torch.equal(a.cpu(), b), k
+            else:
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4,
+                                           msg=k)
+        tok = toks[:, step]
+        lg, sg = model.decode_step(p_gpu, sg, tok.to(cuda), 80 + step,
+                                   max_seq=96)
+        lc, sc = model.decode_step(p_cpu, sc, tok, 80 + step, max_seq=96)
+    assert linear_scan_chunked.launches == before
+
+
+@pytest.mark.gpu
+def test_slot_pool_per_row_positions_on_card(cuda):
+    """The slot pool on the card: gemma3's smoke config (ring caches of 64
+    slots, prompts of 9 to 80 tokens, so the slots sit at other positions
+    and wrap at other slots) served through ``scheduler="slot"`` gives the
+    CPU's slot tokens; one decode step of rows at their own positions
+    matches the CPU's within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer.model import LM, per_row_positions
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.utils.pytree import flatten_with_paths, tree_map
+    cfg = get_smoke_config("gemma3-1b")
+    p_cpu = LM(cfg).init(0, "cpu")
+    p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
+    rng = np.random.default_rng(1)
+    reqs = [(i, rng.integers(0, 512, n).tolist())
+            for i, n in enumerate((80, 9, 37, 70, 80, 15))]
+    tokens = []
+    for dev, params in (("cpu", p_cpu), (cuda, p_gpu)):
+        eng = ServingEngine(cfg, params=params, batch_size=3, max_seq=96,
+                            scheduler="slot", device=dev)
+        for uid, prompt in reqs:
+            eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=6))
+        tokens.append({r.uid: r.tokens for r in eng.run()})
+        assert eng.stats()["prefill_bucket"] == "exact"
+    assert tokens[1] == tokens[0]
+    model = LM(cfg)
+    toks = torch.from_numpy(rng.integers(0, 512, (2, 81)))
+    _, st = model.prefill(p_cpu, {"tokens": toks[:, :80]}, max_seq=96)
+    st = tree_map(lambda x: x.contiguous(), per_row_positions(st, 2))
+    pos = torch.tensor([80, 41])
+    lc, sc = model.decode_step(p_cpu, st, toks[:, 80], pos, max_seq=96)
+    lg, sg = model.decode_step(p_gpu, tree_map(lambda x: x.to(cuda), st),
+                               toks[:, 80].to(cuda), pos.to(cuda),
+                               max_seq=96)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for (k, a), (_, b) in zip(flatten_with_paths(sg), flatten_with_paths(sc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4, msg=k)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("op", ["mean", "sym", "gat"])
 def test_csr_aggregates_on_card_match_cpu(graph, cuda, op):
     """The csr layout's edge-centric ops (index_add / scatter_reduce, with

@@ -212,16 +212,13 @@ def test_bfloat16_stream_keeps_cfg_dtype(cfg, jax_params, params):
 
 
 def test_unported_kinds_and_schedulers_raise(cfg, params):
-    for arch in ("gemma3-1b", "qwen3-moe-30b-a3b"):
-        with pytest.raises(ValueError, match="Queue 1 item 13"):
-            LM(configs.get_smoke_config(arch)).init(0, "cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 13"):
-        LM(configs.get_smoke_config("internvl2-2b"))
-    # the slot scheduler decodes at one position for every slot: a config
-    # with an attention cache (zamba2's shared block) needs per-slot ones
-    with pytest.raises(ValueError, match="Queue 1 item 13"):
-        ServingEngine(configs.get_smoke_config("zamba2-7b"), params={},
-                      scheduler="slot", device="cpu")
+    """What the port still refuses: the MoE kinds (item 13.3), the vision
+    and audio frontends (item 13.2b), serving an encoder-only config."""
+    with pytest.raises(ValueError, match="Queue 1 item 13.3"):
+        LM(configs.get_smoke_config("qwen3-moe-30b-a3b")).init(0, "cpu")
+    for arch in ("internvl2-2b", "hubert-xlarge"):
+        with pytest.raises(ValueError, match="Queue 1 item 13.2b"):
+            LM(configs.get_smoke_config(arch))
     with pytest.raises(ValueError, match="encoder-only"):
         ServingEngine(dataclasses.replace(cfg, encoder_only=True),
                       params=params, device="cpu")

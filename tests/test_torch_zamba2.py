@@ -174,15 +174,23 @@ def test_attention_matches_jax(kv_heads):
 
 
 def test_unported_attention_options_raise():
+    """``qk_norm``, ``logit_softcap``, the int8 KV cache and the ring cache
+    are ported (``tests/test_torch_dense.py``); what attention refuses is
+    a cache kind it does not have and a prefill longer than a full
+    cache."""
     cfg = configs.get_smoke_config(ARCH)
-    rng = np.random.default_rng(0)
     for field, value in (("qk_norm", True), ("logit_softcap", 30.0),
                          ("kv_cache_dtype", "int8")):
-        with pytest.raises(ValueError, match="Queue 1 item 13.2"):
-            A.init_attn_params(dataclasses.replace(cfg, **{field: value}),
-                               rng)
-    with pytest.raises(ValueError, match="Queue 1 item 13.2"):
-        A.init_cache(cfg, 1, A.CacheSpec("ring", 8), torch.float32, "cpu")
+        A.init_attn_params(dataclasses.replace(cfg, **{field: value}),
+                           np.random.default_rng(0))
+    A.init_cache(cfg, 1, A.CacheSpec("ring", 8), torch.float32, "cpu")
+    with pytest.raises(ValueError, match="unknown KV cache kind"):
+        A.CacheSpec("paged", 8)
+    tp = lm_params_from_jax(JA.init_attn_params(
+        jconfigs.get_smoke_config(ARCH), np.random.default_rng(0)), "cpu")
+    with pytest.raises(ValueError, match="exceeds the cache's 8 slots"):
+        A.attn_prefill(tp, torch.zeros(1, 9, cfg.d_model), cfg,
+                       A.CacheSpec("full", 8))
 
 
 def test_repeated_shared_entry_is_refused():
