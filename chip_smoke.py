@@ -150,6 +150,34 @@ their paths (0 launches, gated):
   dequantization within one quantization step.
 Each layer-by-layer comparison is at E's 1e-3 × max(1, max|cpu|).
 
+Then the MoE stacks and the frontends, random f32 weights from a seed, no
+hand-written kernel on their paths (0 launches, gated):
+- Q, qwen2-moe-a2.7b uncut (24 ``moe`` layers, 60 experts top-4 of 1408,
+  4 fused shared experts), 14.32 B weights drawn a layer at a time into
+  their stacks on the card (the host never holds the tree): Q1 E's
+  requests through the wave scheduler, served twice with equal tokens; Q2
+  the slot scheduler, exact buckets (padding moves an MoE's capacity),
+  its tokens and every sampled logits row against a batch-1 wave's at
+  LM_TOL (capacity depends on what shares a prefill); Q3 its first
+  MOE_LAYERS layers, the 192-token wave's prefill and 4 decode steps
+  against the CPU layer by layer.
+- QW, qwen3-moe-30b-a3b at full width (128 experts top-8 of 768, GQA
+  32/4, ``qk_norm``) cut to MOE_LAYERS layers: as Q3.  In Q3 and QW each
+  MoE layer's routing is recorded on both sides; a token routed
+  otherwise on the card must be a near tie (the CPU's k-th and (k+1)-th
+  router probabilities within ROUTE_TIE) or the capacity shift one
+  causes, is counted and printed, and is left out of that layer's
+  output; the rest are held at LM_TOL.
+- V, internvl2-2b uncut (24 ``full`` layers, 256 patch tokens before the
+  prompt), ``max_seq`` 512: V1 E's requests through the wave scheduler
+  (zero patches, decode from prefix + prompt), twice; V2 the slot
+  scheduler, pow2 buckets [128, 256]: V1's tokens and logits; V3 the
+  77-token wave with random patches against the CPU layer by layer.
+- HB, hubert-xlarge uncut (48 bidirectional ``full`` layers, the GELU
+  MLP, bfloat16 stream): ``LM.forward`` on 4 clips of 500 frames with
+  seeded masks on the card, and one clip layer by layer against the CPU
+  at the bf16 rule's 2e-2 × max(1, max|cpu|).
+
 With ``--baseline DIR`` (DIR: the root of an unpacked earlier commit, its
 ``src/repro_torch`` beside this script's), a last phase times the quantize,
 dequantize and edge-softmax wrappers of both packages at phase 2's shapes,
@@ -157,7 +185,8 @@ and ``comm.compress.decompress_tree`` on config C's round table, each
 package in a process of its own, in turns: earlier, this, this, earlier.
 
 Prints the card (``nvidia-smi`` name and power limit) and one JSON line of
-per-kernel numbers, then ``{"ok": true, "device": {...}}`` as the last line.
+per-kernel numbers (with the paths on which no kernel launched), then
+``{"ok": true, "device": {...}}`` as the last line.
 Exits non-zero without a result when no GPU is visible or when the
 ``src/repro_torch`` package is not beside this script.
 """
@@ -230,6 +259,31 @@ G_MAX_SEQ = 1024
 H_SEED = 0
 H_MAX_SEQ = 256
 SC_LAYERS = 2
+# config Q: qwen2-moe-a2.7b uncut, E's requests; Q3 and QW (qwen3-moe at
+# full width) keep this many layers
+Q_SEED = 0
+Q_MAX_SEQ = 256
+MOE_LAYERS = 2
+# MoE routing, card against CPU: the router probabilities differ by ~1e-7
+# (f32 products over d_model in another order), so a token may take
+# another expert on the card only where the CPU's k-th and (k+1)-th
+# probabilities lie within this, a hundred times that difference
+ROUTE_TIE = 1e-5
+# config V: internvl2-2b uncut, E's requests after its 256 patch tokens:
+# 256 + 256 (the 192-token prompts' pow2 bucket) + 32 new fits in 512
+V_SEED = 0
+V_MAX_SEQ = 512
+# what is computed in bf16 on both sides (a frontend's projection in a
+# bfloat16 config, hubert's whole stream) differs by bf16 roundings: the
+# bf16 parity rule, × max(1, max|cpu|)
+BF16_TOL = 2e-2
+# config HB: hubert-xlarge uncut, 4 clips of 10 s at 50 frames/s, in its
+# bfloat16 config (the audio stream has no √d scale to promote it); the
+# CPU side of the layer-by-layer check takes one clip (its time)
+HB_SEED = 0
+HB_CLIPS = 4
+HB_FRAMES = 500
+HB_MASK = 0.08
 
 
 class SmokeFailure(Exception):
@@ -2003,11 +2057,12 @@ def _phase_s(data, cfg, plans, f3, kernels) -> dict:
     return counts
 
 
-def _close_to_cpu(label: str, what: str, gpu, cpu, worst: list) -> None:
-    """Gate one card-vs-CPU comparison of config E at LM_TOL and record
-    its share of the tolerance in ``worst``."""
+def _close_to_cpu(label: str, what: str, gpu, cpu, worst: list,
+                  rtol: float = LM_TOL) -> None:
+    """Gate one card-vs-CPU comparison of an LM at ``rtol`` × max(1,
+    max|cpu|) and record its share of the tolerance in ``worst``."""
     err = float((gpu.cpu().float() - cpu.float()).abs().max())
-    tol = LM_TOL * max(1.0, float(cpu.abs().max()))
+    tol = rtol * max(1.0, float(cpu.float().abs().max()))
     _check(gpu.dtype == cpu.dtype and math.isfinite(err) and err <= tol,
            f"config {label} {what}: max |card - cpu| {err} > {tol} "
            f"({gpu.dtype}, {cpu.dtype})")
@@ -2134,8 +2189,9 @@ def _config_e(kernels) -> dict:
                                                        worst_e1)
 
     with torch.no_grad():
-        h = lm._embed(p_cpu, toks)
-        layer_check("embedding", lm._embed(p_gpu, toks.cuda()), h)
+        h = lm._embed(p_cpu, {"tokens": toks})
+        layer_check("embedding", lm._embed(p_gpu, {"tokens": toks.cuda()}),
+                    h)
         for n, (group, key, kind, idx) in enumerate(lm._layers()):
             out_g, st_g, _ = B.block_prefill(
                 kind, lm._layer_params(p_gpu, group, key, idx), h.cuda(),
@@ -2251,9 +2307,9 @@ def _host_ram() -> str:
 
 def _serve_lm(cfg, params, prompts, max_seq: int, kernels,
               scheduler: str = "wave", gather: dict | None = None,
-              order=None) -> dict:
+              order=None, batch_size: int = 4) -> dict:
     """Serve ``prompts`` (uid = index, greedy, E_NEW_TOKENS new tokens
-    each) through ``ServingEngine`` on the card, batch 4, the launch
+    each) through ``ServingEngine`` on the card, ``batch_size`` 4, the launch
     counts set to 0 just before ``run()`` and read just after.  The wave
     scheduler's sampled logits are checked finite; the slot scheduler's
     admits (prefill + first token) and pool steps are timed.  With
@@ -2266,8 +2322,8 @@ def _serve_lm(cfg, params, prompts, max_seq: int, kernels,
     import torch
     from repro_torch.serving.engine import Request, ServingEngine
 
-    eng = ServingEngine(cfg, params=params, batch_size=4, max_seq=max_seq,
-                        scheduler=scheduler)
+    eng = ServingEngine(cfg, params=params, batch_size=batch_size,
+                        max_seq=max_seq, scheduler=scheduler)
     finite = []
     times = {"admit": [], "step": []}
     backend = eng.backend
@@ -2430,26 +2486,69 @@ def _print_slot_metrics(label: str, run: dict, busy: str, card: str) -> None:
           f"{busy} ({card})")
 
 
-def _layers_vs_cpu(label: str, lm, p_gpu, p_cpu, toks, max_seq: int,
-                   feed=None) -> None:
-    """The prefill of ``toks`` (and, with ``feed`` (steps, B), that many
-    teacher-forced decode steps) on the card against the CPU, one layer at
-    a time: each layer on the card takes the CPU's input to it and, in
-    decode, the CPU's state.  Each output, the logits and every state
-    leaf within LM_TOL × max(1, max|cpu|); each cache's positions exactly;
-    an int8 cache's codes after dequantization within one quantization
-    step (a ~1e-7 difference in k can flip a rounding).  End to end the
-    card's own chain is printed, not gated (ROADMAP.md Queue 3, quirk
-    5)."""
+def _layers_vs_cpu(label: str, lm, p_gpu, p_cpu, batch: dict, max_seq: int,
+                   feed=None, causal: bool = True, rtol: float = LM_TOL,
+                   kernels=()) -> dict:
+    """The prefill of ``batch`` (CPU tensors: ``tokens``, and a vision
+    config's ``patches``; with ``feed`` (steps, B), that many
+    teacher-forced decode steps after it) on the card against the CPU, one
+    layer at a time: each layer on the card takes the CPU's input to it
+    and, in decode, the CPU's state.  Each output, the logits and every
+    state leaf within ``rtol`` × max(1, max|cpu|); each cache's positions
+    exactly; an int8 cache's codes after dequantization within one
+    quantization step (a ~1e-7 difference in k can flip a rounding).
+    ``causal=False``: the encoder's ``block_forward`` (an audio batch's
+    ``frames`` and ``mask_positions``), every row's logits, no decode.
+    A frontend's embedding in a bfloat16 config (the patch projector runs
+    in bf16) is held to BF16_TOL; each layer then takes the CPU's rows.
+    An MoE layer's routing is recorded on both sides: a token routed
+    otherwise on the card must be a near tie (ROUTE_TIE) or the capacity
+    shift one causes (``moe.routing_differences``); its rows are counted,
+    printed and left out of that layer's output, the rest held to the
+    gate.  End to end the card's own chain is printed, not gated
+    (ROADMAP.md Queue 3, quirk 5).  Returns the launch counts of
+    ``kernels``, set to 0 just before and read just after."""
     import torch
     from repro_torch.models.transformer import blocks as B
+    from repro_torch.models.transformer import moe as MOE
     from repro_torch.utils.pytree import tree_map
 
     cfg = lm.cfg
     worst = []
     n_exact = 0
     int8 = []        # (share of codes differing, max |dequantized diff|)
-    check = lambda what, gpu, cpu: _close_to_cpu(label, what, gpu, cpu, worst)
+    flips = []       # (what, tokens routed otherwise, tokens)
+    dprobs = []      # max |card - cpu| router probability, alike tokens
+    check = lambda what, gpu, cpu: _close_to_cpu(label, what, gpu, cpu, worst,
+                                                 rtol)
+    routes, route = [], MOE.route
+
+    def recording(*args, **kw):
+        routes.append(route(*args, **kw))
+        return routes[-1]
+
+    def check_out(what, out_g, out_c):
+        """A layer's output; an MoE layer's on the tokens routed alike."""
+        if not routes:
+            return check(what, out_g, out_c)
+        _check(len(routes) == 2, f"config {label} {what}: {len(routes)} "
+               "MoE routings recorded, not 2")
+        rg = MOE.Routing(*(x.cpu() if torch.is_tensor(x) else x
+                           for x in routes[0]))
+        rc = routes[1]
+        routes.clear()
+        differ, unexplained = MOE.routing_differences(rc, rg, ROUTE_TIE)
+        _check(not bool(unexplained.any()), f"config {label} {what}: "
+               f"{int(unexplained.sum())} tokens routed otherwise on the "
+               f"card without a near tie (gap > {ROUTE_TIE}) or its "
+               "capacity shift")
+        alike = ~differ.reshape(-1)
+        flips.append((what, int(differ.sum()), differ.numel()))
+        dprobs.append(float((rg.probs - rc.probs).reshape(
+            -1, rc.probs.shape[-1])[alike].abs().max()))
+        d = out_c.shape[-1]
+        check(what, out_g.reshape(-1, d)[alike.cuda()],
+              out_c.reshape(-1, d)[alike])
 
     def check_state(what, st_g, st_c):
         nonlocal n_exact
@@ -2475,70 +2574,103 @@ def _layers_vs_cpu(label: str, lm, p_gpu, p_cpu, toks, max_seq: int,
 
     to_gpu = lambda tree: tree_map(lambda x: x.cuda(), tree)
     layers = list(lm._layers())
-    plen = toks.shape[1]
+    steps = 0 if feed is None else feed.shape[0]
     t0 = time.perf_counter()
-    with torch.no_grad():
-        h = lm._embed(p_cpu, toks)
-        check("embedding", lm._embed(p_gpu, toks.cuda()), h)
-        emb0, emb0_g = h, h.cuda()         # what a shared block concatenates
-        states = []
-        for n, (group, key, kind, idx) in enumerate(layers):
-            out_g, st_g, _ = B.block_prefill(
-                kind, lm._layer_params(p_gpu, group, key, idx), h.cuda(),
-                cfg, max_seq, emb0=emb0_g)
-            out_c, st_c, _ = B.block_prefill(
-                kind, lm._layer_params(p_cpu, group, key, idx), h, cfg,
-                max_seq, emb0=emb0)
-            check(f"prefill layer {n} ({kind}) output", out_g, out_c)
-            check_state(f"prefill layer {n} ({kind})", st_g, st_c)
-            states.append(st_c)
-            h = out_c
-        cpu_logits = [lm._head(p_cpu, h[:, -1])]
-        check("prefill logits", lm._head(p_gpu, h[:, -1].cuda()),
-              cpu_logits[0])
-        steps = 0 if feed is None else feed.shape[0]
-        for step in range(steps):
-            h = lm._embed(p_cpu, feed[step])[:, None]
-            emb0, emb0_g = h, h.cuda()
+    for k in kernels:
+        k.launches = 0
+    MOE.route = recording
+    try:
+        with torch.no_grad():
+            h = lm._embed(p_cpu, batch)
+            _close_to_cpu(label, "embedding", lm._embed(p_gpu, to_gpu(batch)),
+                          h, worst, BF16_TOL if cfg.frontend and
+                          cfg.dtype == "bfloat16" else rtol)
+            plen = h.shape[1]                   # a vision prefix counted
+            emb0, emb0_g = h, h.cuda()     # what a shared block concatenates
+            states = []
             for n, (group, key, kind, idx) in enumerate(layers):
-                out_g, st_g = B.block_decode(
-                    kind, lm._layer_params(p_gpu, group, key, idx), h.cuda(),
-                    cfg, to_gpu(states[n]), plen + step, max_seq,
-                    emb0=emb0_g)
-                out_c, st_c = B.block_decode(
-                    kind, lm._layer_params(p_cpu, group, key, idx), h, cfg,
-                    states[n], plen + step, max_seq, emb0=emb0)
-                check(f"decode step {step} layer {n} ({kind}) output", out_g,
-                      out_c)
-                check_state(f"decode step {step} layer {n} ({kind})", st_g,
-                            st_c)
-                states[n] = st_c
+                lp_g = lm._layer_params(p_gpu, group, key, idx)
+                lp_c = lm._layer_params(p_cpu, group, key, idx)
+                if causal:
+                    out_g, st_g, _ = B.block_prefill(
+                        kind, lp_g, h.cuda(), cfg, max_seq, emb0=emb0_g)
+                    out_c, st_c, _ = B.block_prefill(
+                        kind, lp_c, h, cfg, max_seq, emb0=emb0)
+                    check_state(f"prefill layer {n} ({kind})", st_g, st_c)
+                    states.append(st_c)
+                else:
+                    out_g, _ = B.block_forward(kind, lp_g, h.cuda(), cfg,
+                                               causal=False)
+                    out_c, _ = B.block_forward(kind, lp_c, h, cfg,
+                                               causal=False)
+                check_out(f"prefill layer {n} ({kind}) output", out_g, out_c)
                 h = out_c
-            cpu_logits.append(lm._head(p_cpu, h[:, 0]))
-            check(f"decode step {step} logits",
-                  lm._head(p_gpu, h[:, 0].cuda()), cpu_logits[-1])
-        # the card's own chain, end to end
-        lg, sg = lm.prefill(p_gpu, {"tokens": toks.cuda()}, max_seq=max_seq)
-        e2e = [float((lg.cpu() - cpu_logits[0]).abs().max())]
-        for step in range(steps):
-            lg, sg = lm.decode_step(p_gpu, sg, feed[step].cuda(), plen + step,
-                                    max_seq=max_seq)
-            e2e.append(float((lg.cpu() - cpu_logits[step + 1]).abs().max()))
+            last = slice(None) if not causal else -1
+            cpu_logits = [lm._head(p_cpu, h[:, last])]
+            check("prefill logits", lm._head(p_gpu, h[:, last].cuda()),
+                  cpu_logits[0])
+            for step in range(steps):
+                h = lm._embed_tokens(p_cpu, feed[step])[:, None]
+                emb0, emb0_g = h, h.cuda()
+                for n, (group, key, kind, idx) in enumerate(layers):
+                    out_g, st_g = B.block_decode(
+                        kind, lm._layer_params(p_gpu, group, key, idx),
+                        h.cuda(), cfg, to_gpu(states[n]), plen + step,
+                        max_seq, emb0=emb0_g)
+                    out_c, st_c = B.block_decode(
+                        kind, lm._layer_params(p_cpu, group, key, idx), h,
+                        cfg, states[n], plen + step, max_seq, emb0=emb0)
+                    what = f"decode step {step} layer {n} ({kind})"
+                    check_out(f"{what} output", out_g, out_c)
+                    check_state(what, st_g, st_c)
+                    states[n] = st_c
+                    h = out_c
+                cpu_logits.append(lm._head(p_cpu, h[:, 0]))
+                check(f"decode step {step} logits",
+                      lm._head(p_gpu, h[:, 0].cuda()), cpu_logits[-1])
+            # the card's own chain, end to end
+            if causal:
+                lg, sg = lm.prefill(p_gpu, to_gpu(batch), max_seq=max_seq)
+            else:
+                lg, _ = lm.forward(p_gpu, to_gpu(batch))
+            e2e = [float((lg.cpu().float() - cpu_logits[0].float()).abs()
+                         .max())]
+            for step in range(steps):
+                lg, sg = lm.decode_step(p_gpu, sg, feed[step].cuda(),
+                                        plen + step, max_seq=max_seq)
+                e2e.append(float((lg.cpu() - cpu_logits[step + 1]).abs()
+                                 .max()))
+        torch.cuda.synchronize()
+    finally:
+        MOE.route = route
+    counts = {k.__name__: k.launches for k in kernels}
     worst.sort(reverse=True)
-    print(f"config {label}: card vs CPU, {cfg.dtype} config, "
-          f"{tuple(toks.shape)} prompt + {steps} teacher-forced decode "
-          f"steps, layer by layer: {len(worst) + n_exact} comparisons "
-          f"({n_exact} position leaves exact) in "
-          f"{time.perf_counter() - t0:.1f} s; worst {worst[0][1]} "
-          f"{worst[0][2]:.3e} ({worst[0][0]:.3f} of its tolerance); end to "
-          f"end, max |card - cpu| of the logits (prefill, then each decode "
-          f"step): {[f'{x:.3e}' for x in e2e]} of max |cpu| "
-          f"{float(cpu_logits[0].abs().max()):.3f}")
+    shape = f"{h.shape[0]}x{plen}"
+    print(f"config {label}: card vs CPU, {cfg.dtype} config, a {shape} "
+          f"{'prefill' if causal else 'bidirectional forward'} + {steps} "
+          f"teacher-forced decode steps, layer by layer: "
+          f"{len(worst) + n_exact} comparisons ({n_exact} position leaves "
+          f"exact) in {time.perf_counter() - t0:.1f} s; worst {worst[0][1]} "
+          f"{worst[0][2]:.3e} ({worst[0][0]:.3f} of its tolerance, {rtol} x "
+          f"max(1, max|cpu|)); end to end, max |card - cpu| of the logits "
+          f"(prefill, then each decode step): {[f'{x:.3e}' for x in e2e]} "
+          f"of max |cpu| {float(cpu_logits[0].float().abs().max()):.3f}; "
+          f"launches {counts}")
     if int8:
         print(f"config {label}: int8 caches, {len(int8)} code leaves: at "
               f"most {max(f for f, _ in int8):.3e} of the codes differ "
               f"between card and CPU; max |dequantized card - cpu| "
               f"{max(e for _, e in int8):.3e}")
+    if flips:
+        print(f"config {label}: MoE routing, card vs CPU, tokens routed "
+              f"otherwise (near ties within {ROUTE_TIE} and their capacity "
+              f"shifts) per layer and step: "
+              f"{[n for _, n, _ in flips]} of "
+              f"{sorted({t for _, _, t in flips})} tokens, "
+              f"{sum(n for _, n, _ in flips)} in all; max |card - cpu| "
+              f"router probability of the tokens routed alike "
+              f"{max(dprobs):.3e}")
+    return counts
 
 
 def _config_z(kernels, card: str) -> tuple:
@@ -2603,7 +2735,8 @@ def _config_z(kernels, card: str) -> tuple:
     # cache and positions of each shared application
     feed = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          (E_DECODE_STEPS, 1)))
-    _layers_vs_cpu("Z2", lm, p_gpu, p_cpu, torch.tensor([prompts[-1]]),
+    _layers_vs_cpu("Z2", lm, p_gpu, p_cpu,
+                   {"tokens": torch.tensor([prompts[-1]])},
                    Z_MAX_SEQ, feed)
 
     # ---- Z3: prefill(x[:T]) + decode_step(x[T]) == prefill(x[:T+1])[-1]
@@ -2669,7 +2802,9 @@ def _draw(cfg, seed: int, label: str) -> tuple:
           f"{cfg.d_ff} ({cfg.act}), window {cfg.sliding_window}, qk_norm "
           f"{cfg.qk_norm}, softcap {cfg.logit_softcap}, KV cache "
           f"{cfg.kv_cache_dtype or cfg.dtype}, vocab {cfg.vocab_size}, "
-          f"{n_params} parameters (f32), dtype {cfg.dtype}; init on the CPU "
+          f"moe {cfg.moe}, frontend {cfg.frontend} ({cfg.frontend_dim} x "
+          f"{cfg.num_prefix_tokens} prefix), encoder_only {cfg.encoder_only}"
+          f", {n_params} parameters (f32), dtype {cfg.dtype}; init on the CPU "
           f"{init_s:.1f} s, copy to the card {time.perf_counter() - t0:.1f} "
           f"s; host RAM {_host_ram()}")
     return lm, p_cpu, p_gpu
@@ -2709,7 +2844,8 @@ def _config_g(kernels, card: str) -> dict:
     toks = torch.tensor(prompts[:4])
     feed = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          (E_DECODE_STEPS, 4)))
-    _layers_vs_cpu("G2", lm, p_gpu, p_cpu, toks, G_MAX_SEQ, feed)
+    _layers_vs_cpu("G2", lm, p_gpu, p_cpu, {"tokens": toks}, G_MAX_SEQ,
+                   feed)
 
     # ---- G3: the slot scheduler; the 512-token rings are shorter than
     # max_seq, so the buckets stay exact; submitted 640, 77, 640, ... so
@@ -2771,7 +2907,8 @@ def _config_h(kernels, card: str) -> dict:
     del slot_rows, wave_rows
     _print_slot_metrics("H2", h2, "not profiled", card)
 
-    _layers_vs_cpu("H3", lm, p_gpu, p_cpu, torch.tensor(prompts[4:]),
+    _layers_vs_cpu("H3", lm, p_gpu, p_cpu,
+                   {"tokens": torch.tensor(prompts[4:])},
                    H_MAX_SEQ)
     return {"H1": h1["counts"], "H2": h2["counts"]}
 
@@ -2793,7 +2930,8 @@ def _config_sc() -> None:
                                          (1, min(E_PROMPTS))))
     feed = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          (E_DECODE_STEPS, 1)))
-    _layers_vs_cpu("SC", lm, p_gpu, p_cpu, toks, H_MAX_SEQ, feed)
+    _layers_vs_cpu("SC", lm, p_gpu, p_cpu, {"tokens": toks}, H_MAX_SEQ,
+                   feed)
 
 
 def _config_g4() -> None:
@@ -2816,7 +2954,241 @@ def _config_g4() -> None:
                                          (4, G_PROMPTS[0])))
     feed = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          (E_DECODE_STEPS, 4)))
-    _layers_vs_cpu("G4", lm, p_gpu, p_cpu, toks, G_MAX_SEQ, feed)
+    _layers_vs_cpu("G4", lm, p_gpu, p_cpu, {"tokens": toks}, G_MAX_SEQ,
+                   feed)
+
+
+def _no_launches(label: str, counts: dict) -> None:
+    _check(not any(counts.values()), f"config {label} launched {counts}, "
+           "not 0")
+
+
+def _first_layers(lm, params: dict, n: int) -> tuple:
+    """The model cut to its first ``n`` layers (one-layer pattern) and
+    views of those layers' parameters, embeddings and head: the same
+    weights as ``params``' first ``n`` layers."""
+    from repro_torch.models.transformer.model import LM
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = dataclasses.replace(lm.cfg, num_layers=n)
+    cut = {k: v for k, v in params.items() if k not in ("units", "rem")}
+    cut["units"] = {"0": tree_map(lambda x: x[:n], params["units"]["0"])}
+    cut["rem"] = {}
+    return LM(cfg), cut
+
+
+def _config_q(kernels, card: str) -> dict:
+    """Config Q: qwen2-moe-a2.7b uncut (24 ``moe`` layers, MHA 16, 60
+    experts top-4 of 1408, 4 fused shared experts, vocab 151,936), 14.32 B
+    random f32 weights drawn a layer at a time on the host into their
+    stacks on the card (``LM.init(seed, "cuda")``: the host never holds
+    the tree).  Q1 serves E's 8 requests through the wave scheduler twice:
+    the same tokens.  Q2 serves them through the slot scheduler, which
+    must pick exact buckets (padding moves an MoE's capacity), against a
+    batch-1 wave (each prefill routed alone, as the slot's): its tokens
+    and every sampled logits row at LM_TOL.  Q3 holds the first
+    MOE_LAYERS layers' prefill of the 192-token wave and 4 decode steps
+    against the CPU, layer by layer, under the routing rule.  Returns the
+    launch counts."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer.model import LM
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2-moe-a2.7b")
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    p_gpu = lm.init(Q_SEED, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(p_gpu))
+    print(f"config Q: {cfg.name}, {cfg.num_layers} moe layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV "
+          f"heads, {cfg.moe}, vocab {cfg.vocab_size}, {n_params} parameters "
+          f"(f32, {torch.cuda.memory_allocated() / 1e9:.3f} GB on the card), "
+          f"dtype {cfg.dtype}; drawn in {time.perf_counter() - t0:.1f} s; "
+          f"host RAM {_host_ram()}")
+    rng = np.random.default_rng(Q_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in E_PROMPTS]
+
+    # ---- Q1: the wave scheduler, twice; no hand-written kernel
+    first = _serve_lm(cfg, p_gpu, prompts, Q_MAX_SEQ, kernels)
+    q1 = _serve_lm(cfg, p_gpu, prompts, Q_MAX_SEQ, kernels)
+    _served_gates("Q1", q1, len(prompts), {})
+    _same_tokens("Q1", q1["res"], first["res"], "the first serve")
+    busy = _device_busy_share(lambda: _serve_lm(cfg, p_gpu, prompts[4:],
+                                                Q_MAX_SEQ, ()))
+    _print_wave_metrics("Q1", q1, f"{busy} of the 4 x {min(E_PROMPTS)}"
+                        "-token wave served alone", card)
+
+    # ---- Q2: the slot scheduler (exact buckets; each pool row's token
+    # routed alone) against a batch-1 wave: capacity depends on what
+    # shares a prefill, so the batch-4 waves route otherwise
+    wave_rows, slot_rows = {}, {}
+    w1 = _serve_lm(cfg, p_gpu, prompts, Q_MAX_SEQ, kernels,
+                   gather=wave_rows, batch_size=1)
+    _served_gates("Q2 batch-1 wave", w1, len(prompts), {})
+    q2 = _serve_lm(cfg, p_gpu, prompts, Q_MAX_SEQ, kernels, scheduler="slot",
+                   gather=slot_rows, order=_interleaved(len(prompts)))
+    _served_gates("Q2", q2, len(prompts), {})
+    st = q2["engine"].stats()
+    _check(st["prefill_bucket"] == "exact" and
+           st["prefill_lens_compiled"] == sorted(set(E_PROMPTS)),
+           f"config Q2: prefill bucket {st['prefill_bucket']} "
+           f"{st['prefill_lens_compiled']}, not exact")
+    _same_tokens("Q2", q2["res"], w1["res"], "a batch-1 wave")
+    _same_logits("Q2", slot_rows, wave_rows, "a batch-1 wave")
+    del slot_rows, wave_rows
+    _print_wave_metrics("Q2 batch-1 wave", w1, "not profiled", card)
+    _print_slot_metrics("Q2", q2, "not profiled", card)
+
+    # ---- Q3: the first layers, card vs CPU under the routing rule
+    lm3, p3_gpu = _first_layers(lm, p_gpu, MOE_LAYERS)
+    p3_cpu = tree_map(lambda x: x.cpu(), p3_gpu)
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (E_DECODE_STEPS, 4)))
+    q3 = _layers_vs_cpu("Q3", lm3, p3_gpu, p3_cpu,
+                        {"tokens": torch.tensor(prompts[:4])}, Q_MAX_SEQ,
+                        feed, kernels=kernels)
+    _no_launches("Q3", q3)
+    return {"Q1": q1["counts"], "Q2": q2["counts"], "Q2 wave": w1["counts"],
+            "Q3": q3}
+
+
+def _config_qw(kernels) -> dict:
+    """Config QW: qwen3-moe-30b-a3b at full width (128 experts top-8 of
+    768, GQA 32/4, head 128, ``qk_norm``) cut to MOE_LAYERS of its 48
+    layers (uncut its 30.5 B f32 weights outgrow one card): E's 192-token
+    wave's prefill and 4 decode steps against the CPU layer by layer,
+    under the routing rule."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                              num_layers=MOE_LAYERS)
+    lm, p_cpu, p_gpu = _draw(cfg, Q_SEED, "QW")
+    rng = np.random.default_rng(Q_SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (4, E_PROMPTS[0])))
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (E_DECODE_STEPS, 4)))
+    qw = _layers_vs_cpu("QW", lm, p_gpu, p_cpu, {"tokens": toks}, Q_MAX_SEQ,
+                        feed, kernels=kernels)
+    _no_launches("QW", qw)
+    return {"QW": qw}
+
+
+def _config_v(kernels, card: str) -> dict:
+    """Config V: internvl2-2b uncut (24 ``full`` layers, GQA 16/8, d_ff
+    8192, vocab 92,553; 256 patch tokens of 1024 values through the GELU
+    projector before the prompt), E's requests at ``max_seq`` 512.  V1 the
+    wave scheduler (zero patches, as the JAX package's backend passes),
+    twice; V2 the slot scheduler with pow2 buckets [128, 256] after the
+    prefix: V1's tokens and sampled logits; V3 the 77-token wave with
+    random patches (zero ones test neither projector matrix), its prefill
+    and 4 decode steps against the CPU layer by layer."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config("internvl2-2b")
+    lm, p_cpu, p_gpu = _draw(cfg, V_SEED, "V")
+    rng = np.random.default_rng(V_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in E_PROMPTS]
+
+    wave_rows = {}
+    first = _serve_lm(cfg, p_gpu, prompts, V_MAX_SEQ, kernels,
+                      gather=wave_rows)
+    v1 = _serve_lm(cfg, p_gpu, prompts, V_MAX_SEQ, kernels)
+    _served_gates("V1", v1, len(prompts), {})
+    _same_tokens("V1", v1["res"], first["res"], "the first serve")
+    busy = _device_busy_share(lambda: _serve_lm(cfg, p_gpu, prompts[:4],
+                                                V_MAX_SEQ, ()))
+    _print_wave_metrics("V1", v1, f"{busy} of the 4 x {E_PROMPTS[0]}-token "
+                        "wave served alone", card)
+
+    slot_rows = {}
+    v2 = _serve_lm(cfg, p_gpu, prompts, V_MAX_SEQ, kernels, scheduler="slot",
+                   gather=slot_rows, order=_interleaved(len(prompts)))
+    _served_gates("V2", v2, len(prompts), {})
+    st = v2["engine"].stats()
+    _check(st["prefill_bucket"] == "pow2" and
+           st["prefill_lens_compiled"] == [128, 256],
+           f"config V2: prefill bucket {st['prefill_bucket']} "
+           f"{st['prefill_lens_compiled']}, not pow2 [128, 256]")
+    _same_tokens("V2", v2["res"], v1["res"], "V1's waves")
+    _same_logits("V2", slot_rows, wave_rows, "V1's waves")
+    del slot_rows, wave_rows
+    _print_slot_metrics("V2", v2, "not profiled", card)
+
+    patches = torch.from_numpy(rng.standard_normal(
+        (4, cfg.num_prefix_tokens, cfg.frontend_dim)).astype(np.float32))
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (E_DECODE_STEPS, 4)))
+    v3 = _layers_vs_cpu("V3", lm, p_gpu, p_cpu,
+                        {"tokens": torch.tensor(prompts[4:]),
+                         "patches": patches}, V_MAX_SEQ, feed,
+                        kernels=kernels)
+    _no_launches("V3", v3)
+    return {"V1": v1["counts"], "V2": v2["counts"], "V3": v3}
+
+
+def _config_hb(kernels, card: str) -> dict:
+    """Config HB: hubert-xlarge uncut (48 bidirectional ``full`` layers, d
+    1280, MHA 16, the GELU MLP of 5120, a 504-way codebook head), its
+    bfloat16 config, on HB_CLIPS clips of 10 s (500 frames of 512 values)
+    with seeded ``mask_positions``: ``LM.forward`` on the card (finite
+    bf16 logits, timed), and one clip layer by layer against the CPU at
+    BF16_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = get_config("hubert-xlarge")
+    lm, p_cpu, p_gpu = _draw(cfg, HB_SEED, "HB")
+    rng = np.random.default_rng(HB_SEED)
+    batch = {"frames": torch.from_numpy(rng.standard_normal(
+                 (HB_CLIPS, HB_FRAMES, cfg.frontend_dim)).astype(np.float32)),
+             "mask_positions": torch.from_numpy(
+                 rng.random((HB_CLIPS, HB_FRAMES)) < HB_MASK)}
+    on_card = tree_map(lambda x: x.cuda(), batch)
+    with torch.no_grad():
+        lm.forward(p_gpu, on_card)               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        logits, _ = lm.forward(p_gpu, on_card)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    _check(tuple(logits.shape) == (HB_CLIPS, HB_FRAMES, cfg.vocab_size) and
+           logits.dtype == torch.bfloat16 and
+           bool(torch.isfinite(logits).all()),
+           f"config HB: logits {tuple(logits.shape)} {logits.dtype}, or "
+           "not finite")
+    _no_launches("HB", counts)
+    d, f, n = cfg.d_model, cfg.d_ff, HB_CLIPS * HB_FRAMES
+    flop = 2 * n * cfg.num_layers * (4 * d * d + 2 * d * f
+                                     + 2 * HB_FRAMES * d) \
+        + 2 * n * (cfg.frontend_dim + cfg.vocab_size) * d
+    print(f"config HB: forward of {HB_CLIPS} x {HB_FRAMES} frames "
+          f"({int(batch['mask_positions'].sum())} masked) in "
+          f"{wall * 1e3:.3f} ms = {n / wall:.1f} frames/s, {flop / 1e12:.3f} "
+          f"TFLOP in bf16 ({flop / wall / 1e12:.2f} TFLOP/s); peak memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+          f"launches {counts} ({card})")
+    hb = _layers_vs_cpu("HB", lm, p_gpu, p_cpu,
+                        {k: v[:1] for k, v in batch.items()}, 0,
+                        causal=False, rtol=BF16_TOL, kernels=kernels)
+    _no_launches("HB layers", hb)
+    return {"HB": counts, "HB layers": hb}
 
 
 def main(argv) -> int:
@@ -3049,6 +3421,14 @@ def main(argv) -> int:
         _config_sc()
         _config_g4()
         mark("SC and G4")
+        counts.update(_config_q(all_kernels, card))
+        mark("Q")
+        counts.update(_config_qw(all_kernels))
+        mark("QW")
+        counts.update(_config_v(all_kernels, card))
+        mark("V")
+        counts.update(_config_hb(all_kernels, card))
+        mark("HB")
         if baseline is not None:
             _compare(baseline, {
                 "quant": [list(s[:3]) for s in quant_shapes],
@@ -3085,7 +3465,10 @@ def main(argv) -> int:
             "src/repro_torch/kernels/csrc/linear_scan.cu",
             "src/repro/kernels/linear_scan.py:108", scan_cases[0], "E"),
     ]
-    print(json.dumps({"kernels": kernels}))
+    # the paths on which no hand-written kernel launched (the dense and MoE
+    # stacks, the frontends): each was gated at 0 where it ran
+    zero = sorted(path for path, c in counts.items() if not any(c.values()))
+    print(json.dumps({"kernels": kernels, "zero_launch_paths": zero}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,6 +43,14 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(args.device)
+    batch = {"tokens": prompts}
+    start = args.prompt_len              # the first decode position
+    if cfg.frontend == "vision":         # random patches before the prompt
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.num_prefix_tokens, cfg.frontend_dim)).astype(
+                np.float32)).to(args.device)
+        max_seq += cfg.num_prefix_tokens
+        start += cfg.num_prefix_tokens
     sync = torch.cuda.synchronize if params["embed"].is_cuda else \
         (lambda: None)
 
@@ -50,8 +58,7 @@ def main(argv=None):
           f"gen={args.gen_tokens} device={args.device}")
     with torch.no_grad():
         t0 = time.perf_counter()
-        logits, states = lm.prefill(params, {"tokens": prompts},
-                                    max_seq=max_seq)
+        logits, states = lm.prefill(params, batch, max_seq=max_seq)
         sync()
         print(f"prefill: {time.perf_counter() - t0:.2f}s "
               f"(logits {tuple(logits.shape)})")
@@ -60,7 +67,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         for i in range(args.gen_tokens - 1):
             logits, states = lm.decode_step(params, states, tok,
-                                            args.prompt_len + i,
+                                            start + i,
                                             max_seq=max_seq)
             tok = logits.argmax(-1)
             generated.append(tok)

@@ -76,11 +76,13 @@ def _project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
-    """q: (B,S,H,hd), k: (B,T,Kv,hd) → scores (B,Kv,G,S,T)."""
+    """q: (B,S,H,hd), k: (B,T,Kv,hd) → f32 scores (B,Kv,G,S,T).  The
+    products are in q's dtype; as in the JAX package, dividing by the
+    numpy-float64 √hd promotes them to f32 (a bf16 stream's too)."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, s, kv, h // kv, hd)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k) / math.sqrt(hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(hd)
     if cfg.logit_softcap > 0:
         scores = cfg.logit_softcap * torch.tanh(scores / cfg.logit_softcap)
     return scores
@@ -98,8 +100,7 @@ def _attend(params: Dict, q, k, v, valid: torch.Tensor, cfg: ModelConfig,
     """Masked (−1e30) f32 softmax over the keys, then the output
     projection; ``valid`` broadcasts against the (B,Kv,G,S,T) scores."""
     b, s = q.shape[:2]
-    scores = _gqa_scores(q, k.to(q.dtype), cfg).float().masked_fill(
-        ~valid, -1e30)
+    scores = _gqa_scores(q, k.to(q.dtype), cfg).masked_fill(~valid, -1e30)
     probs = torch.softmax(scores, dim=-1).to(dtype)
     return _gqa_output(probs, v.to(dtype), params, cfg, b, s)
 

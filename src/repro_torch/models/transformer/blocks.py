@@ -1,6 +1,6 @@
 """Block-level init/forward/prefill/decode dispatch.
 
-A *block* is one residual layer.  The port has five kinds:
+A *block* is one residual layer.  The kinds:
 
   full        — pre-norm GQA attention (causal) + pre-norm MLP (the GLU,
                 or the GELU MLP under ``act="gelu"``), an append KV cache
@@ -8,6 +8,8 @@ A *block* is one residual layer.  The port has five kinds:
   swa         — the same with sliding-window attention
                 (``cfg.sliding_window``) and a ring KV cache of
                 ``min(sliding_window, max_seq)`` slots.
+  moe         — ``full`` with the MoE (:mod:`.moe`) in place of the MLP.
+  moe_swa     — ``swa`` with the MoE in place of the MLP.
   rwkv6       — RWKV6 time-mix + channel-mix, each with its own pre-norm.
   mamba2      — pre-norm Mamba2 (SSD) mixer (no separate FFN — Mamba style).
   shared_attn — Zamba2's shared transformer block: concat(h, emb0)
@@ -17,16 +19,16 @@ A *block* is one residual layer.  The port has five kinds:
                 application (the caller passes it), each with its own KV
                 cache.
 
-The JAX package's MoE kinds (``moe``, ``moe_swa``) raise ``ValueError``
-(ROADMAP.md Queue 1 item 13.3); so does its non-causal encoder attention,
-which only the audio frontend reaches (item 13.2b: the port's ``LM``
-refuses that frontend).
+``block_forward(..., causal=False)`` is the encoder's bidirectional
+attention (no mask, no window; the audio frontend's stack).
 
 ``block_forward`` returns ``(h, aux)`` (aux: the MoE load-balance loss,
-zero here); ``block_prefill`` ``(h, state, aux)``; ``block_decode``
-``(h, new_state)``.  ``max_seq`` sizes the attention caches and
-``position`` (an int, or a (B,) tensor of per-row positions) indexes them;
-the recurrent kinds read neither.
+zero for the other kinds); ``block_prefill`` ``(h, state, aux)``;
+``block_decode`` ``(h, new_state)``, the MoE's aux dropped.  ``max_seq``
+sizes the attention caches and ``position`` (an int, or a (B,) tensor of
+per-row positions) indexes them; the recurrent kinds read neither.  The
+MoE routes a prefill's and an int position's batch as one group, and with
+a (B,) position each row alone (:mod:`.moe`, "Groups").
 """
 from __future__ import annotations
 
@@ -37,30 +39,34 @@ import torch
 from repro_torch.models.transformer import attention as A
 from repro_torch.models.transformer import mamba2 as M2
 from repro_torch.models.transformer import mlp as FF
+from repro_torch.models.transformer import moe as MOE
 from repro_torch.models.transformer import rwkv6 as R6
 from repro_torch.models.transformer.attention import CacheSpec
 from repro_torch.models.transformer.config import ModelConfig
 from repro_torch.models.transformer.norms import rms_norm
 
-_DENSE = ("full", "swa")
+_MOE = ("moe", "moe_swa")
+_ATTN = ("full", "swa") + _MOE
 
 
-def _unported(kind: str) -> ValueError:
-    if kind in ("moe", "moe_swa"):
-        return ValueError(f"block kind {kind!r} is not ported yet (ROADMAP.md "
-                          "Queue 1 item 13.3, MoE)")
+def _unknown(kind: str) -> ValueError:
     return ValueError(f"unknown block kind {kind!r}")
 
 
 def _window(kind: str, cfg: ModelConfig) -> Optional[int]:
-    return cfg.sliding_window if kind == "swa" else None
+    return cfg.sliding_window if kind in ("swa", "moe_swa") else None
 
 
 def init_block_params(kind: str, cfg: ModelConfig, rng) -> Dict:
     d = cfg.d_model
-    if kind in _DENSE:
-        return {"ln1": torch.zeros(d), "attn": A.init_attn_params(cfg, rng),
-                "ln2": torch.zeros(d), "mlp": FF.init_mlp_params(cfg, rng)}
+    if kind in _ATTN:
+        p = {"ln1": torch.zeros(d), "attn": A.init_attn_params(cfg, rng),
+             "ln2": torch.zeros(d)}
+        if kind in _MOE:
+            p["moe"] = MOE.init_moe_params(cfg, rng)
+        else:
+            p["mlp"] = FF.init_mlp_params(cfg, rng)
+        return p
     if kind == "rwkv6":
         return {"ln1": torch.zeros(d), "ln2": torch.zeros(d),
                 **R6.init_rwkv6_params(cfg, rng)}
@@ -71,7 +77,7 @@ def init_block_params(kind: str, cfg: ModelConfig, rng) -> Dict:
         return {"ln": torch.zeros(2 * d),
                 "attn": A.init_attn_params(cfg, rng, d_model=2 * d),
                 "ln2": torch.zeros(d), "mlp": FF.init_mlp_params(cfg, rng)}
-    raise _unported(kind)
+    raise _unknown(kind)
 
 
 def _shared_attn_in(params: Dict, h: torch.Tensor, emb0: torch.Tensor,
@@ -87,15 +93,42 @@ def _mlp_out(params: Dict, h: torch.Tensor,
     return h + FF.mlp_forward(params["mlp"], x2, cfg)
 
 
+def _ffn_out(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
+             groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The second half of an attention block: ``h`` plus its pre-norm MLP,
+    or its pre-norm MoE routed in ``groups`` groups, and the MoE's aux
+    (zero for the MLP)."""
+    if kind not in _MOE:
+        return (_mlp_out(params, h, cfg),
+                torch.zeros((), dtype=torch.float32, device=h.device))
+    x2 = rms_norm(h, params["ln2"], cfg.norm_eps)
+    y, aux = MOE.moe_forward(params["moe"], x2, cfg, groups)
+    return h + y, aux
+
+
+def _encoder_attn(params: Dict, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Bidirectional attention: no mask and no window, RoPE at
+    ``arange(s)``, the f32 softmax cast back to ``x``'s dtype."""
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)
+    q, k, v = A._project_qkv(params, x, cfg, positions)
+    probs = torch.softmax(A._gqa_scores(q, k, cfg), dim=-1).to(x.dtype)
+    return A._gqa_output(probs, v, params, cfg, b, s)
+
+
 def block_forward(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
-                  emb0: Optional[torch.Tensor] = None
+                  emb0: Optional[torch.Tensor] = None, causal: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if kind in _DENSE:
+    if kind in _ATTN:
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
-        h = h + A.attn_forward(params["attn"], x, cfg,
-                               window=_window(kind, cfg))
-        return _mlp_out(params, h, cfg), aux
+        if causal:
+            att = A.attn_forward(params["attn"], x, cfg,
+                                 window=_window(kind, cfg))
+        else:
+            att = _encoder_attn(params["attn"], x, cfg)
+        return _ffn_out(kind, params, h + att, cfg)
     if kind == "rwkv6":
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
         att, _, _ = R6.rwkv6_time_mix(params, x, cfg)
@@ -110,15 +143,15 @@ def block_forward(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
         x = _shared_attn_in(params, h, emb0, cfg)
         h = h + A.attn_forward(params["attn"], x, cfg)
         return _mlp_out(params, h, cfg), aux
-    raise _unported(kind)
+    raise _unknown(kind)
 
 
 def cache_spec_for(kind: str, cfg: ModelConfig,
                    max_seq: int) -> Optional[CacheSpec]:
     """The attention cache of a kind, or None for the recurrent kinds."""
-    if kind in ("full", "shared_attn"):
+    if kind in ("full", "moe", "shared_attn"):
         return CacheSpec("full", max_seq)
-    if kind == "swa":
+    if kind in ("swa", "moe_swa"):
         return CacheSpec("ring", min(cfg.sliding_window, max_seq))
     return None
 
@@ -132,7 +165,7 @@ def init_block_state(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
         return M2.init_mamba2_state(cfg, batch, dtype, device)
     if kind == "rwkv6":
         return R6.init_rwkv6_state(cfg, batch, dtype, device)
-    raise _unported(kind)
+    raise _unknown(kind)
 
 
 def block_prefill(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
@@ -140,12 +173,13 @@ def block_prefill(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
                   ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Forward + state construction.  Returns (h, state, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if kind in _DENSE:
+    if kind in _ATTN:
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
         att, cache = A.attn_prefill(params["attn"], x, cfg,
                                     cache_spec_for(kind, cfg, max_seq),
                                     window=_window(kind, cfg))
-        return _mlp_out(params, h + att, cfg), cache, aux
+        h, aux = _ffn_out(kind, params, h + att, cfg)
+        return h, cache, aux
     if kind == "rwkv6":
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
         att, x_att, h_t = R6.rwkv6_time_mix(params, x, cfg)
@@ -162,7 +196,7 @@ def block_prefill(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
         att, cache = A.attn_prefill(params["attn"], x, cfg,
                                     cache_spec_for(kind, cfg, max_seq))
         return _mlp_out(params, h + att, cfg), cache, aux
-    raise _unported(kind)
+    raise _unknown(kind)
 
 
 def block_decode(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
@@ -170,13 +204,15 @@ def block_decode(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
                  emb0: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict]:
     """One-token step.  h: (B, 1, d); ``position`` an int or a (B,) int
-    tensor (:func:`attention.attn_decode`)."""
-    if kind in _DENSE:
+    tensor (:func:`attention.attn_decode`), with which the MoE routes
+    each row alone."""
+    if kind in _ATTN:
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
         att, cache = A.attn_decode(params["attn"], x, cfg, state, position,
                                    cache_spec_for(kind, cfg, max_seq),
                                    window=_window(kind, cfg))
-        return _mlp_out(params, h + att, cfg), cache
+        groups = h.shape[0] if isinstance(position, torch.Tensor) else 1
+        return _ffn_out(kind, params, h + att, cfg, groups)[0], cache
     if kind == "rwkv6":
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
         att, x_att, h_t = R6.rwkv6_decode_time_mix(params, x, cfg, state)
@@ -193,4 +229,4 @@ def block_decode(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
         att, cache = A.attn_decode(params["attn"], x, cfg, state, position,
                                    cache_spec_for(kind, cfg, max_seq))
         return _mlp_out(params, h + att, cfg), cache
-    raise _unported(kind)
+    raise _unknown(kind)

@@ -31,17 +31,32 @@ Entry points:
 row at its own (a slot pool, whose states carry the per-row layout of
 :func:`per_row_positions`).
 
-The token frontend only: the audio and vision frontends (ROADMAP.md Queue
-1 item 13.2b) and ``loss`` (training, item 13.4) are later slices.
+The batch holds ``tokens``, and per frontend:
+  vision — ``patches`` (B, num_prefix_tokens, frontend_dim): a GELU
+           projector (``proj1``, ``proj2``) in ``cfg.dtype`` whose rows
+           are concatenated before the scaled token embeddings (the
+           result f32, as ``jnp.concatenate`` promotes it); ``forward``
+           drops the prefix's logits, ``prefill``'s ``last_index`` and
+           the decode positions count the prefix.
+  audio  — ``frames`` (B, S, frontend_dim) in place of tokens, projected
+           by ``proj`` and blended with ``mask_emb`` at
+           ``mask_positions`` (B, S); no √d scale, so the stream stays in
+           ``cfg.dtype`` (a bfloat16 encoder computes in bfloat16).  An
+           ``encoder_only`` config's ``forward`` runs every block
+           bidirectionally.
+``loss`` (training, ROADMAP.md Queue 1 item 13.4) is a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.transformer import blocks as B
 from repro_torch.models.transformer.config import ModelConfig
@@ -50,6 +65,9 @@ from repro_torch.models.transformer.norms import rms_norm
 from repro_torch.utils.pytree import map_with_paths, tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# threads drawing a stack's layers in ``LM.init`` (the CPU generator's
+# normal draw runs on one core per call)
+_INIT_WORKERS = min(8, os.cpu_count() or 1)
 
 
 def _stack(trees: List[Dict], dim_sizes: Tuple[int, ...]) -> Dict:
@@ -74,12 +92,6 @@ def per_row_positions(states: Dict, batch: int) -> Dict:
 @dataclasses.dataclass(frozen=True)
 class LM:
     cfg: ModelConfig
-
-    def __post_init__(self):
-        if self.cfg.frontend is not None:
-            raise ValueError(f"{self.cfg.name}: the {self.cfg.frontend} "
-                             "frontend is not ported yet (ROADMAP.md Queue 1 "
-                             "item 13.2b)")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -130,11 +142,12 @@ class LM:
     def init(self, seed: int, device="cuda") -> Dict:
         """Random f32 weights from ``seed``: drawn on the CPU generator, so
         the same seed gives the same weights on every device.  Each layer
-        is drawn on the CPU and copied into its entry's stack, allocated on
-        ``device`` (the GPU unless the caller passes another): the host
-        holds one layer at a time.  The stream's order is the JAX
-        package's: embeddings, the pattern's entries, the shared set, the
-        remainder's entries."""
+        is drawn on the CPU from its own generator and copied into its
+        entry's stack, allocated on ``device`` (the GPU unless the caller
+        passes another): the host holds at most ``_INIT_WORKERS`` layers
+        at a time, drawn in parallel.  The stream's order is the JAX
+        package's: embeddings, the frontend, the pattern's entries, the
+        shared set, the remainder's entries."""
         cfg = self.cfg
         rng = TorchRng(seed)
         d = cfg.d_model
@@ -145,18 +158,33 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = (rng.standard_normal((d, cfg.vocab_size))
                                  / math.sqrt(d))
+        fd = cfg.frontend_dim
+        if cfg.frontend == "audio":
+            params["frontend"] = {
+                "proj": rng.standard_normal((fd, d)) / math.sqrt(fd),
+                "mask_emb": rng.standard_normal((d,)) * 0.02}
+        elif cfg.frontend == "vision":
+            params["frontend"] = {
+                "proj1": rng.standard_normal((fd, d)) / math.sqrt(fd),
+                "proj2": rng.standard_normal((d, d)) / math.sqrt(d)}
         params = tree_map(lambda x: x.to(device), params)
 
         def stack_init(kind: str, dims: Tuple[int, ...]) -> Dict:
             base = rng.fork()
-            stacks = None
-            for n in range(math.prod(dims)):
-                layer = B.init_block_params(kind, cfg, base.fork())
-                if stacks is None:
-                    stacks = tree_map(lambda x: torch.empty(
-                        (math.prod(dims), *x.shape), dtype=x.dtype,
-                        device=device), layer)
+            # each layer's generator forked in layer order: the draws
+            # themselves are independent and run on _INIT_WORKERS threads
+            rngs = [base.fork() for _ in range(math.prod(dims))]
+            first = B.init_block_params(kind, cfg, rngs[0])
+            stacks = tree_map(lambda x: torch.empty(
+                (len(rngs), *x.shape), dtype=x.dtype, device=device), first)
+
+            def fill(n, layer=None):
+                layer = layer or B.init_block_params(kind, cfg, rngs[n])
                 tree_map(lambda s, x: s[n].copy_(x), stacks, layer)
+            fill(0, first)
+            del first
+            with ThreadPoolExecutor(_INIT_WORKERS) as pool:
+                list(pool.map(fill, range(1, len(rngs))))
             return tree_map(lambda s: s.reshape(*dims, *s.shape[1:]),
                             stacks)
 
@@ -174,12 +202,31 @@ class LM:
         return params
 
     # -------------------------------------------------------------- helpers
-    def _embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed_tokens(self, params: Dict, tokens: torch.Tensor
+                      ) -> torch.Tensor:
         # as the JAX package: rows rounded to cfg.dtype, then scaled by a
         # numpy float64, which promotes the stream to float32 — every layer
         # after this computes in f32 whatever cfg.dtype says
         return params["embed"][tokens].to(self.dtype).float() * \
             math.sqrt(self.cfg.d_model)
+
+    def _embed(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """The layer stack's input: the frontend's rows (module
+        docstring), else the scaled token embeddings."""
+        dt = self.dtype
+        fr = params.get("frontend")
+        if self.cfg.frontend == "audio":
+            h = batch["frames"].to(dt) @ fr["proj"].to(dt)
+            if "mask_positions" in batch:
+                m = batch["mask_positions"][..., None].to(dt)
+                h = h * (1 - m) + fr["mask_emb"].to(dt) * m
+            return h
+        toks = self._embed_tokens(params, batch["tokens"])
+        if self.cfg.frontend == "vision":
+            p = F.gelu(batch["patches"].to(dt) @ fr["proj1"].to(dt),
+                       approximate="tanh") @ fr["proj2"].to(dt)
+            return torch.cat([p.to(toks.dtype), toks], dim=1)
+        return toks
 
     def _head(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
         h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
@@ -204,14 +251,17 @@ class LM:
     # ---------------------------------------------------------------- forward
     def forward(self, params: Dict, batch: Dict
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        h = self._embed(params, batch["tokens"])
+        cfg = self.cfg
+        h = self._embed(params, batch)
         emb0 = h
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for group, key, kind, idx in self._layers():
             h, a = B.block_forward(
-                kind, self._layer_params(params, group, key, idx), h,
-                self.cfg, emb0=emb0)
+                kind, self._layer_params(params, group, key, idx), h, cfg,
+                emb0=emb0, causal=not cfg.encoder_only)
             aux = aux + a
+        if cfg.frontend == "vision":
+            h = h[:, cfg.num_prefix_tokens:]
         return self._head(params, h), aux
 
     # --------------------------------------------------------------- prefill
@@ -219,9 +269,10 @@ class LM:
                 last_index: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
         """``last_index`` selects which row's logits (and ``emb0_last``) to
-        return instead of the final row.  ``max_seq`` sizes the attention
-        caches (the recurrent kinds have none)."""
-        h = self._embed(params, batch["tokens"])
+        return instead of the final row, counting a vision prefix's rows.
+        ``max_seq`` sizes the attention caches (the recurrent kinds have
+        none)."""
+        h = self._embed(params, batch)
         emb0 = h
         per_layer = []
         for group, key, kind, idx in self._layers():
@@ -252,7 +303,7 @@ class LM:
         """token: (B,) int; ``position``: the token's index in the
         sequence, an int for every row or a (B,) int tensor, a row each
         (the recurrent kinds read neither)."""
-        h = self._embed(params, token)[:, None]
+        h = self._embed_tokens(params, token)[:, None]
         emb0 = h
         per_layer = []
         for group, key, kind, idx in self._layers():

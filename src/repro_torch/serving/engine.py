@@ -8,8 +8,12 @@ On the card the prefill runs each RWKV6 layer's time-mix scan and each
 Mamba2 layer's SSD scan through the hand-written scan kernel; decode is the
 one-token recurrence.  Attention caches are sized at prefill (``max_seq``
 slots for full attention, a ring of ``min(window, max_seq)`` for sliding
-windows), and the decode step at wave position ``plen + step`` writes its
-slot.
+windows), and the decode step at wave position ``prefix + plen + step``
+writes its slot.  A vision config's prefill takes zero ``patches`` for its
+``prefix`` of ``num_prefix_tokens`` rows, as the JAX package's backends
+pass, and every position counts them; a request whose ``prefix + prompt +
+new tokens`` overflow ``max_seq`` is refused at submit (the JAX package
+counts only ``prompt + new`` and lets the cache clamp).
 
 Sampling is greedy or temperature.  Temperature draws Gumbel noise from a
 CPU generator seeded per ``(request uid, decode step)``
@@ -24,8 +28,10 @@ or token budget), stamped after the step's device work is forced.
 :class:`~repro_torch.serving.core.SlotScheduler`: a persistent pool of
 per-slot decode states, requests ``prefill → insert(slot) → step``-ped,
 admitted into free slots and retired individually the step they finish.
-Each slot decodes at its own position.  Prompts are right-padded to a
-power-of-two bucket where padding is exact (:func:`padded_prefill_safe`).
+Each slot decodes at its own position (an MoE routing each slot's token
+alone, as the JAX package's ``vmap`` of batch-1 steps).  Prompts are
+right-padded to a power-of-two bucket where padding is exact
+(:func:`padded_prefill_safe`).
 Sampling draws from the same per-``(uid, own token index)`` generators,
 so a request's continuation is independent of its co-residents, their
 slots and the admission order.
@@ -60,6 +66,34 @@ def _temperature_sample(row: torch.Tensor, temperature: float, seed: int,
         torch.finfo(torch.float32).tiny)
     gumbel = -torch.log(-torch.log(u)).to(row.device)
     return (row.float() / max(temperature, 1e-4) + gumbel).argmax()
+
+
+def _prefix(cfg: ModelConfig) -> int:
+    """Rows the frontend puts before the prompt: a vision config's patch
+    tokens, else none."""
+    return cfg.num_prefix_tokens if cfg.frontend == "vision" else 0
+
+
+def _prompt_batch(model: LM, toks: np.ndarray, device) -> Dict:
+    """A prefill batch of right-padded prompt rows; a vision config's
+    gets zero patches for its prefix."""
+    cfg = model.cfg
+    batch = {"tokens": torch.from_numpy(toks).to(device)}
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.zeros(
+            (toks.shape[0], cfg.num_prefix_tokens, cfg.frontend_dim),
+            dtype=model.dtype, device=device)
+    return batch
+
+
+def _validate(req: "Request", cfg: ModelConfig, max_seq: int) -> None:
+    """Refuse a request that would overflow ``max_seq`` once the prefix
+    is counted."""
+    prefix = _prefix(cfg)
+    if prefix + len(req.prompt) + req.max_new_tokens > max_seq:
+        raise ValueError(f"request {req.uid} exceeds max_seq ({prefix} "
+                         f"prefix + {len(req.prompt)} + "
+                         f"{req.max_new_tokens} > {max_seq})")
 
 
 @dataclasses.dataclass
@@ -102,10 +136,7 @@ class LMBackend(ServingBackend):
 
     # ------------------------------------------------------------- protocol
     def validate(self, req: Request) -> None:
-        if len(req.prompt) + req.max_new_tokens > self.max_seq:
-            raise ValueError(f"request {req.uid} exceeds max_seq "
-                             f"({len(req.prompt)}+{req.max_new_tokens} > "
-                             f"{self.max_seq})")
+        _validate(req, self.cfg, self.max_seq)
 
     def bucket_key(self, req: Request) -> int:
         return len(req.prompt)
@@ -121,7 +152,8 @@ class LMBackend(ServingBackend):
         toks = np.zeros((bsz, plen), np.int64)
         for i, r in enumerate(wave):
             toks[i] = r.prompt
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = _prompt_batch(self.model, toks, self.device)
+        start = _prefix(self.cfg) + plen
 
         with torch.no_grad():
             logits, states = self.model.prefill(self.params, batch,
@@ -163,7 +195,7 @@ class LMBackend(ServingBackend):
             steps += 1
             with torch.no_grad():
                 logits, states = self.model.decode_step(
-                    self.params, states, tok, plen + step,
+                    self.params, states, tok, start + step,
                     max_seq=self.max_seq)
             tok = self._sample(logits, wave, step=step + 1)
             ingest(tok.tolist())
@@ -199,15 +231,18 @@ def padded_prefill_safe(cfg: ModelConfig, max_seq: int) -> bool:
     """Can prompts be right-padded to a length bucket without changing the
     request's own logits?
 
-    Exact for attention stacks (causal masking keeps pad rows out of every
-    real row).  NOT exact for (a) recurrent kinds (mamba2/rwkv6 — the
-    prefill scan folds pad tokens into the state) and (b) windowed attention
+    Exact for dense attention stacks (causal masking keeps pad rows out of
+    every real row).  NOT exact for (a) recurrent kinds (mamba2/rwkv6 — the
+    prefill scan folds pad tokens into the state), (b) windowed attention
     with ``sliding_window < max_seq`` (the ring cache wraps, so pad rows
-    evict in-window prompt entries).
+    evict in-window prompt entries) and (c) the MoE kinds: the expert
+    capacity grows with the padded length, which changes which of the real
+    tokens' assignments are dropped.  The JAX package's version says MoE
+    pads exactly (ROADMAP.md Queue 3).
     """
     kinds = [k for k, _ in list(cfg.pattern) + list(cfg.remainder)]
     for kind in kinds:
-        if kind in ("mamba2", "rwkv6"):
+        if kind in ("mamba2", "rwkv6", "moe", "moe_swa"):
             return False
         if kind in ("swa", "moe_swa") and cfg.sliding_window < max_seq:
             return False
@@ -228,13 +263,14 @@ class LMSlotBackend(SlotBackend):
     scan kernel — samples the first token and copies the prefill's state
     into the slot, a full overwrite, so slot reuse leaks nothing between
     requests.  ``step`` advances ALL slots with one batched decode, each
-    at its own position (the JAX package's ``vmap`` over slots); free
-    slots decode garbage at position 0 that is never read, so occupancy
-    never changes the step's shapes.
+    at its own position (the JAX package's ``vmap`` over slots; an MoE
+    routes each slot's token alone); free slots decode garbage at position
+    0 that is never read, so occupancy never changes the step's shapes.
 
     :attr:`prefill_bucket`: ``"pow2"`` where :func:`padded_prefill_safe`
     says padding is exact — each prompt right-padded to ``min(max(8, next
-    power of two), max_seq)``, the logits read at its last real token (the
+    power of two), max_seq − prefix)`` (the JAX package clamps at
+    ``max_seq``), the logits read at its last real token (the
     cache's pad entries carry positions past the prompt, so decode's
     validity mask hides them until the decode stream overwrites them) —
     else ``"exact"``, each prompt prefilled at its length.  Sampling:
@@ -323,10 +359,7 @@ class LMSlotBackend(SlotBackend):
         return self._step_traces.count_value
 
     def validate(self, req: Request) -> None:
-        if len(req.prompt) + req.max_new_tokens > self.max_seq:
-            raise ValueError(f"request {req.uid} exceeds max_seq "
-                             f"({len(req.prompt)}+{req.max_new_tokens} > "
-                             f"{self.max_seq})")
+        _validate(req, self.cfg, self.max_seq)
         if not req.prompt:
             raise ValueError(f"request {req.uid} has an empty prompt")
 
@@ -334,7 +367,8 @@ class LMSlotBackend(SlotBackend):
         plen = len(req.prompt)
         if self.prefill_bucket == "exact":
             return plen
-        return min(max(8, 1 << (plen - 1).bit_length()), self.max_seq)
+        return min(max(8, 1 << (plen - 1).bit_length()),
+                   self.max_seq - _prefix(self.cfg))
 
     def _sample(self, row: torch.Tensor, temperature: float, uid: int,
                 step: int) -> int:
@@ -359,14 +393,15 @@ class LMSlotBackend(SlotBackend):
         t0 = time.perf_counter()
         plen = len(req.prompt)
         bucket = self.bucket_key(req)
+        start = _prefix(self.cfg) + plen
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :plen] = req.prompt
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = _prompt_batch(self.model, toks, self.device)
         self._prefill_traces.count(trace_signature(batch))
         with torch.no_grad():
             logits, state = self.model.prefill(self.params, batch,
                                                max_seq=self.max_seq,
-                                               last_index=plen - 1)
+                                               last_index=start - 1)
             state = per_row_positions(state, 1)
             if self._pool is None:
                 self._alloc_pool(state)
@@ -384,7 +419,7 @@ class LMSlotBackend(SlotBackend):
             return self._result(entry, time.perf_counter())
         self._slots[slot] = entry
         self._tokens[slot] = tok0
-        self._positions[slot] = plen
+        self._positions[slot] = start
         self._steps[slot] = 1
         return None
 

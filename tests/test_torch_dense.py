@@ -457,11 +457,14 @@ def test_zamba2_slot_serving_matches_jax_slot():
 @pytest.mark.parametrize("arch,max_seq,bucket", [
     ("gemma3-1b", MAX_SEQ, "exact"), ("zamba2-7b", 64, "exact"),
     ("rwkv6-1.6b", 64, "exact"), ("gemma3-1b", 64, "pow2"),
-    ("stablelm-12b", MAX_SEQ, "pow2")])
+    ("stablelm-12b", MAX_SEQ, "pow2"), ("qwen2-moe-a2.7b", MAX_SEQ, "exact")])
 def test_pow2_refused_where_padding_is_inexact(arch, max_seq, bucket):
     """The slot backend pads prompts only where ``padded_prefill_safe``
-    says padding is exact: never for recurrent kinds or a ring shorter
-    than ``max_seq``; the JAX package's ``"auto"`` picks the same."""
+    says padding is exact: never for recurrent kinds, a ring shorter than
+    ``max_seq`` or an MoE; the JAX package's ``"auto"`` picks the same,
+    but pow2 for an MoE (its fault, ROADMAP.md Queue 3, shown by
+    ``test_reference_pow2_prefill_changes_moe_logits`` in
+    ``test_torch_moe.py``)."""
     cfg = configs.get_smoke_config(arch)
     eng = ServingEngine(cfg, params={}, scheduler="slot", max_seq=max_seq,
                         device="cpu")
@@ -469,6 +472,9 @@ def test_pow2_refused_where_padding_is_inexact(arch, max_seq, bucket):
     assert (bucket == "pow2") == padded_prefill_safe(cfg, max_seq)
     jeng = JServingEngine(jconfigs.get_smoke_config(arch), params={},
                           scheduler="slot", max_seq=max_seq)
+    if cfg.moe is not None:
+        assert jeng.backend.prefill_bucket == "pow2"
+        return
     assert jeng.backend.prefill_bucket == bucket
     if bucket == "exact":
         with pytest.raises(ValueError, match="inexact"):

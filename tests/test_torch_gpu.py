@@ -527,6 +527,122 @@ def test_slot_pool_per_row_positions_on_card(cuda):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4, msg=k)
 
 
+# MoE routing: a token whose router probabilities (f32, card against CPU
+# ~1e-7 apart) tie within this may pick another expert on the card
+ROUTE_TIE = 1e-5
+
+
+def _recorded_routes(monkeypatch):
+    """Every ``moe.route`` call's result, appended to the returned list."""
+    from repro_torch.models.transformer import moe as MOE
+    routes, route = [], MOE.route
+
+    def recording(*args, **kw):
+        routes.append(route(*args, **kw))
+        return routes[-1]
+    monkeypatch.setattr(MOE, "route", recording)
+    return routes
+
+
+def _rows_routed_alike(routes_gpu, routes_cpu, batch):
+    """The batch rows none of whose tokens was routed otherwise on the
+    card in any layer; every difference must be a near tie or the
+    capacity shift one causes."""
+    from repro_torch.models.transformer import moe as MOE
+    assert len(routes_gpu) == len(routes_cpu) > 0
+    alike = torch.ones(batch, dtype=torch.bool)
+    for rg, rc in zip(routes_gpu, routes_cpu):
+        rg = MOE.Routing(*(x.cpu() if torch.is_tensor(x) else x for x in rg))
+        differ, unexplained = MOE.routing_differences(rc, rg, ROUTE_TIE)
+        assert not bool(unexplained.any())
+        alike &= ~differ.reshape(batch, -1).any(-1)
+    assert bool(alike.any())
+    return alike
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
+def test_moe_prefill_and_decode_on_card_match_cpu(cuda, arch, monkeypatch):
+    """The smoke MoE stacks with qwen2's routing (60 experts top-4, so
+    capacity binds in the 80-token prefill) on the card against the same
+    weights on the CPU: every routing difference a near tie or its
+    capacity shift, and the rows routed alike within 1e-4 through the
+    prefill, 3 decode steps of the wave (one group) and one of a slot
+    pool (a (B,) position: each row its own group); no kernel launches."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer.model import LM, per_row_positions
+    from repro_torch.utils.pytree import tree_map
+    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=60, top_k=4, expert_d_ff=64))
+    model = LM(cfg)
+    p_cpu = model.init(0, "cpu")
+    p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 84)))
+    routes = _recorded_routes(monkeypatch)
+    before = linear_scan_chunked.launches
+    alike = torch.ones(2, dtype=torch.bool)
+
+    def both(fn_gpu, fn_cpu):
+        nonlocal alike
+        routes.clear()
+        out_g = fn_gpu()
+        n = len(routes)
+        out_c = fn_cpu()
+        alike &= _rows_routed_alike(routes[:n], routes[n:], 2)
+        torch.testing.assert_close(out_g[0].cpu()[alike], out_c[0][alike],
+                                   rtol=1e-4, atol=1e-4)
+        return out_g[1], out_c[1]
+
+    sg, sc = both(
+        lambda: model.prefill(p_gpu, {"tokens": toks[:, :80].to(cuda)},
+                              max_seq=96),
+        lambda: model.prefill(p_cpu, {"tokens": toks[:, :80]}, max_seq=96))
+    assert not bool(routes[-1].keep.all())              # capacity binds
+    for step in range(3):
+        tok = toks[:, 80 + step]
+        sg, sc = both(
+            lambda: model.decode_step(p_gpu, sg, tok.to(cuda), 80 + step,
+                                      max_seq=96),
+            lambda: model.decode_step(p_cpu, sc, tok, 80 + step, max_seq=96))
+    pos = torch.tensor([83, 83])
+    sg, sc = per_row_positions(sg, 2), per_row_positions(sc, 2)
+    both(lambda: model.decode_step(p_gpu, sg, toks[:, 83].to(cuda),
+                                   pos.to(cuda), max_seq=96),
+         lambda: model.decode_step(p_cpu, sc, toks[:, 83], pos, max_seq=96))
+    assert routes[-1].top_i.shape[:2] == (2, 1)         # a group a row
+    assert linear_scan_chunked.launches == before
+
+
+@pytest.mark.gpu
+def test_hubert_bfloat16_forward_on_card_matches_cpu(cuda):
+    """hubert's smoke encoder with ``dtype="bfloat16"`` (the audio stream
+    computes in bf16: no √d scale) and masked frames, on the card against
+    the CPU within bf16's 2e-2 × max(1, max|cpu|); bidirectional, 0
+    kernel launches."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer.model import LM
+    from repro_torch.utils.pytree import tree_map
+    cfg = dataclasses.replace(get_smoke_config("hubert-xlarge"),
+                              dtype="bfloat16")
+    model = LM(cfg)
+    p_cpu = model.init(0, "cpu")
+    p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
+    rng = np.random.default_rng(0)
+    batch = {"frames": torch.from_numpy(rng.standard_normal(
+                 (2, 100, cfg.frontend_dim)).astype(np.float32)),
+             "mask_positions": torch.from_numpy(rng.random((2, 100)) < 0.3)}
+    before = linear_scan_chunked.launches
+    lg, _ = model.forward(p_gpu, tree_map(lambda x: x.to(cuda), batch))
+    lc, _ = model.forward(p_cpu, batch)
+    assert lg.dtype == lc.dtype == torch.bfloat16
+    err = float((lg.cpu().float() - lc.float()).abs().max())
+    assert err <= 2e-2 * max(1.0, float(lc.float().abs().max()))
+    assert linear_scan_chunked.launches == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", ["mean", "sym", "gat"])
 def test_csr_aggregates_on_card_match_cpu(graph, cuda, op):

@@ -60,6 +60,7 @@ def test_every_module_imports_without_jax(probe):
                 "repro_torch.models.transformer.mlp",
                 "repro_torch.models.transformer.attention",
                 "repro_torch.models.transformer.mamba2",
+                "repro_torch.models.transformer.moe",
                 "repro_torch.models.transformer.blocks",
                 "repro_torch.models.transformer.model",
                 "repro_torch.serving.core", "repro_torch.serving.engine",

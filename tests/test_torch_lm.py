@@ -89,10 +89,16 @@ def test_configs_equal_jax_field_for_field(arch):
 
 @pytest.mark.parametrize("max_seq", [64, 8192])
 def test_padded_prefill_safe_matches_jax(max_seq):
+    """The same answer for every config but the MoE ones, which the JAX
+    package calls exact to pad and the port does not (its capacity grows
+    with the padded length: ROADMAP.md Queue 3)."""
     for arch in jconfigs.ARCH_IDS:
         cfg = configs.get_config(arch)
-        assert padded_prefill_safe(cfg, max_seq) == jpadded_prefill_safe(
-            jconfigs.get_config(arch), max_seq), arch
+        want = jpadded_prefill_safe(jconfigs.get_config(arch), max_seq)
+        if cfg.moe is not None:
+            assert want and not padded_prefill_safe(cfg, max_seq), arch
+        else:
+            assert padded_prefill_safe(cfg, max_seq) == want, arch
 
 
 def test_wave_rng_draws_as_jax_package():
@@ -212,16 +218,17 @@ def test_bfloat16_stream_keeps_cfg_dtype(cfg, jax_params, params):
 
 
 def test_unported_kinds_and_schedulers_raise(cfg, params):
-    """What the port still refuses: the MoE kinds (item 13.3), the vision
-    and audio frontends (item 13.2b), serving an encoder-only config."""
-    with pytest.raises(ValueError, match="Queue 1 item 13.3"):
-        LM(configs.get_smoke_config("qwen3-moe-30b-a3b")).init(0, "cpu")
-    for arch in ("internvl2-2b", "hubert-xlarge"):
-        with pytest.raises(ValueError, match="Queue 1 item 13.2b"):
-            LM(configs.get_smoke_config(arch))
-    with pytest.raises(ValueError, match="encoder-only"):
-        ServingEngine(dataclasses.replace(cfg, encoder_only=True),
-                      params=params, device="cpu")
+    """What the port still refuses: serving an encoder-only config (either
+    scheduler), and a block kind no config has."""
+    for scheduler in ("wave", "slot"):
+        with pytest.raises(ValueError, match="encoder-only"):
+            ServingEngine(dataclasses.replace(cfg, encoder_only=True),
+                          params=params, scheduler=scheduler, device="cpu")
+        with pytest.raises(ValueError, match="encoder-only"):
+            ServingEngine(configs.get_smoke_config("hubert-xlarge"),
+                          params={}, scheduler=scheduler, device="cpu")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        LM(dataclasses.replace(cfg, pattern=(("conv", 2),))).init(0, "cpu")
 
 
 def _queue(seed):
