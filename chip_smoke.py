@@ -178,6 +178,34 @@ hand-written kernel on their paths (0 launches, gated):
   seeded masks on the card, and one clip layer by layer against the CPU
   at the bf16 rule's 2e-2 × max(1, max|cpu|).
 
+Then LM training (rwkv6-1.6b's trainer; TF32 off throughout):
+- T1, the scan's gradient kernel (``csrc/linear_scan_bwd.cu``) against
+  torch autograd of its plain version on the card, every gradient within
+  SCAN_TOL × max(1, max|plain|): strict with ``u`` at rwkv6's training
+  shape (BH 128, T 128, and a ragged 77, in rwkv6's chunks of 8),
+  plain per-key with a carried state and a
+  cotangent of h_T, and the scalar-decay mode at zamba2's (448, 192);
+  eager and CUDA-graph times, the plain version's, the bound.
+- T2, card against CPU, in the shipped bfloat16 configs: rwkv6-1.6b at
+  full width cut to T2_LAYERS layers, and zamba2-7b at full width cut to
+  its first unit (5 Mamba2 blocks, the scalar-decay gradient).  Each:
+  ``LM.loss`` within 1e-4 relative, every gradient leaf within 1e-3 of
+  its max (the embedding, rounded to bf16, within BF16_TOL of its max),
+  then one ``build_llcg_round_step`` round (G=2, K=2, S=1; parameters
+  within LM_TOL × max(1, max|cpu|), losses 1e-4).  One forward and one
+  backward scan launch a scan layer a step, exactly.
+- T3, the LLCG round of rwkv6-1.6b uncut (24 layers at full width; an
+  OOM fails it), G=2, K=2, S=1, batch 4
+  × 128 a machine on ``_local_batches`` / ``_corr_batches``, 3 rounds:
+  finite losses, the copies equal after the broadcast, (G·K + S) × 24
+  forward and backward scans a round; ms per round and per local step,
+  tokens/s, peak memory, the busy share of a fourth, profiled round.
+- T4, ``train()`` of rwkv6-1.6b uncut on the card (G=1, K 4, 4, 4):
+  finite losses, ``comm`` 2·G·(parameter MB) a round, exact launches, the
+  round-3 checkpoint restoring ``params_G[0]``; and the JAX package's
+  ``test_system`` run (gemma3-1b smoke) on the card against the CPU,
+  losses within 1e-4.
+
 With ``--baseline DIR`` (DIR: the root of an unpacked earlier commit, its
 ``src/repro_torch`` beside this script's), a last phase times the quantize,
 dequantize and edge-softmax wrappers of both packages at phase 2's shapes,
@@ -284,6 +312,22 @@ HB_SEED = 0
 HB_CLIPS = 4
 HB_FRAMES = 500
 HB_MASK = 0.08
+# LM training (T2-T4): rwkv6-1.6b's trainer, the defaults of TrainConfig
+T_SEED = 0
+T_LR, T_SERVER_LR = 3e-4, 1e-4
+T_SEQ = 128
+T2_LAYERS = 2            # rwkv6-1.6b at full width, as SC and QW are cut
+T3_G, T3_K, T3_S = 2, 2, 1
+T3_BATCH = 4             # per machine; the correction batch is twice this
+T3_ROUNDS = 3
+T_LOSS_TOL = 1e-4        # card vs CPU, relative
+# The gradient leaves that cross a bfloat16 cast in a bfloat16 config: the
+# embedding's rows are rounded to bf16 before the f32 stream
+# (LM._embed_tokens), so their gradient is rounded there too, one bf16 ulp
+# (up to 7.8e-3 of the leaf's max) wherever card and CPU round either side;
+# held to BF16_TOL, every other leaf (f32 throughout) to LM_TOL
+T2_BF16_LEAVES = ("embed",)
+RWKV6_CHUNK = 8          # models/transformer/rwkv6.py's _CHUNK
 
 
 class SmokeFailure(Exception):
@@ -889,10 +933,12 @@ def _configs():
     return data, cfg, plans
 
 
-def _device_busy_share(run) -> str:
+def _device_busy_share(run, parts: tuple = ()) -> str:
     """Summed device time of the kernels over the wall time of ``run()``,
     from ``torch.profiler``, with the count of kernels and the five that
-    take the most device time; "not measured" if it records no device
+    take the most device time, then, for each name in ``parts``, the
+    launches and device time of the kernels whose name holds it and their
+    share of the device time; "not measured" if it records no device
     time.  The profiler's raw device events are summed here:
     ``key_averages()`` takes tens of seconds on a served run's ~500,000
     events."""
@@ -921,9 +967,15 @@ def _device_busy_share(run) -> str:
     top = sorted(device.items(), key=lambda kv: -kv[1][1])[:5]
     top_s = "; ".join(f"{name[:60]} x{n} {ns / 1e6:.3f} ms"
                       for name, (n, ns) in top)
+    part_s = ""
+    for part in parts:
+        n = sum(c for name, (c, _) in device.items() if part in name)
+        ns = sum(t for name, (_, t) in device.items() if part in name)
+        part_s += (f"; {part} x{n} {ns / 1e6:.3f} ms device, "
+                   f"{ns / device_ns:.4f} of it")
     return (f"{device_ns / 1e9 / wall:.4f} ({device_ns / 1e6:.3f} ms device "
             f"in {wall * 1e3:.3f} ms wall, {n_events} device events; top: "
-            f"{top_s})")
+            f"{top_s}){part_s}")
 
 
 def _drive(name: str, data, model, plan, kernels) -> tuple:
@@ -2155,25 +2207,39 @@ def _config_e(kernels) -> dict:
           f"tokens of uid 0: {res[0].tokens[:8]}...")
 
     # the served prefill of each wave alone, least of 3, and where its device
-    # time goes (the scan kernel masks the ragged wave's second chunk)
+    # time goes (the scan kernel masks the ragged wave's last chunk); then
+    # the same in the JAX package's chunk of 64 (finite at these random
+    # weights), which rwkv6 gave up for training's decays: what the chunk
+    # of 8 costs a prefill, within one call
+    from repro_torch.models.transformer import rwkv6 as R6
     lm = LM(cfg)
-    for plen, (wave_prompts, _) in sorted(first_logits.items()):
-        batch = {"tokens": torch.tensor(wave_prompts, device="cuda")}
+    served_chunk = R6._CHUNK
+    for chunk in (served_chunk, 64):
+        R6._CHUNK = chunk
+        try:
+            for plen, (wave_prompts, _) in sorted(first_logits.items()):
+                batch = {"tokens": torch.tensor(wave_prompts, device="cuda")}
 
-        def prefill():
-            with torch.no_grad():
-                lm.prefill(p_gpu, batch, max_seq=512)
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            prefill()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        print(f"config E1 prefill alone, {len(wave_prompts)} x {plen} "
-              f"tokens: {min(times) * 1e3:.3f} ms (least of 3; "
-              f"{[round(x * 1e3, 3) for x in times]}); device busy "
-              f"{_device_busy_share(prefill)}")
+                def prefill():
+                    with torch.no_grad():
+                        lm.prefill(p_gpu, batch, max_seq=512)
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    prefill()
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                busy = _device_busy_share(prefill,
+                                          parts=("linear_scan_kernel",))
+                print(f"config E1 prefill alone, {len(wave_prompts)} x "
+                      f"{plen} tokens, scan chunk {chunk}"
+                      f"{'' if chunk == served_chunk else ' (not served)'}: "
+                      f"{min(times) * 1e3:.3f} ms (least of 3; "
+                      f"{[round(x * 1e3, 3) for x in times]}); device busy "
+                      f"{busy}")
+        finally:
+            R6._CHUNK = served_chunk
 
     # the ragged wave's served prefill against the CPU's in the same config,
     # one layer at a time: each layer on the card takes the CPU's input to
@@ -3191,6 +3257,461 @@ def _config_hb(kernels, card: str) -> dict:
     return {"HB": counts, "HB layers": hb}
 
 
+# --------------------------------------------------------------------------
+# LM training: the scan's gradient kernel (T1), loss and round card vs CPU
+# (T2), the LLCG round at full width (T3), train() end to end (T4)
+# --------------------------------------------------------------------------
+def _scan_bwd_ops(bh: int, t: int, chunk: int, dk: int, dv: int,
+                  strict: bool, scalar: bool) -> float:
+    """Operations the gradient kernel needs on this run's inputs: per head
+    and chunk of l real steps, A and dA over the kept pairs, Aᵀ·dY,
+    dA·K~ and dAᵀ·Q~ over them, the four (l, dk, dv) products of dV, dQ~,
+    dK~ and dh_in, the decays (one exponential per key and step, or per
+    kept pair in the scalar mode) and the reverse sum of d log_w, as
+    multiply-adds counted twice."""
+    total = 0.0
+    for c0 in range(0, t, chunk):
+        ln = min(chunk, t - c0)
+        pairs = ln * (ln - 1) // 2 if strict else ln * (ln + 1) // 2
+        total += 2.0 * pairs * (2 * dk + 2 * dv) + 2.0 * pairs * dk
+        total += 4 * 2.0 * ln * dk * dv
+        total += 2 * pairs if scalar else 3 * ln * dk
+        total += 4.0 * ln * dk
+        if strict:
+            total += 6.0 * ln * dk + 2.0 * ln * dv
+    return bh * total
+
+
+def _scan_bwd_case(bh: int, t: int, d: int, mode: str, with_h0: bool,
+                   label: str, seed: int, chunk: int = 64) -> dict:
+    """The gradient kernel (``linear_scan_chunked_bwd``, from the forward
+    kernel's saved chunk-start states) against torch autograd of the plain
+    version on the card, every gradient within SCAN_TOL × max(1,
+    max|plain|); dk = dv = ``d``; ``mode`` strict (with ``u``), plain
+    (per-key decay) or scalar (log_w (BH, T)).  ``with_h0`` also carries a
+    state in and a cotangent of h_T."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.linear_scan import (linear_scan_chunked,
+                                                 linear_scan_chunked_bwd)
+    from repro_torch.kernels.ref import linear_scan_vjp_ref
+
+    strict, scalar = mode == "strict", mode == "scalar"
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).cuda()
+    q, k, v = f(bh, t, d), f(bh, t, d), f(bh, t, d)
+    lw = torch.from_numpy((-(0.3 if scalar else 0.15) * rng.random(
+        (bh, t) if scalar else (bh, t, d))).astype(np.float32)).cuda()
+    h0 = f(bh, d, d) if with_h0 else None
+    u = f(bh, d) * 0.3 if strict else None
+    dy = f(bh, t, d)
+    dh = f(bh, d, d) if with_h0 else None
+    _, h_t, h_in = linear_scan_chunked(q, k, v, lw, h0, u=u, chunk=chunk,
+                                       strict=strict, ragged=True,
+                                       save_states=True)
+
+    def kernel():
+        return linear_scan_chunked_bwd(q, k, v, lw, h0, u, h_in, h_t, dy, dh,
+                                       chunk=chunk, strict=strict)
+
+    def plain():
+        return linear_scan_vjp_ref(q, k, v, lw, h0, u, dy, dh, chunk=chunk,
+                                   strict=strict)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    name = (f"{mode} BH={bh} T={t} dk=dv={d} L={chunk}"
+            f"{' h0 dh_T' if with_h0 else ''}")
+    errs = {}
+    for what, a, b in zip(("dq", "dk", "dv", "dlog_w", "dh0", "du"), got,
+                          want):
+        _check((a is None) == (b is None),
+               f"linear_scan_bwd {name}: {what} is "
+               f"{'missing' if a is None else 'extra'}")
+        if b is None:
+            continue
+        err = float((a - b).abs().max())
+        tol = SCAN_TOL * max(1.0, float(b.abs().max()))
+        _check(a.shape == b.shape and math.isfinite(err) and err <= tol,
+               f"linear_scan_bwd {name} {what}: max |kernel - plain| {err} "
+               f"> {tol}")
+        errs[what] = {"max_abs_err": err, "tol": tol}
+    # read once: q, k, v, log_w, dy, u, the saved states (and h_T, dh_T);
+    # written once: dq, dk, dv, d log_w (and dh0, du)
+    n_states = bh * -(-t // chunk) * d * d
+    nbytes = 4 * (bh * t * (4 * d + (1 if scalar else d))   # q k v dy, log_w
+                  + n_states + bh * t * (3 * d + (1 if scalar else d))
+                  + (2 * bh * d if strict else 0)
+                  + (3 * bh * d * d if with_h0 else 0))
+    bound_ms, bound_by = _bound(
+        nbytes, _scan_bwd_ops(bh, t, chunk, d, d, strict, scalar))
+    return {"label": label, "shape": name, "errors": errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "ms": _time_ms(kernel), "device_ms": _graph_ms(kernel),
+            "plain_ms": _time_ms(plain), "library_ms": None,
+            "library": "none: no PyTorch call computes this gradient",
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+
+
+def _stack_copies(params: dict, g: int) -> dict:
+    from repro_torch.utils.pytree import tree_map
+    return tree_map(lambda x: x.unsqueeze(0).expand(g, *x.shape).clone(),
+                    params)
+
+
+def _scan_layers(cfg) -> int:
+    kinds = cfg.layer_plan()
+    return kinds.count("rwkv6") + kinds.count("mamba2")
+
+
+def _t2_model(label: str, cfg, kernels) -> dict:
+    """One T2 model: ``LM.loss`` and its gradient, then one LLCG round
+    (G=T3_G, K=T3_K, S=T3_S), on the card against the CPU; the card's scan
+    launches exact (one forward and one backward a scan layer a step)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.steps import (LLCGStepConfig,
+                                               build_llcg_round_step,
+                                               value_and_grad)
+    from repro_torch.optim import adamw
+    from repro_torch.utils.pytree import flatten_with_paths, tree_map
+
+    lm, p_cpu, p_gpu = _draw(cfg, T_SEED, label)
+    layers = _scan_layers(cfg)
+    rng = np.random.default_rng(T_SEED)
+    ints = lambda *shape: torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, shape).astype(np.int32))
+    batch = {"tokens": ints(2, T_SEQ), "labels": ints(2, T_SEQ)}
+    on = lambda b: {k: v.cuda() for k, v in b.items()}
+    t0 = time.perf_counter()
+    (loss_g, grads_g), counts = _serve_counts(
+        kernels, lambda: value_and_grad(lm.loss, p_gpu, on(batch)))
+    grad_ms = (time.perf_counter() - t0) * 1e3
+    _check(counts["linear_scan_chunked"] == layers
+           and counts["linear_scan_chunked_bwd"] == layers,
+           f"config {label} loss and gradient launched {counts}, not "
+           f"{layers} forward and {layers} backward scans")
+    t0 = time.perf_counter()
+    loss_c, grads_c = value_and_grad(lm.loss, p_cpu, batch)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    lerr = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    _check(math.isfinite(float(loss_g)) and lerr <= T_LOSS_TOL,
+           f"config {label} loss: card {float(loss_g)} cpu {float(loss_c)}")
+    worst = {LM_TOL: 0.0, BF16_TOL: 0.0}
+    for (key, a), (_, b) in zip(flatten_with_paths(grads_g),
+                                flatten_with_paths(grads_c)):
+        rule = BF16_TOL if key in T2_BF16_LEAVES else LM_TOL
+        err = float((a.cpu() - b).abs().max())
+        tol = rule * max(float(b.abs().max()), 1e-30)
+        _check(math.isfinite(err) and err <= tol,
+               f"config {label} gradient {key}: max |card - cpu| {err} > "
+               f"{tol}")
+        worst[rule] = max(worst[rule], err / tol)
+    del grads_g, grads_c
+    print(f"config {label} ({cfg.dtype}): loss card {float(loss_g):.6f} cpu "
+          f"{float(loss_c):.6f} (rel {lerr:.3e}); every gradient leaf within"
+          f" {worst[LM_TOL]:.4f} of 1e-3 × its max, {'/'.join(T2_BF16_LEAVES)}"
+          f" within {worst[BF16_TOL]:.4f} of {BF16_TOL} × its max; "
+          f"{counts['linear_scan_chunked']} + "
+          f"{counts['linear_scan_chunked_bwd']} scan launches; loss and "
+          f"gradient card {grad_ms:.1f} ms (first call), cpu {cpu_ms:.1f} ms")
+
+    g, k, s = T3_G, T3_K, T3_S
+    local = {"tokens": ints(g, k, 1, T_SEQ), "labels": ints(g, k, 1, T_SEQ)}
+    corr = {"tokens": ints(s, 2, T_SEQ), "labels": ints(s, 2, T_SEQ)}
+    step_cfg = LLCGStepConfig(num_groups=g, local_steps=k,
+                              correction_steps=s)
+    outs = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        step = build_llcg_round_step(lm, adamw(T_LR), adamw(T_SERVER_LR),
+                                     step_cfg)
+        params_G = _stack_copies(params, g)
+        server = adamw(T_SERVER_LR).init(params)
+        opt_G = adamw(T_LR).init(params_G)
+        t0 = time.perf_counter()
+        (out_G, _, _, m), round_counts = _serve_counts(kernels, lambda: step(
+            params_G, opt_G, server, {n: x.to(dev) for n, x in local.items()},
+            {n: x.to(dev) for n, x in corr.items()}))
+        losses = (float(m["local_loss"]), float(m["corr_loss"]))
+        outs[dev] = (out_G, losses, (time.perf_counter() - t0) * 1e3)
+        if dev == "cuda":
+            counts = round_counts
+            want = (g * k + s) * layers
+            _check(counts["linear_scan_chunked"] == want
+                   and counts["linear_scan_chunked_bwd"] == want,
+                   f"config {label} round launched {counts}, not {want} "
+                   f"forward and {want} backward scans")
+        del params, server, step, opt_G
+    (g_G, g_l, g_ms), (c_G, c_l, c_ms) = outs["cuda"], outs["cpu"]
+    for a, b, what in zip(g_l, c_l, ("local_loss", "corr_loss")):
+        _check(math.isfinite(a) and abs(a - b) <= T_LOSS_TOL * abs(b),
+               f"config {label} round {what}: card {a} cpu {b}")
+    worst = 0.0
+    for (key, a), (_, b) in zip(flatten_with_paths(g_G),
+                                flatten_with_paths(c_G)):
+        err = float((a.cpu() - b).abs().max())
+        tol = LM_TOL * max(1.0, float(b.abs().max()))
+        _check(math.isfinite(err) and err <= tol,
+               f"config {label} round parameters {key}: max |card - cpu| "
+               f"{err} > {tol}")
+        worst = max(worst, err / tol)
+    print(f"config {label} round (G={g}, K={k}, S={s}): local_loss card "
+          f"{g_l[0]:.6f} cpu {c_l[0]:.6f}, corr_loss card {g_l[1]:.6f} cpu "
+          f"{c_l[1]:.6f}; parameters within {worst:.4f} of LM_TOL; "
+          f"{counts['linear_scan_chunked']} + "
+          f"{counts['linear_scan_chunked_bwd']} scan launches; card "
+          f"{g_ms:.1f} ms (first round), cpu {c_ms:.1f} ms")
+    return counts
+
+
+def _config_t2(kernels) -> dict:
+    """Config T2: rwkv6-1.6b at full width cut to T2_LAYERS layers, and
+    zamba2-7b at full width cut to its first unit (a shared attention
+    block and 5 Mamba2 blocks, the scalar-decay gradient), each through
+    :func:`_t2_model` in its shipped bfloat16 config, as T3 and T4 train
+    it."""
+    from repro_torch.configs import get_config
+
+    rw = dataclasses.replace(get_config("rwkv6-1.6b"), num_layers=T2_LAYERS)
+    zb = dataclasses.replace(get_config("zamba2-7b"), num_layers=6,
+                             n_units=1, remainder=())
+    return {"T2": _t2_model("T2", rw, kernels),
+            "T2-zamba2": _t2_model("T2-zamba2", zb, kernels)}
+
+
+def _config_t3(kernels, card: str) -> dict:
+    """Config T3: the LLCG round of rwkv6-1.6b uncut (24 layers at full
+    width; an OOM fails the phase), G=T3_G copies on the card, T3_ROUNDS rounds on
+    the trainer's batches (``_local_batches`` / ``_corr_batches`` on its
+    synthetic corpus): the losses finite, the copies equal after the
+    broadcast, exactly (G·K + S) × layers forward and backward scans a
+    round; then one profiled round, with the scan kernels' share of its
+    device time."""
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_corpus
+    from repro_torch.distributed import steps
+    from repro_torch.launch.train import (TrainConfig, _corr_batches,
+                                          _local_batches)
+    from repro_torch.models.transformer.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.utils.pytree import tree_bytes, tree_leaves, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("rwkv6-1.6b")
+    layers = cfg.num_layers
+    lm = LM(cfg)
+    g, k, s = T3_G, T3_K, T3_S
+    tcfg = TrainConfig(arch=cfg.name, smoke=False, batch_per_group=T3_BATCH,
+                       seq_len=T_SEQ, correction_steps=s, lr=T_LR,
+                       server_lr=T_SERVER_LR, seed=T_SEED)
+    t0 = time.perf_counter()
+    corpus = synthetic_corpus(cfg.vocab_size, num_shards=g,
+                              tokens_per_shard=max(T_SEQ * 64, 20_000),
+                              heterogeneity=tcfg.heterogeneity, seed=T_SEED)
+    corpus_s = time.perf_counter() - t0
+    rng = np.random.default_rng(T_SEED)
+    t0 = time.perf_counter()
+    params = lm.init(T_SEED, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    param_gb = tree_bytes(params) / 1e9
+    local_opt, server_opt = adamw(T_LR), adamw(T_SERVER_LR)
+    server = server_opt.init(params)
+    params_G = _stack_copies(params, g)
+    del params
+    opt_G = local_opt.init(params_G)
+    step = steps.build_llcg_round_step(
+        lm, local_opt, server_opt,
+        steps.LLCGStepConfig(num_groups=g, local_steps=k,
+                             correction_steps=s))
+    want = (g * k + s) * layers
+    rounds = []
+    for r in range(1, T3_ROUNDS + 2):
+        local = {n: x.cuda() for n, x in
+                 _local_batches(corpus, g, k, tcfg, rng).items()}
+        corr = {n: x.cuda() for n, x in
+                _corr_batches(corpus, tcfg, rng).items()}
+        out = {}
+
+        def one_round():
+            out["r"] = step(params_G, opt_G, server, local, corr)
+
+        if r <= T3_ROUNDS:
+            t0 = time.perf_counter()
+            _, counts = _serve_counts(kernels, one_round)
+            wall = time.perf_counter() - t0
+            _check(counts["linear_scan_chunked"] == want
+                   and counts["linear_scan_chunked_bwd"] == want,
+                   f"config T3 round {r} launched {counts}, not {want} "
+                   f"forward and {want} backward scans")
+        else:                           # one more round, profiled
+            busy = _device_busy_share(one_round, parts=(
+                "linear_scan_kernel", "linear_scan_bwd_kernel"))
+        params_G, opt_G, server, m = out["r"]
+        losses = (float(m["local_loss"]), float(m["corr_loss"]))
+        _check(all(math.isfinite(x) for x in losses),
+               f"config T3 round {r}: losses {losses}")
+        _check(all(torch.equal(x[0], x[i]) for x in tree_leaves(params_G)
+                   for i in range(1, g)),
+               f"config T3 round {r}: the {g} copies differ after the "
+               f"broadcast")
+        if r <= T3_ROUNDS:
+            rounds.append({"round": r, "local_loss": losses[0],
+                           "corr_loss": losses[1], "ms": wall * 1e3})
+    # one local step alone (machine 0's loss, gradient and Adam update)
+    view = tree_map(lambda x: x[0], params_G)
+    state = steps._state_map(opt_G, lambda x: x[0])
+    batch = {n: x[0, 0] for n, x in local.items()}
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grads = steps.value_and_grad(lm.loss, view, batch)
+        state = steps._update_in_place(local_opt, grads, state, view)
+        del grads
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = (g * k * T3_BATCH + s * 2 * T3_BATCH) * T_SEQ
+    round_ms = statistics.median(x["ms"] for x in rounds)
+    print(f"config T3: rwkv6-1.6b, {layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters ({param_gb:.3f} GB f32 a copy), G={g} "
+          f"K={k} S={s}, batch {T3_BATCH} x {T_SEQ} a machine, correction "
+          f"batch {2 * T3_BATCH}; corpus {corpus_s:.1f} s, init on the card "
+          f"{init_s:.1f} s")
+    for x in rounds:
+        print(f"config T3 round {x['round']}: local_loss "
+              f"{x['local_loss']:.6f} corr_loss {x['corr_loss']:.6f} "
+              f"{x['ms']:.1f} ms")
+    print(f"config T3 ({card}): {round_ms:.3f} ms per round (median of "
+          f"{T3_ROUNDS}), {statistics.median(step_ms):.3f} ms per local step"
+          f" (median of 3: {', '.join(f'{x:.1f}' for x in step_ms)}), "
+          f"{tokens / round_ms * 1e3:.1f} tokens trained per second "
+          f"({tokens} a round), peak {peak_gb:.3f} GB; {want} + {want} scan "
+          f"launches a round; busy share of one profiled round {busy}")
+    del params_G, opt_G, server, view, state, step, out
+    return {"T3": counts}
+
+
+def _config_t4(kernels, card: str) -> dict:
+    """Config T4: ``train()`` end to end.  rwkv6-1.6b uncut on the card
+    (G=1 from the host mesh, 3 rounds, K·ρ^r bucketed to 4, 4, 4, S=1,
+    checkpointed every round): finite losses, ``comm`` 2·G·(parameter MB)
+    a round, the round-3 checkpoint restoring equal to ``params_G[0]``,
+    exactly (K + S) × 24 forward and backward scans a round; prints, a
+    step, the most negative sum of log_w over 64 positions (where the JAX
+    package's chunk of 64 overflows past −88.7; rwkv6 scans in 8).  Then the JAX
+    package's ``test_system`` run (gemma3-1b smoke, 4 rounds) on the card
+    against the port on the CPU, losses within T_LOSS_TOL."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.store import restore_checkpoint
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.models.transformer import rwkv6 as R6
+    from repro_torch.utils.pytree import tree_bytes, tree_leaves, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_t4_")
+    try:
+        cfg = TrainConfig(arch="rwkv6-1.6b", smoke=False, rounds=3,
+                          base_k=2, rho=1.3, correction_steps=1,
+                          batch_per_group=4, seq_len=T_SEQ, ckpt_dir=ckpt)
+        sums = []
+        decay = R6._decay
+
+        def watched(params, xw):     # the sums the JAX chunk of 64 scales by
+            lw = decay(params, xw)
+            sums.append(lw.detach()[:, :64].sum(dim=1).min())
+            return lw
+
+        R6._decay = watched
+        try:
+            t0 = time.perf_counter()
+            (params_G, metrics), counts = _serve_counts(kernels,
+                                                        lambda: train(cfg))
+            wall = time.perf_counter() - t0
+        finally:
+            R6._decay = decay
+        per_step = torch.stack(sums).view(-1, 24).amin(dim=1).tolist()
+        past = [i for i, x in enumerate(per_step) if x < -88.7]
+        hist = metrics["history"]
+        g = params_G["embed"].shape[0]
+        first = tree_map(lambda x: x[0], params_G)
+        mb = tree_bytes(first) / 1e6
+        _check([h["k"] for h in hist] == [4, 4, 4],
+               f"config T4: K {[h['k'] for h in hist]}, not 4, 4, 4")
+        _check(all(math.isfinite(h["local_loss"])
+                   and math.isfinite(h["corr_loss"]) for h in hist),
+               f"config T4: losses {hist}")
+        _check(all(math.isclose(h["comm_mb"], r * 2 * g * mb, rel_tol=1e-12)
+                   for r, h in enumerate(hist, start=1)),
+               f"config T4: comm {[h['comm_mb'] for h in hist]}, not "
+               f"2·{g}·{mb} a round")
+        want = sum(h["k"] * g + cfg.correction_steps for h in hist) * 24
+        _check(counts["linear_scan_chunked"] == want
+               and counts["linear_scan_chunked_bwd"] == want,
+               f"config T4 launched {counts}, not {want} forward and {want} "
+               f"backward scans")
+        t0 = time.perf_counter()
+        restored, _, meta = restore_checkpoint(ckpt, first)
+        restore_s = time.perf_counter() - t0
+        _check(meta["step"] == 3 and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(restored),
+                                              tree_leaves(first))),
+               "config T4: the round-3 checkpoint does not restore "
+               "params_G[0]")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for h in hist:
+            print(f"config T4 round {h['round']}: K={h['k']} local_loss "
+                  f"{h['local_loss']:.6f} corr_loss {h['corr_loss']:.6f} "
+                  f"{h['seconds'] * 1e3:.1f} ms comm {h['comm_mb']:.2f} MB")
+        print(f"config T4: the most negative sum of log_w over a step's "
+              f"first 64 positions, a step: "
+              f"{', '.join(f'{x:.2f}' for x in per_step)}; past -88.7 (where "
+              f"a chunk of 64 overflows 1/P) from step "
+              f"{past[0] + 1 if past else None} of {len(per_step)}")
+        print(f"config T4 ({card}): train() of rwkv6-1.6b uncut, G={g}, "
+              f"{wall:.1f} s in all (init, 3 rounds, 3 checkpoints of "
+              f"{mb:.2f} MB); restore {restore_s:.1f} s; peak {peak_gb:.3f} "
+              f"GB; {counts['linear_scan_chunked']} + "
+              f"{counts['linear_scan_chunked_bwd']} scan launches")
+        del params_G, metrics, first, restored
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    small = TrainConfig(arch="gemma3-1b", smoke=True, rounds=4, base_k=1,
+                        rho=1.0, seq_len=64, batch_per_group=2)
+    (pg, mg), gemma = _serve_counts(kernels, lambda: train(small))
+    _no_launches("T4-gemma3", gemma)
+    pc, mc = train(small, device="cpu")
+    for a, b in zip(mg["history"], mc["history"]):
+        for what in ("local_loss", "corr_loss"):
+            _check(math.isfinite(a[what])
+                   and abs(a[what] - b[what]) <= T_LOSS_TOL * abs(b[what]),
+                   f"config T4-gemma3 round {a['round']} {what}: card "
+                   f"{a[what]} cpu {b[what]}")
+    print(f"config T4-gemma3: 4 rounds, card losses "
+          f"{[round(h['local_loss'], 6) for h in mg['history']]} within "
+          f"{T_LOSS_TOL} of the CPU's")
+    return {"T4": counts, "T4-gemma3": gemma}
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -3235,13 +3756,14 @@ def main(argv) -> int:
     from repro_torch.graph.datasets import sbm_graph
     from repro_torch.kernels import build
     from repro_torch.kernels.edge_softmax import edge_softmax
-    from repro_torch.kernels.linear_scan import linear_scan_chunked
+    from repro_torch.kernels.linear_scan import (linear_scan_chunked,
+                                                 linear_scan_chunked_bwd)
     from repro_torch.kernels.quantize import (MAX_SEGMENTS, dequantize_rows,
                                               quantize_rows)
     from repro_torch.kernels.linear_scan import ctas_per_sm
     from repro_torch.kernels.spmm import spmm_csr
     all_kernels = (spmm_csr, edge_softmax, quantize_rows, dequantize_rows,
-                   linear_scan_chunked)
+                   linear_scan_chunked, linear_scan_chunked_bwd)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "--id=0"],
@@ -3321,14 +3843,21 @@ def main(argv) -> int:
                                                     True, 60 + i))
                        for i, c in enumerate(round_sizes)]
         grouped_cases = _grouped_cases(round_table)
-        # RWKV6 serving: batch 4 × 32 heads, prompts of 192 and 77 (two
-        # chunks, the second ragged) tokens; a larger strict case with a
-        # carried state; the plain convention with a per-key decay (the
+        # RWKV6 serving: batch 4 × 32 heads, prompts of 192 and 77 tokens
+        # in rwkv6's chunks of 8 (the main path) and of 64 (the JAX
+        # package's chunk: two chunks, the second ragged); a larger strict
+        # case with a carried state; the plain convention with a per-key
+        # decay (the
         # JAX API's plain mode; no model path of the port runs it, Mamba2
         # takes the scalar-decay mode below)
-        scan_cases = [_scan_case(128, 192, 64, True, False, "slice", 40),
+        scan_cases = [_scan_case(128, 192, 64, True, False, "slice", 40,
+                                 chunk=RWKV6_CHUNK),
                       _scan_case(128, 77, 64, True, False, "slice ragged",
-                                 41),
+                                 49, chunk=RWKV6_CHUNK),
+                      _scan_case(128, 192, 64, True, False, "slice L=64",
+                                 50),
+                      _scan_case(128, 77, 64, True, False,
+                                 "slice ragged L=64", 41),
                       _scan_case(512, 2048, 64, True, True, "large", 42),
                       _scan_case(224, 1024, 64, False, True,
                                  "plain per-key decay", 43)]
@@ -3429,6 +3958,27 @@ def main(argv) -> int:
         mark("V")
         counts.update(_config_hb(all_kernels, card))
         mark("HB")
+        # T1: the scan's gradient kernel at rwkv6's training shape (batch 4
+        # x 32 heads, T 128, and a ragged 77, in rwkv6's chunks of 8),
+        # plain per-key with a carried
+        # state, and the scalar-decay mode at zamba2's (448, 192)
+        bwd_cases = [
+            _scan_bwd_case(128, 128, 64, "strict", False, "rwkv6 train", 80,
+                           chunk=RWKV6_CHUNK),
+            _scan_bwd_case(128, 77, 64, "strict", False, "rwkv6 ragged", 81,
+                           chunk=RWKV6_CHUNK),
+            _scan_bwd_case(128, 192, 64, "plain", True, "plain per-key h0",
+                           82),
+            _scan_bwd_case(448, 192, 64, "scalar", False, "zamba2", 83)]
+        for c in bwd_cases:
+            print(f"linear_scan_chunked_bwd {json.dumps(c)}")
+        mark("T1")
+        counts.update(_config_t2(all_kernels))
+        mark("T2")
+        counts.update(_config_t3(all_kernels, card))
+        mark("T3")
+        counts.update(_config_t4(all_kernels, card))
+        mark("T4")
         if baseline is not None:
             _compare(baseline, {
                 "quant": [list(s[:3]) for s in quant_shapes],
@@ -3464,6 +4014,10 @@ def main(argv) -> int:
         row("linear_scan_chunked", "cuda",
             "src/repro_torch/kernels/csrc/linear_scan.cu",
             "src/repro/kernels/linear_scan.py:108", scan_cases[0], "E"),
+        row("linear_scan_chunked_bwd", "cuda",
+            "src/repro_torch/kernels/csrc/linear_scan_bwd.cu",
+            "none: the JAX package differentiates its jnp chunked scan",
+            bwd_cases[0], "T3"),
     ]
     # the paths on which no hand-written kernel launched (the dense and MoE
     # stacks, the frontends): each was gated at 0 where it ran

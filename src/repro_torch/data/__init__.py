@@ -1,1 +1,2 @@
-"""Per-machine graph loaders and round sampling (numpy)."""
+"""Per-machine graph loaders and round sampling, and the synthetic token
+corpora of LM training (numpy)."""

@@ -1,0 +1,228 @@
+"""Step builders for LM training: the fully synchronous baseline, the LLCG
+round step, and the serving (prefill / decode) steps — the port of the JAX
+package's ``distributed/steps.py``.
+
+The LLCG round step is the paper's Algorithm 2:
+
+  1. **Local phase** — each of the G machines takes K optimizer steps on
+     its own batches.  Where the JAX package ``vmap``\\ s the G chains, the
+     port runs them one after another on the device (the scan kernel has
+     no batching rule); nothing crosses machines here.
+  2. **Parameter averaging** — the mean over G, in f32 (or of bf16-cast
+     parameters with ``avg_bf16``; the paper's line 12).
+  3. **Server correction** — S steps on globally mixed batches with the
+     *server* optimizer (lines 13-18).
+  4. **Broadcast** — the corrected model refills the G copies (line 3 of
+     the next round).
+
+Parameters and optimizer states are nested dicts of tensors
+(:mod:`repro_torch.utils.pytree`); a stacked tree has a leading (G, …) axis
+on every leaf.  Gradients are torch autograd of ``LM.loss``
+(:func:`value_and_grad`); ``remat`` recomputes each step's forward in the
+backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
+
+Memory.  The round step updates ``params_G``, the stacked local optimizer
+state and the server state in place, leaf by leaf (as a donated argument of
+a jitted JAX step would be), and returns them: on top of the states it
+holds one machine's gradients, the average and one leaf's update at a time.
+Callers that keep the inputs pass copies.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+import torch.utils.checkpoint
+
+from repro_torch.models.transformer.model import LM
+from repro_torch.optim.optimizers import Optimizer, apply_updates
+from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class LLCGStepConfig:
+    num_groups: int          # G = P local machines
+    local_steps: int = 1     # K for this round
+    correction_steps: int = 1  # S
+    remat: bool = False      # recompute the forward in the backward pass
+    avg_bf16: bool = False   # average bf16-cast params (halves the
+                             # inter-group bytes; beyond-paper §Perf lever)
+
+
+def _loss_fn(model: LM, remat: bool) -> Callable:
+    if not remat:
+        return model.loss
+
+    def loss(params, batch):
+        return torch.utils.checkpoint.checkpoint(model.loss, params, batch,
+                                                 use_reentrant=False)
+    return loss
+
+
+def value_and_grad(loss_fn: Callable, params: Dict, batch: Dict
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """``(loss, grads)`` of ``loss_fn(params, batch)`` — ``jax.
+    value_and_grad``: grads in ``params``' structure (zeros for a leaf the
+    loss does not read), the loss detached."""
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def _state_leaf(state: Any, i: int) -> Any:
+    """The optimizer state restricted to leaf ``i``: each field that is a
+    tree (moments, velocity) becomes ``{"x": its leaf i}``, the rest (the
+    step count) stays."""
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_state_leaf(f, i) for f in state))
+    if isinstance(state, dict):
+        return {"x": tree_leaves(state)[i]}
+    return state
+
+
+def _state_map(state: Any, fn: Callable) -> Any:
+    """``fn`` over every tensor of the state's trees (the step count
+    stays)."""
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_state_map(f, fn) for f in state))
+    if isinstance(state, dict):
+        return tree_map(fn, state)
+    return state
+
+
+def _update_in_place(optimizer: Optimizer, grads: Dict, state: Any,
+                     params: Dict) -> Any:
+    """One optimizer step written into ``params`` and ``state``'s tensors,
+    a leaf at a time: each leaf runs ``optimizer.update`` on its own (the
+    same elementwise arithmetic as the whole tree) and
+    :func:`~repro_torch.optim.optimizers.apply_updates`, so the transient
+    memory is one leaf's.  Returns the new state (its step count advanced,
+    its tensors the ones passed in)."""
+    p_leaves = tree_leaves(params)
+    g_leaves = tree_leaves(grads)
+    new = state
+    for i, (p, g) in enumerate(zip(p_leaves, g_leaves)):
+        sub = _state_leaf(state, i)
+        upd, new_sub = optimizer.update({"x": g}, sub, {"x": p})
+        with torch.no_grad():
+            p.copy_(apply_updates({"x": p}, upd)["x"])
+            _copy_state(sub, new_sub)
+        new = new_sub
+    return _with_trees(state, new)
+
+
+def _copy_state(dst: Any, src: Any) -> None:
+    if isinstance(dst, tuple) and hasattr(dst, "_fields"):
+        for d, s in zip(dst, src):
+            _copy_state(d, s)
+    elif isinstance(dst, dict):
+        dst["x"].copy_(src["x"])
+
+
+def _with_trees(state: Any, new: Any) -> Any:
+    """``state``'s trees (updated in place) with ``new``'s other fields."""
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_with_trees(s, n) for s, n in zip(state, new)))
+    return state if isinstance(state, dict) else new
+
+
+def build_sync_train_step(model: LM, optimizer: Optimizer,
+                          remat: bool = False) -> Callable:
+    """Fully synchronous data-parallel step (the PSGD per-step-sync baseline
+    and the §Perf comparison point): ``(params, opt_state, batch) →
+    (params, opt_state, loss)``, functional."""
+    loss_fn = _loss_fn(model, remat)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    return train_step
+
+
+def build_llcg_round_step(model: LM, local_opt: Optimizer,
+                          server_opt: Optimizer,
+                          step_cfg: LLCGStepConfig) -> Callable:
+    """One LLCG round (K local steps · G machines + averaging + S
+    corrections).
+
+    Args to the returned function, as the JAX package's:
+      params_G     — tree stacked (G, …)
+      local_opt_G  — ``local_opt.init(params_G)``: its trees stacked (G, …),
+                     one step count for all G (every machine takes K steps)
+      server_state — server optimizer state (unstacked)
+      local_batch  — leaves (G, K, B_local, …)
+      corr_batch   — leaves (S, B_server, …)
+    Returns ``(params_G, local_opt_G, server_state, metrics)``, the first
+    three updated in place (module docstring); ``metrics`` holds the mean
+    ``local_loss`` (over G of each machine's mean over K) and ``corr_loss``
+    (over S), 0-d f32 tensors.
+    """
+    g_count = step_cfg.num_groups
+    loss_fn = _loss_fn(model, step_cfg.remat)
+
+    def round_step(params_G, local_opt_G, server_state, local_batch,
+                   corr_batch):
+        # 1. local training, machine by machine (no inter-group traffic)
+        local_losses = []
+        new_local = local_opt_G
+        for g in range(g_count):
+            p = tree_map(lambda x: x[g], params_G)
+            o = _state_map(local_opt_G, lambda x: x[g])
+            losses = []
+            for i in range(step_cfg.local_steps):
+                batch = {k: v[g, i] for k, v in local_batch.items()}
+                loss, grads = value_and_grad(loss_fn, p, batch)
+                o = _update_in_place(local_opt, grads, o, p)
+                del grads
+                losses.append(loss)
+            local_losses.append(torch.stack(losses).mean())
+            new_local = _with_trees(local_opt_G, o)
+
+        # 2. parameter averaging across the machines (Alg. 2, line 12)
+        with torch.no_grad():
+            if step_cfg.avg_bf16:
+                avg = tree_map(lambda x: x.to(torch.bfloat16).float().mean(0)
+                               .to(torch.bfloat16).to(x.dtype)
+                               if x.dtype == torch.float32 else x.mean(0),
+                               params_G)
+            else:
+                avg = tree_map(lambda x: x.mean(0), params_G)
+
+        # 3. server correction: S global synchronous steps (lines 13-18)
+        corr_losses = []
+        for s in range(len(next(iter(corr_batch.values())))):
+            batch = {k: v[s] for k, v in corr_batch.items()}
+            loss, grads = value_and_grad(loss_fn, avg, batch)
+            server_state = _update_in_place(server_opt, grads, server_state,
+                                            avg)
+            del grads
+            corr_losses.append(loss)
+
+        # 4. broadcast the corrected model to every machine (line 3)
+        with torch.no_grad():
+            tree_map(lambda x, a: x.copy_(a.expand_as(x)), params_G, avg)
+        metrics = {"local_loss": torch.stack(local_losses).mean(),
+                   "corr_loss": torch.stack(corr_losses).mean()}
+        return params_G, new_local, server_state, metrics
+
+    return round_step
+
+
+def build_prefill_step(model: LM, max_seq: int) -> Callable:
+    def prefill(params, batch):
+        return model.prefill(params, batch, max_seq=max_seq)
+    return prefill
+
+
+def build_decode_step(model: LM, max_seq: int) -> Callable:
+    def decode(params, states, token, position):
+        return model.decode_step(params, states, token, position,
+                                 max_seq=max_seq)
+    return decode

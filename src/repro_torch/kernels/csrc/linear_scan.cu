@@ -8,7 +8,10 @@
 //   strict: y_t = h_{t-1}^T q_t + (q_t . (u (*) k_t)) v_t
 // Operands (all f32, contiguous): q, k, log_w (BH, T, dk); v (BH, T, dv);
 // h0 (BH, dk, dv) or null (zeros); u (BH, dk) or null (no bonus; strict
-// only).  Outputs y (BH, T, dv) and h_T (BH, dk, dv).  chunk, dk, dv <= 64.
+// only).  Outputs y (BH, T, dv) and h_T (BH, dk, dv), and when asked for
+// (the gradient's saved states, csrc/linear_scan_bwd.cu) h_in (BH,
+// ceil(T/chunk), dk, dv), the state at the start of each chunk.  chunk, dk,
+// dv <= 64.
 // T is any length: the last chunk's missing steps read as q = k = v = 0,
 // log_w = 0 (decay 1, no input), which is the padding the reference takes,
 // and their y is not written.
@@ -228,6 +231,7 @@ struct Args {
   const float* u;
   float* y;
   float* h_out;
+  float* h_in;                        // chunk-start states, or null
   int t_len, dk, dv, chunk;
   bool vec_qk, vec_lw, vec_v;         // 16-byte copies of q and k, ...
 };
@@ -390,6 +394,14 @@ linear_scan_kernel(const Args a) {
     const int n = min(a.chunk, a.t_len - c0);
     cp_async_wait_prior();               // this chunk's q, k and log_w
     __syncthreads();
+    if (a.h_in != nullptr) {             // h_in of the chunk, this CTA's slab
+      const long long nch = (a.t_len + a.chunk - 1) / a.chunk;
+      float* dst = a.h_in + (bh * nch + c0 / a.chunk) * a.dk * a.dv + col0;
+      for (int e = tid; e < a.dk * kSlab; e += kThreads) {
+        const int j = e / kSlab, c = e % kSlab;
+        if (c < wv) dst[(long long)j * a.dv + c] = sh[j * kVS + c];
+      }
+    }
 
     if constexpr (kScalar) {
       // ---- the chunk's decays: warp 0 scans log_w, two steps a lane
@@ -748,13 +760,14 @@ int ctas_per_sm() {
 }  // namespace
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// h0 and u may be null; u is read only when strict != 0.  Any T >= 0.
+// h0, u and h_in may be null; u is read only when strict != 0.  Any T >= 0.
 // scalar != 0: log_w is (BH, T), one decay per step and batch·head (the
 // plain convention only).
 extern "C" int linear_scan_chunked_f32(const float* q, const float* k,
                                        const float* v, const float* log_w,
                                        const float* h0, const float* u,
-                                       float* y, float* h_out, int bh, int t,
+                                       float* y, float* h_out, float* h_in,
+                                       int bh, int t,
                                        int dk, int dv, int chunk, int strict,
                                        int scalar, void* stream) {
   if (chunk < 1 || chunk > kMax || dk < 1 || dk > kMax || dv < 1 ||
@@ -765,7 +778,7 @@ extern "C" int linear_scan_chunked_f32(const float* q, const float* k,
   auto aligned = [](const float* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
-  Args a{q, k, v, log_w, h0, u, y, h_out, t, dk, dv, chunk,
+  Args a{q, k, v, log_w, h0, u, y, h_out, h_in, t, dk, dv, chunk,
          dk % 4 == 0 && aligned(q) && aligned(k),
          dk % 4 == 0 && aligned(log_w), dv % 4 == 0 && aligned(v)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

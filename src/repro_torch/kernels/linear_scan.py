@@ -10,12 +10,16 @@ every exponent ≤ 0, where the reference's factored form overflows f32.
 The kernel (``csrc/linear_scan.cu``) runs two CTAs per batch·head, each
 owning 32 dv columns of the state in shared memory, and walks the chunks in
 order, loading the next chunk's tiles while the current one computes; a
-ragged T is masked inside the kernel.  The plain versions are
+ragged T is masked inside the kernel.  Asked for them (``save_states``), it
+also writes the state at the start of each chunk, which the gradient's
+kernel (``csrc/linear_scan_bwd.cu``, :func:`linear_scan_chunked_bwd`)
+reads.  The plain versions are
 :func:`repro_torch.kernels.ref.chunked_scan_ref` and, for the scalar
 decay, :func:`~repro_torch.kernels.ref.chunked_scan_scalar_ref`, which take
 whole chunks: on a CPU tensor the wrapper pads a ragged T for them.  On a
 CUDA tensor the wrapper launches the kernel or raises, and counts the
-launch in ``linear_scan_chunked.launches``.
+launch in ``linear_scan_chunked.launches``; the gradient's wrapper counts
+its own in ``linear_scan_chunked_bwd.launches``.
 """
 from __future__ import annotations
 
@@ -25,12 +29,14 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import chunked_scan_ref, chunked_scan_scalar_ref
+from repro_torch.kernels.ref import (chunked_scan_ref, chunked_scan_scalar_ref,
+                                     linear_scan_vjp_ref)
 
 #: chunk, dk and dv limit of the kernel's shared-memory tiles
 MAX_DIM = 64
 
 _ENTRY = []
+_BWD = []
 
 
 def _kernel():
@@ -38,7 +44,7 @@ def _kernel():
     if not _ENTRY:
         lib = build.load("linear_scan")
         fn = lib.linear_scan_chunked_f32
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         occ = lib.linear_scan_ctas_per_sm
@@ -46,6 +52,18 @@ def _kernel():
         occ.restype = ctypes.c_int
         _ENTRY.extend((fn, occ))
     return _ENTRY[0]
+
+
+def _bwd_kernel():
+    """The ctypes entry of ``csrc/linear_scan_bwd.cu``, built at first
+    use."""
+    if not _BWD:
+        fn = build.load("linear_scan_bwd").linear_scan_bwd_f32
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _BWD.append(fn)
+    return _BWD[0]
 
 
 def ctas_per_sm(strict: bool, scalar_decay: bool = False) -> int:
@@ -64,8 +82,8 @@ def linear_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         log_w: torch.Tensor,
                         h0: Optional[torch.Tensor] = None,
                         u: Optional[torch.Tensor] = None, chunk: int = 64,
-                        strict: bool = False, ragged: bool = False
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        strict: bool = False, ragged: bool = False,
+                        save_states: bool = False) -> Tuple[torch.Tensor, ...]:
     """Batched chunked scan.
 
     q,k: (BH, T, dk); v: (BH, T, dv); log_w: (BH, T, dk), or (BH, T) for
@@ -74,7 +92,10 @@ def linear_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strict-mode bonus or None.  ``T % chunk == 0`` unless ``ragged``: then
     the last chunk's missing steps count as zero inputs with decay 1
     (``h_T`` unchanged by them), masked in the kernel and padded for the
-    plain version.  Returns (y (BH,T,dv) f32, h_T (BH,dk,dv) f32).
+    plain version.  Returns (y (BH,T,dv) f32, h_T (BH,dk,dv) f32), and with
+    ``save_states`` (CUDA tensors only: the plain version's gradient
+    recomputes) also the chunk-start states h_in (BH, ⌈T/chunk⌉, dk, dv)
+    f32 that :func:`linear_scan_chunked_bwd` reads.
     """
     scalar = log_w.dim() == 2
     if q.dim() != 3 or k.shape != q.shape \
@@ -97,6 +118,9 @@ def linear_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"chunk must be in [1, {MAX_DIM}] and divide "
                          f"T={t}, got {chunk}")
     if q.device.type == "cpu":
+        if save_states:
+            raise ValueError("save_states is for the kernel: on the CPU the "
+                             "gradient recomputes the plain version")
         pad = -t % chunk
         if pad:                   # q = k = v = 0, log_w = 0: no input, decay 1
             q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad))
@@ -125,19 +149,105 @@ def linear_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     u = None if u is None or not strict else u.contiguous()
     y = torch.empty((bh, t, dv), dtype=torch.float32, device=q.device)
     h_t = torch.empty((bh, dk, dv), dtype=torch.float32, device=q.device)
+    h_in = torch.empty((bh, -(-t // chunk), dk, dv), dtype=torch.float32,
+                       device=q.device) if save_states else None
+    out = (y, h_t, h_in) if save_states else (y, h_t)
     if bh == 0:
-        return y, h_t
-    ptr = lambda x: None if x is None else x.data_ptr()
+        return out
     err = build.launch_on(q.get_device(), _kernel(), q.data_ptr(),
                           k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-                          ptr(h0), ptr(u), y.data_ptr(), h_t.data_ptr(), bh,
-                          t, dk, dv, chunk, int(strict), int(scalar))
+                          _ptr(h0), _ptr(u), y.data_ptr(), h_t.data_ptr(),
+                          _ptr(h_in), bh, t, dk, dv, chunk, int(strict),
+                          int(scalar))
     if err != 0:
         raise RuntimeError(f"linear_scan_chunked kernel launch failed "
                            f"(cudaError {err})")
     linear_scan_chunked.launches += 1
-    return y, h_t
+    return out
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def linear_scan_chunked_bwd(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, log_w: torch.Tensor,
+                            h0: Optional[torch.Tensor],
+                            u: Optional[torch.Tensor],
+                            h_in: Optional[torch.Tensor],
+                            h_t: Optional[torch.Tensor], dy: torch.Tensor,
+                            dh_t: Optional[torch.Tensor], chunk: int = 64,
+                            strict: bool = False
+                            ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The gradient of :func:`linear_scan_chunked` (``ragged=True``) for
+    output cotangents ``dy`` (BH, T, dv) and ``dh_t`` (BH, dk, dv) or None
+    (h_T unused).
+
+    Returns ``(dq, dk, dv, dlog_w, dh0, du)`` in the operands' shapes;
+    ``dh0`` is None without ``h0``, ``du`` without ``u`` or when not
+    ``strict`` (the plain convention reads no bonus).  On a CUDA tensor
+    the kernel ``csrc/linear_scan_bwd.cu`` walks the chunks in reverse from
+    the forward's saved chunk-start states ``h_in`` and its ``h_t`` (both
+    from ``linear_scan_chunked(..., save_states=True)``), launching once
+    (counted in ``linear_scan_chunked_bwd.launches``) or raising; on a CPU
+    tensor the plain version
+    :func:`~repro_torch.kernels.ref.linear_scan_vjp_ref` (torch autograd of
+    the chunked reference) recomputes from the operands and ignores
+    ``h_in`` and ``h_t``.
+    """
+    u = u if strict else None
+    if q.device.type == "cpu":
+        return linear_scan_vjp_ref(q, k, v, log_w, h0, u, dy, dh_t,
+                                   chunk=chunk, strict=strict)
+    scalar = log_w.dim() == 2
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    if h_in is None or h_t is None:
+        raise ValueError("the kernel reads the forward's saved states: "
+                         "pass h_in and h_t from linear_scan_chunked(..., "
+                         "save_states=True)")
+    if h_in.shape != (bh, -(-t // chunk), dk, dv):
+        raise ValueError(f"h_in must be {(bh, -(-t // chunk), dk, dv)}, got "
+                         f"{tuple(h_in.shape)}")
+    ops = [x for x in (q, k, v, log_w, h0, u, h_in, h_t, dy, dh_t)
+           if x is not None]
+    if q.device.type != "cuda" or any(x.device != q.device for x in ops):
+        raise ValueError(f"linear_scan_chunked_bwd runs on cpu or cuda, with "
+                         f"every operand on one device; got "
+                         f"{[str(x.device) for x in ops]}")
+    if any(x.dtype != torch.float32 for x in ops):
+        raise ValueError("linear_scan_chunked_bwd takes float32 operands, "
+                         f"got {[x.dtype for x in ops]}")
+    if dk > MAX_DIM or dv > MAX_DIM or not 1 <= chunk <= MAX_DIM:
+        raise ValueError(f"the kernel takes chunk, dk, dv <= {MAX_DIM}, got "
+                         f"{chunk}, {dk}, {dv}")
+    q, k, v, log_w, h_in, h_t, dy = (x.contiguous() for x in
+                                     (q, k, v, log_w, h_in, h_t, dy))
+    u = None if u is None else u.contiguous()
+    dh_t = None if dh_t is None else dh_t.contiguous()
+    dq, dk_, dv_, dlw = (torch.empty_like(x) for x in (q, k, v, log_w))
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    du = None if u is None else torch.empty_like(u)
+    if bh == 0 or t == 0:
+        for x in (dq, dk_, dv_, dlw, dh0, du):
+            if x is not None:
+                x.zero_()
+        if dh0 is not None and dh_t is not None:
+            dh0.copy_(dh_t)               # T = 0: h_T is h0
+        return dq, dk_, dv_, dlw, dh0, du
+    err = build.launch_on(
+        q.get_device(), _bwd_kernel(), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), log_w.data_ptr(), _ptr(u), h_in.data_ptr(),
+        None if dh_t is None else h_t.data_ptr(), dy.data_ptr(), _ptr(dh_t),
+        dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), dlw.data_ptr(),
+        _ptr(dh0), _ptr(du), bh, t, dk, dv, chunk, int(strict), int(scalar))
+    if err != 0:
+        raise RuntimeError(f"linear_scan_chunked_bwd kernel launch failed "
+                           f"(cudaError {err})")
+    linear_scan_chunked_bwd.launches += 1
+    return dq, dk_, dv_, dlw, dh0, du
 
 
 #: Kernel launches since the last reset (the plain CPU path never counts).
 linear_scan_chunked.launches = 0
+linear_scan_chunked_bwd.launches = 0

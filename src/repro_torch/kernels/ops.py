@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels.edge_softmax import edge_softmax
-from repro_torch.kernels.linear_scan import linear_scan_chunked
+from repro_torch.kernels.linear_scan import (linear_scan_chunked,
+                                            linear_scan_chunked_bwd)
 from repro_torch.kernels.quantize import (dequantize_rows,
                                          dequantize_rows_many, quantize_rows)
 from repro_torch.kernels.ref import edge_softmax_alpha
@@ -136,6 +137,44 @@ def dequantize_int8_rows_many(vals: List[torch.Tensor],
 # --------------------------------------------------------------------------
 # Gated linear scan (Mamba2 / RWKV6)
 # --------------------------------------------------------------------------
+class _LinearScan(torch.autograd.Function):
+    """The scan with a hand-written gradient, in all three modes (strict
+    with ``u``, plain per-key, scalar decay).
+
+    On the card the forward kernel also writes the chunk-start states,
+    saved with h_T for the gradient's kernel, which walks the chunks in
+    reverse from them; on the CPU the backward recomputes the plain
+    version under autograd.  Either way one backward call per forward
+    (:func:`~repro_torch.kernels.linear_scan.linear_scan_chunked_bwd`).
+    An unused h_T passes no cotangent.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_w, h0, u, chunk, strict):
+        ctx.set_materialize_grads(False)
+        saved = q.device.type == "cuda"
+        out = linear_scan_chunked(q, k, v, log_w, h0, u=u, chunk=chunk,
+                                  strict=strict, ragged=True,
+                                  save_states=saved)
+        y, h_t = out[:2]
+        ctx.save_for_backward(q, k, v, log_w, h0, u,
+                              out[2] if saved else None, h_t)
+        ctx.chunk, ctx.strict = chunk, strict
+        return y, h_t
+
+    @staticmethod
+    def backward(ctx, dy, dh_t):
+        q, k, v, log_w, h0, u, h_in, h_t = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros((*q.shape[:2], v.shape[-1]), dtype=torch.float32,
+                             device=q.device)
+        grads = linear_scan_chunked_bwd(q, k, v, log_w, h0, u, h_in, h_t,
+                                        dy.float(), None if dh_t is None
+                                        else dh_t.float(), chunk=ctx.chunk,
+                                        strict=ctx.strict)
+        return (*grads, None, None)
+
+
 def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 log_w: torch.Tensor, h0: Optional[torch.Tensor] = None,
                 chunk: int = 64, strict: bool = False,
@@ -155,9 +194,17 @@ def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (q = k = v = 0, log_w = 0: decay 1 and no input, so ``h_T`` is
     unchanged) and ``y`` cut back to T — where the JAX op leaves its kernel
     for the oracle.
+
+    Where autograd records (an operand requires grad), the call goes
+    through :class:`_LinearScan`, whose backward is the hand-written
+    gradient kernel on the card; otherwise (serving) the forward kernel
+    runs alone and saves nothing.
     """
-    return linear_scan_chunked(q.float(), k.float(), v.float(),
-                               log_w.float(),
-                               None if h0 is None else h0.float(),
-                               u=None if u is None else u.float(),
-                               chunk=chunk, strict=strict, ragged=True)
+    args = (q.float(), k.float(), v.float(), log_w.float(),
+            None if h0 is None else h0.float(),
+            None if u is None or not strict else u.float())
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad
+                                       for x in args):
+        return _LinearScan.apply(*args, chunk, strict)
+    return linear_scan_chunked(*args[:5], u=args[5], chunk=chunk,
+                               strict=strict, ragged=True)

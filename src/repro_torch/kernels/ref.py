@@ -230,3 +230,51 @@ def chunked_scan_scalar_ref(q: torch.Tensor, k: torch.Tensor,
         h = torch.exp(c_l)[:, :, None] * h + torch.einsum(
             "bsd,bsv->bdv", kx * torch.exp(c_l - c)[:, :, None], vx)
     return torch.cat(ys, dim=1), h
+
+
+def linear_scan_vjp_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        log_w: torch.Tensor, h0: torch.Tensor | None,
+                        u: torch.Tensor | None, dy: torch.Tensor,
+                        dh_t: torch.Tensor | None, chunk: int = 64,
+                        strict: bool = False
+                        ) -> tuple[torch.Tensor | None, ...]:
+    """The scan's gradient as torch autograd of :func:`chunked_scan_ref`
+    (``log_w`` (BH, T, dk)) or :func:`chunked_scan_scalar_ref` (``log_w``
+    (BH, T)) — the plain version of ``csrc/linear_scan_bwd.cu``.
+
+    A ragged T is zero-padded as the forward's wrapper pads it (the
+    padding gets no gradient).  ``dy`` (BH, T, dv) and ``dh_t`` (BH, dk,
+    dv) or None are the cotangents of y and h_T.  Returns ``(dq, dk, dv,
+    dlog_w, dh0, du)`` in f32, ``dh0`` None without ``h0`` and ``du`` None
+    without ``u`` or when not ``strict``.
+    """
+    scalar = log_w.dim() == 2
+    u = u if strict else None
+    with torch.enable_grad():
+        ins = [None if x is None else x.detach().float().requires_grad_(True)
+               for x in (q, k, v, log_w, h0, u)]
+        t = q.shape[1]
+        pad = -t % chunk
+        qq, kk, vv = (torch.nn.functional.pad(x, (0, 0, 0, pad))
+                      for x in ins[:3])
+        lw = torch.nn.functional.pad(ins[3],
+                                     (0, pad) if scalar else (0, 0, 0, pad))
+        if scalar:
+            y, h_t = chunked_scan_scalar_ref(qq, kk, vv, lw, ins[4],
+                                             chunk=chunk)
+        else:
+            y, h_t = chunked_scan_ref(qq, kk, vv, lw, ins[4], chunk=chunk,
+                                      strict=strict, u=ins[5])
+        outs, cots = [y[:, :t]], [dy.float()]
+        if dh_t is not None:
+            outs.append(h_t)
+            cots.append(dh_t.float())
+        used = [x for x in ins if x is not None]
+        grads = iter(torch.autograd.grad(outs, used, cots,
+                                         allow_unused=True))
+        out = []
+        for x in ins:
+            g = None if x is None else next(grads)
+            out.append(torch.zeros_like(x) if x is not None and g is None
+                       else g)
+    return tuple(out)

@@ -1,3 +1,3 @@
-"""Launch helpers: preemption-safe resume of plan runs
-(:mod:`repro_torch.launch.train`) and the machine groups of the
-``shard_map`` backend (:mod:`repro_torch.launch.mesh`)."""
+"""Launch helpers: the LM trainer and preemption-safe resume of plan runs
+(:mod:`repro_torch.launch.train`), the machine groups of the ``shard_map``
+backend and the trainer's host mesh (:mod:`repro_torch.launch.mesh`)."""

@@ -218,3 +218,27 @@ def launch_machines(fn: Callable, num_machines: int, *args,
         torch.set_num_threads(threads)
         torch.use_deterministic_algorithms(was_det)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class HostMesh:
+    """The LM trainer's machine grid on this host: ``shape`` maps the
+    JAX package's axis names (``"data"``, ``"model"``) to their sizes, and
+    every LLCG copy lives on ``device``."""
+
+    shape: Dict[str, int]
+    device: torch.device
+
+
+def make_host_mesh(model_parallel: int = 1, device="cuda") -> HostMesh:
+    """Whatever this host has, as the JAX package's ``make_host_mesh``:
+    the devices of ``device``'s type (the visible cards, or the one CPU)
+    split into ``data`` × ``model`` = n / model_parallel × model_parallel.
+    The trainer's LLCG group axis is ``data``."""
+    dev = torch.device(device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if model_parallel < 1 or n % model_parallel:
+        raise ValueError(f"{n} {dev.type} device(s) do not split into "
+                         f"model_parallel={model_parallel}")
+    return HostMesh(shape={"data": n // model_parallel,
+                           "model": model_parallel}, device=dev)

@@ -1,16 +1,149 @@
-"""Preemption-safe entry points for plan-API (GNN) runs — the port of
-``resume`` and ``run_or_resume`` from the JAX package's ``launch/train.py``.
+"""End-to-end LM trainer — LLCG over any registered architecture — and
+preemption-safe entry points for plan-API (GNN) runs: the port of the JAX
+package's ``launch/train.py``.
 
-The LM pre-training driver of that module (``train`` / ``TrainConfig``)
-comes with the transformer training step (ROADMAP Queue 1 item 13.4).
+``train`` implements Algorithm 2 end to end: per round r it runs K·ρ^r
+local steps on every LLCG machine (K bucketed to powers of two, as the JAX
+package does: the round runs ``k_pow2`` steps), averages, corrects with S
+global steps, checkpoints, and logs the byte accounting the paper reports.
+The machines are the host mesh's ``data`` axis (the cards of the trainer's
+device type, one CPU), every copy on ``device``; the production meshes and
+model parallelism come with the sharded step (ROADMAP.md Queue 1 item 14).
+
+Run:  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b
+      [--device cpu]
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from typing import Optional
 
+import numpy as np
+import torch
+
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.store import save_checkpoint
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.engine import History
 from repro_torch.core.plan import TrainPlan, build_trainer
+from repro_torch.core.schedules import local_epoch_schedule
+from repro_torch.data.tokens import TokenDataset, synthetic_corpus
+from repro_torch.distributed.steps import (LLCGStepConfig,
+                                           build_llcg_round_step)
+from repro_torch.launch.mesh import HostMesh, make_host_mesh
+from repro_torch.models.transformer.model import LM
+from repro_torch.optim import adamw
+from repro_torch.utils.logging import Timer, get_logger
+from repro_torch.utils.pytree import tree_bytes, tree_map
+
+log = get_logger("repro_torch.train")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    arch: str = "gemma3-1b"
+    smoke: bool = True               # reduced config (CPU-friendly)
+    rounds: int = 8
+    base_k: int = 2                  # K
+    rho: float = 1.3                 # ρ
+    correction_steps: int = 1        # S
+    batch_per_group: int = 4
+    seq_len: int = 128
+    lr: float = 3e-4
+    server_lr: float = 1e-4
+    heterogeneity: float = 0.6
+    seed: int = 0
+    ckpt_dir: Optional[str] = None
+    mesh: str = "host"               # host | production | production-multipod
+    model_parallel: int = 1
+
+
+def make_mesh(cfg: TrainConfig, device="cuda") -> HostMesh:
+    """The host mesh (:func:`~repro_torch.launch.mesh.make_host_mesh`);
+    the production meshes and ``model_parallel > 1`` raise: they come with
+    the sharded step, ROADMAP.md Queue 1 item 14."""
+    if cfg.mesh in ("production", "production-multipod"):
+        raise NotImplementedError(
+            f"mesh={cfg.mesh!r} is not ported: the production meshes come "
+            f"with the sharded step (ROADMAP.md Queue 1 item 14)")
+    if cfg.mesh != "host":
+        raise ValueError(f"unknown mesh {cfg.mesh!r}; choose host, "
+                         f"production or production-multipod")
+    if cfg.model_parallel > 1:
+        raise NotImplementedError(
+            f"model_parallel={cfg.model_parallel} is not ported: model "
+            f"parallelism comes with the sharded step (ROADMAP.md Queue 1 "
+            f"item 14)")
+    return make_host_mesh(model_parallel=cfg.model_parallel, device=device)
+
+
+def train(cfg: TrainConfig, device="cuda"):
+    """Run ``cfg.rounds`` LLCG rounds on ``device`` (the GPU unless the
+    caller passes another).  Returns ``(params_G, metrics)`` as the JAX
+    package does: the G copies stacked (G, …) and the last round's
+    ``local_loss`` / ``corr_loss``; ``metrics["history"]`` adds one dict a
+    round (``round``, ``k``, ``local_loss``, ``corr_loss``, ``seconds``,
+    ``comm_mb``, the numbers of the log line)."""
+    mesh = make_mesh(cfg, device)
+    device = mesh.device
+    G = mesh.shape["data"]
+    mcfg = get_smoke_config(cfg.arch) if cfg.smoke else get_config(cfg.arch)
+    model = LM(mcfg)
+    log.info("arch=%s G=%d mesh=%s layers=%d d=%d", mcfg.name, G,
+             dict(mesh.shape), mcfg.num_layers, mcfg.d_model)
+
+    corpus = synthetic_corpus(mcfg.vocab_size, num_shards=G,
+                              tokens_per_shard=max(cfg.seq_len * 64, 20_000),
+                              heterogeneity=cfg.heterogeneity, seed=cfg.seed)
+    rng = np.random.default_rng(cfg.seed)
+
+    params = model.init(cfg.seed, device)
+    local_opt, server_opt = adamw(cfg.lr), adamw(cfg.server_lr)
+    param_mb = tree_bytes(params) / 1e6
+    server_state = server_opt.init(params)
+    params_G = tree_map(lambda x: x.unsqueeze(0).expand(G, *x.shape)
+                        .clone(), params)
+    del params
+    opt_G = local_opt.init(params_G)
+
+    schedule = local_epoch_schedule(cfg.base_k, cfg.rho, cfg.rounds)
+    step_cache = {}
+    bytes_cum = 0.0
+    history = []
+    metrics = {}
+    for r, k_r in enumerate(schedule, start=1):
+        k_pow2 = 1 << (k_r - 1).bit_length()   # bucket K, as the JAX package
+        if k_pow2 not in step_cache:
+            step_cache[k_pow2] = build_llcg_round_step(
+                model, local_opt, server_opt,
+                LLCGStepConfig(num_groups=G, local_steps=k_pow2,
+                               correction_steps=cfg.correction_steps))
+        round_step = step_cache[k_pow2]
+
+        local = _on(_local_batches(corpus, G, k_pow2, cfg, rng), device)
+        corr = _on(_corr_batches(corpus, cfg, rng), device)
+        with Timer() as t:
+            params_G, opt_G, server_state, metrics = round_step(
+                params_G, opt_G, server_state, local, corr)
+            local_loss = float(metrics["local_loss"])
+            corr_loss = float(metrics["corr_loss"])
+        bytes_cum += 2 * G * param_mb  # up + down, MB
+        log.info("round %2d K=%3d local_loss=%.4f corr_loss=%.4f "
+                 "%.2fs comm=%.1fMB", r, k_pow2, local_loss, corr_loss,
+                 t.elapsed, bytes_cum)
+        history.append({"round": r, "k": k_pow2, "local_loss": local_loss,
+                        "corr_loss": corr_loss, "seconds": t.elapsed,
+                        "comm_mb": bytes_cum})
+        if cfg.ckpt_dir:
+            avg = tree_map(lambda x: x[0], params_G)
+            save_checkpoint(cfg.ckpt_dir, r, avg,
+                            extra={"round": r, "comm_mb": bytes_cum})
+    return params_G, dict(metrics, history=history)
+
+
+def _on(batch: dict, device) -> dict:
+    return {k: v.to(device) for k, v in batch.items()}
 
 
 def resume(data, model, plan: TrainPlan, ckpt_dir: Optional[str] = None,
@@ -56,3 +189,66 @@ def run_or_resume(data, model, plan: TrainPlan, backend: str = "vmap",
     if have is None:
         return trainer.run()
     return trainer.run(resume_from=plan.checkpoint.dir)
+
+
+def _local_batches(corpus: TokenDataset, g: int, k: int, cfg: TrainConfig,
+                   rng) -> dict:
+    """``{"tokens", "labels"}`` (g, k, batch_per_group, seq_len) int32 CPU
+    tensors, each machine's windows drawn from its own shard, with the JAX
+    package's draws from ``rng``."""
+    toks = np.zeros((g, k, cfg.batch_per_group, cfg.seq_len), np.int32)
+    labs = np.zeros_like(toks)
+    for s in range(g):
+        stream = corpus.tokens[s % corpus.num_shards]
+        for i in range(k):
+            starts = rng.integers(0, stream.size - cfg.seq_len - 1,
+                                  cfg.batch_per_group)
+            toks[s, i] = np.stack([stream[a:a + cfg.seq_len] for a in starts])
+            labs[s, i] = np.stack([stream[a + 1:a + cfg.seq_len + 1]
+                                   for a in starts])
+    return {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labs)}
+
+
+def _corr_batches(corpus: TokenDataset, cfg: TrainConfig, rng) -> dict:
+    """``{"tokens", "labels"}`` (S, 2·batch_per_group, seq_len) int32 CPU
+    tensors, each row from a shard drawn at random (the server's globally
+    mixed batch)."""
+    s_steps = cfg.correction_steps
+    bsz = cfg.batch_per_group * 2
+    toks = np.zeros((s_steps, bsz, cfg.seq_len), np.int32)
+    labs = np.zeros_like(toks)
+    for i in range(s_steps):
+        for b in range(bsz):
+            stream = corpus.tokens[rng.integers(corpus.num_shards)]
+            a = rng.integers(0, stream.size - cfg.seq_len - 1)
+            toks[i, b] = stream[a:a + cfg.seq_len]
+            labs[i, b] = stream[a + 1:a + cfg.seq_len + 1]
+    return {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labs)}
+
+
+def parse_args(argv=None) -> "tuple[TrainConfig, str]":
+    """Every :class:`TrainConfig` field as ``--field-name`` (booleans take
+    1/true/yes), plus ``--device``."""
+    ap = argparse.ArgumentParser()
+    for f in dataclasses.fields(TrainConfig):
+        kind = type(f.default) if f.default is not None else str
+        flag = f"--{f.name.replace('_', '-')}"
+        if kind is bool:
+            ap.add_argument(flag, default=f.default,
+                            type=lambda s: s.lower() in ("1", "true", "yes"))
+        else:
+            ap.add_argument(flag, type=kind, default=f.default)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    cfg = TrainConfig(**{f.name: getattr(args, f.name)
+                         for f in dataclasses.fields(TrainConfig)})
+    return cfg, args.device
+
+
+def main(argv=None):
+    cfg, device = parse_args(argv)
+    return train(cfg, device=device)
+
+
+if __name__ == "__main__":
+    main()

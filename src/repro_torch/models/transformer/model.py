@@ -26,6 +26,7 @@ Entry points:
   forward(params, batch)            → (logits, aux)
   prefill(params, batch, max_seq)   → (logits_last, states)
   decode_step(params, states, token, position, max_seq) → (logits, states)
+  loss(params, batch, efficient_ce)  → the training loss (scalar f32)
 
 ``position`` is an int shared by the batch (a wave), or a (B,) tensor, each
 row at its own (a slot pool, whose states carry the per-row layout of
@@ -44,7 +45,11 @@ The batch holds ``tokens``, and per frontend:
            ``cfg.dtype`` (a bfloat16 encoder computes in bfloat16).  An
            ``encoder_only`` config's ``forward`` runs every block
            bidirectionally.
-``loss`` (training, ROADMAP.md Queue 1 item 13.4) is a later slice.
+``loss`` adds ``labels`` (B, S) (and, for an encoder-only audio config,
+``mask_positions`` as the positions it averages over).  Every op of
+``forward`` is differentiable by autograd; the recurrent kinds' scans run
+the hand-written gradient kernel on the card
+(:func:`repro_torch.kernels.ops.linear_scan`).
 """
 from __future__ import annotations
 
@@ -263,6 +268,37 @@ class LM:
         if cfg.frontend == "vision":
             h = h[:, cfg.num_prefix_tokens:]
         return self._head(params, h), aux
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, params: Dict, batch: Dict,
+             efficient_ce: bool = True) -> torch.Tensor:
+        """Next-token / masked-prediction cross entropy, plus the MoE
+        load-balance term ``aux``.
+
+        ``efficient_ce=True`` (default) computes it as the JAX package
+        does, without a gather over the vocab axis: logsumexp minus a
+        one-hot contraction; ``False`` takes ``log_softmax`` and gathers
+        the label's entry.  Logits are taken in f32.
+        """
+        cfg = self.cfg
+        logits, aux = self.forward(params, batch)
+        labels = batch["labels"].long()
+        logits32 = logits.float()
+        if efficient_ce:
+            lse = torch.logsumexp(logits32, dim=-1)
+            onehot = labels[..., None] == torch.arange(
+                cfg.vocab_size, device=labels.device)[None, None, :]
+            target_logit = torch.where(onehot, logits32,
+                                       torch.zeros((), device=labels.device)
+                                       ).sum(dim=-1)
+            nll = lse - target_logit
+        else:
+            logp = F.log_softmax(logits32, dim=-1)
+            nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        if cfg.encoder_only and "mask_positions" in batch:
+            m = batch["mask_positions"].float()
+            return (nll * m).sum() / m.sum().clamp_min(1.0) + aux
+        return nll.mean() + aux
 
     # --------------------------------------------------------------- prefill
     def prefill(self, params: Dict, batch: Dict, max_seq: int,

@@ -13,7 +13,15 @@ RWKV squared-ReLU FFN with its own token shift.  Decode state per layer:
 (x_prev_att, x_prev_ffn, h).
 
 The prefill's scan goes through :func:`repro_torch.kernels.ops.linear_scan`
-— on the card, the hand-written scan kernel.
+— on the card, the hand-written scan kernel and, in training, its gradient
+kernel — in chunks of ``_CHUNK`` steps, where the JAX package takes 64: the
+chunk form scales keys by ``1/P = exp(−Σ log_w)`` over a chunk, which
+overflows f32 once a chunk's summed decay passes ~88.7.  The decay is
+clamped at |log_w| ≤ e² ≈ 7.39 a step, so 8 steps sum to at most 59.1 and
+no reachable decay overflows; in chunks of 64, training rwkv6-1.6b at lr
+3e-4 passes that sum within a few steps (``chip_smoke.py`` T4 prints it)
+and the scan goes NaN.  Where the chunk-64 form is finite the chunk
+changes only the order of f32 sums.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from repro_torch.models.transformer.scan_common import scan_decode_step
 
 _HEAD = 64          # RWKV6 head size
 _LORA = 64          # decay adapter rank
+_CHUNK = 8          # scan chunk: 8 × e² < 88.7, the f32 limit of 1/P
 
 
 def _nheads(cfg: ModelConfig) -> int:
@@ -108,7 +117,7 @@ def rwkv6_time_mix(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                   .reshape(b * nh, t, _HEAD)
 
     y, h_t = ops.linear_scan(heads(r).float(), heads(k).float(),
-                             heads(v).float(), heads(log_w), h0=h0, chunk=64,
+                             heads(v).float(), heads(log_w), h0=h0, chunk=_CHUNK,
                              strict=True, u=_bonus(params, b, nh))
     y = y.reshape(b, nh, t, _HEAD).transpose(1, 2).reshape(b, t, d)
     y = group_norm(y.to(dt), params["gn_scale"], nh, cfg.norm_eps)

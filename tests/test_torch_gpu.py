@@ -850,3 +850,77 @@ def test_two_gloo_ranks_share_one_card(cuda):
     for a, b in zip(tree_leaves(hist.meta["final_params"]),
                     tree_leaves(ref.meta["final_params"])):
         assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,dk,dv,chunk,mode,with_h0,with_dh", [
+    (128, 128, 64, 64, 64, "strict", False, False),
+    (128, 77, 64, 64, 64, "strict", True, True),
+    (3, 100, 16, 24, 32, "strict", True, True),
+    (224, 192, 64, 64, 64, "plain", True, True),
+    (5, 50, 20, 30, 16, "plain", False, False),
+    (448, 192, 64, 64, 64, "scalar", False, False),
+    (448, 77, 64, 64, 64, "scalar", True, True),
+    (2, 33, 64, 64, 1, "scalar", True, False)])
+def test_linear_scan_backward_kernel_matches_plain_on_card(
+        cuda, bh, t, dk, dv, chunk, mode, with_h0, with_dh):
+    """The gradient kernel (strict with ``u``, plain per-key, scalar decay;
+    ragged T, a chunk of 1, odd widths) through ``ops.linear_scan``'s
+    autograd Function against torch autograd of the plain version on the
+    card: one forward and one backward launch, every gradient within
+    SCAN_TOL × max(1, max|plain|)."""
+    from repro_torch.kernels.linear_scan import linear_scan_chunked_bwd
+    rng = np.random.default_rng(bh * 7 + t)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    scalar, strict = mode == "scalar", mode == "strict"
+    lw = torch.from_numpy((-0.3 * rng.random(
+        (bh, t) if scalar else (bh, t, dk))).astype(np.float32)).to(cuda)
+    ins = [f(bh, t, dk), f(bh, t, dk), f(bh, t, dv), lw,
+           f(bh, dk, dv) if with_h0 else None, f(bh, dk) if strict else None]
+    leaves = [None if x is None else x.requires_grad_(True) for x in ins]
+    dy, dh = f(bh, t, dv), f(bh, dk, dv) if with_dh else None
+    fwd, bwd = linear_scan_chunked.launches, linear_scan_chunked_bwd.launches
+    y, h_t = ops.linear_scan(*leaves[:5], chunk=chunk, strict=strict,
+                             u=leaves[5])
+    used = [x for x in leaves if x is not None]
+    got = torch.autograd.grad([y] + ([h_t] if with_dh else []), used,
+                              [dy] + ([dh] if with_dh else []))
+    assert linear_scan_chunked.launches == fwd + 1
+    assert linear_scan_chunked_bwd.launches == bwd + 1
+    want = [g for g in ref.linear_scan_vjp_ref(*ins, dy, dh, chunk=chunk,
+                                               strict=strict)
+            if g is not None]
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        tol = SCAN_TOL * max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+def test_rwkv6_loss_gradient_on_card_matches_cpu(cuda):
+    """``LM.loss`` and every gradient leaf of the smoke RWKV6 model on the
+    card (the scan and its gradient kernel, one launch each a layer)
+    against the CPU's plain versions."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.steps import value_and_grad
+    from repro_torch.kernels.linear_scan import linear_scan_chunked_bwd
+    from repro_torch.models.transformer.model import LM
+    from repro_torch.utils.pytree import flatten_with_paths, tree_map
+    model = LM(get_smoke_config("rwkv6-1.6b"))
+    p_cpu = model.init(0, "cpu")
+    p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, 512, (2, 77)))
+             for k in ("tokens", "labels")}
+    fwd, bwd = linear_scan_chunked.launches, linear_scan_chunked_bwd.launches
+    lg, gg = value_and_grad(model.loss, p_gpu,
+                            {k: v.to(cuda) for k, v in batch.items()})
+    assert linear_scan_chunked.launches == fwd + 2
+    assert linear_scan_chunked_bwd.launches == bwd + 2
+    lc, gc = value_and_grad(model.loss, p_cpu, batch)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=0)
+    for (k, a), (_, b) in zip(flatten_with_paths(gg), flatten_with_paths(gc)):
+        tol = 1e-3 * max(float(b.abs().max()), 1e-30)
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=tol, msg=k)

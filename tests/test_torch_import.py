@@ -66,7 +66,9 @@ def test_every_module_imports_without_jax(probe):
                 "repro_torch.serving.core", "repro_torch.serving.engine",
                 "repro_torch.serving.gnn", "repro_torch.checkpoint.store",
                 "repro_torch.checkpoint.manager",
-                "repro_torch.checkpoint.chaos", "repro_torch.launch.train"}
+                "repro_torch.checkpoint.chaos", "repro_torch.launch.train",
+                "repro_torch.launch.mesh", "repro_torch.data.tokens",
+                "repro_torch.utils.logging", "repro_torch.distributed.steps"}
     assert expected <= set(probe["modules"])
 
 
