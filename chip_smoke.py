@@ -152,9 +152,10 @@ Each layer-by-layer comparison is at E's 1e-3 × max(1, max|cpu|).
 
 Then the MoE stacks and the frontends, random f32 weights from a seed, no
 hand-written kernel on their paths (0 launches, gated):
-- Q, qwen2-moe-a2.7b uncut (24 ``moe`` layers, 60 experts top-4 of 1408,
-  4 fused shared experts), 14.32 B weights drawn a layer at a time into
-  their stacks on the card (the host never holds the tree): Q1 E's
+- Q, qwen2-moe-a2.7b at full width cut to Q_LAYERS of its 24 ``moe``
+  layers (60 experts top-4 of 1408, 4 fused shared experts; cut in depth
+  for the script's time, SCRIPT_LIMIT_S), weights drawn a layer at a
+  time into their stacks on the card (the host never holds the tree): Q1 E's
   requests through the wave scheduler, served twice with equal tokens; Q2
   the slot scheduler, exact buckets (padding moves an MoE's capacity),
   its tokens and every sampled logits row against a batch-1 wave's at
@@ -188,10 +189,11 @@ Then LM training (rwkv6-1.6b's trainer; TF32 off throughout):
   eager and CUDA-graph times, the plain version's, the bound.
 - T2, card against CPU, in the shipped bfloat16 configs: rwkv6-1.6b at
   full width cut to T2_LAYERS layers, and zamba2-7b at full width cut to
-  its first unit (5 Mamba2 blocks, the scalar-decay gradient).  Each:
+  one unit of its shared block and T2_MAMBA_LAYERS Mamba2 blocks (the
+  scalar-decay gradient).  Each:
   ``LM.loss`` within 1e-4 relative, every gradient leaf within 1e-3 of
   its max (the embedding, rounded to bf16, within BF16_TOL of its max),
-  then one ``build_llcg_round_step`` round (G=2, K=2, S=1; parameters
+  then one ``build_llcg_round_step`` round (G=2, K=T2_K, S=1; parameters
   within LM_TOL × max(1, max|cpu|), losses 1e-4).  One forward and one
   backward scan launch a scan layer a step, exactly.
 - T3, the LLCG round of rwkv6-1.6b uncut (24 layers at full width; an
@@ -205,6 +207,35 @@ Then LM training (rwkv6-1.6b's trainer; TF32 off throughout):
   round-3 checkpoint restoring ``params_G[0]``; and the JAX package's
   ``test_system`` run (gemma3-1b smoke) on the card against the CPU,
   losses within 1e-4.
+
+Then the dry run and the sharded steps (``repro_torch.launch.dryrun``):
+- DR, started right after the build in a process of its own on the CPU
+  (``chip_smoke.py --dryrun``; the traces allocate nothing) and read
+  after T4: ``train_4k`` of rwkv6-1.6b, gemma3-1b, zamba2-7b,
+  qwen3-moe-30b-a3b, internvl2-2b and hubert-xlarge on the (16, 16) mesh,
+  gemma3-1b ``decode_32k`` and rwkv6-1.6b ``long_500k`` on (2, 16, 16),
+  each rank 0's program traced at full depth and width on a fake process
+  group, every case ``ok``, its per-device GB printed against the card's
+  80 GB with its TFLOP, inter / intra-group bytes and roofline terms; the
+  three GNN engine cases (0, 1,048,576 and 278,528 all-gather bytes a
+  halo exchange, the HaloProgram's); config D's plan on a fake group of
+  4, whose halo bytes must equal what phase M2's ranks counted on the
+  card; and DW's two cases traced on a fake (2, 2) group.
+- DW (``chip_smoke.py --sharded``): the sharded LLCG round on 4 gloo
+  ranks sharing the card, ``data`` × ``model`` = DW_MESH, for rwkv6-1.6b
+  at full width with T2_LAYERS layers and gemma3-1b with 2 layers
+  (batch DW_BATCH × DW_SEQ, K, S, lr DW_LR / DW_SERVER_LR), held to the
+  unsharded round run on the card (:func:`_dw_flaws`): each rank's
+  gradient of its group's first local step within DW_GRAD_TOL of the
+  leaf's largest (the bf16 embedding within BF16_TOL), which no Adam
+  update can hide; the round's parameters none beyond 2·(lr·K + slr·S),
+  LM_TOL here,
+  at most DW_FLIP_SHARE of a leaf's elements beyond DW_TOL +
+  DW_TOL·|unsharded| (DW_TOL a fifth of DW_LR, as the CPU test's), and
+  the two rounds' updates within DW_UPDATE_TOL of each other in norm; its
+  losses within 1e-4, its counted collective bytes equal to DR's trace of
+  the same case, its scan launches exact ((K + S) × scan layers, forward
+  and gradient).
 
 With ``--baseline DIR`` (DIR: the root of an unpacked earlier commit, its
 ``src/repro_torch`` beside this script's), a last phase times the quantize,
@@ -287,9 +318,15 @@ G_MAX_SEQ = 1024
 H_SEED = 0
 H_MAX_SEQ = 256
 SC_LAYERS = 2
-# config Q: qwen2-moe-a2.7b uncut, E's requests; Q3 and QW (qwen3-moe at
-# full width) keep this many layers
+# the contract's limit for the whole script (the build included), of which
+# it aims to use half; uncut (Q 24 layers, T2's zamba2 5 Mamba2 blocks) the
+# script took 1056 s, 88% of it, so those two are cut in depth
+SCRIPT_LIMIT_S = 1200
+# config Q: qwen2-moe-a2.7b at full width cut to Q_LAYERS of its 24
+# layers (uncut it took ~106 s of SCRIPT_LIMIT_S), E's requests; Q3 and QW
+# (qwen3-moe at full width) keep MOE_LAYERS layers
 Q_SEED = 0
+Q_LAYERS = 6
 Q_MAX_SEQ = 256
 MOE_LAYERS = 2
 # MoE routing, card against CPU: the router probabilities differ by ~1e-7
@@ -317,7 +354,13 @@ T_SEED = 0
 T_LR, T_SERVER_LR = 3e-4, 1e-4
 T_SEQ = 128
 T2_LAYERS = 2            # rwkv6-1.6b at full width, as SC and QW are cut
+# zamba2-7b's Mamba2 blocks in T2 (its unit has 5; the CPU's round of the
+# whole unit took 96 s, cut in depth for SCRIPT_LIMIT_S)
+T2_MAMBA_LAYERS = 2
 T3_G, T3_K, T3_S = 2, 2, 1
+# local steps of T2's round: two, so the round takes Adam's second,
+# bias-corrected local step
+T2_K = 2
 T3_BATCH = 4             # per machine; the correction batch is twice this
 T3_ROUNDS = 3
 T_LOSS_TOL = 1e-4        # card vs CPU, relative
@@ -328,6 +371,41 @@ T_LOSS_TOL = 1e-4        # card vs CPU, relative
 # held to BF16_TOL, every other leaf (f32 throughout) to LM_TOL
 T2_BF16_LEAVES = ("embed",)
 RWKV6_CHUNK = 8          # models/transformer/rwkv6.py's _CHUNK
+# phase DR: the dry run's cases traced at full depth and width on fake
+# process groups of 256 / 512 ranks (arch, shape, multi-pod)
+DR_CASES = (("rwkv6-1.6b", "train_4k", False),
+            ("gemma3-1b", "train_4k", False),
+            ("zamba2-7b", "train_4k", False),
+            ("qwen3-moe-30b-a3b", "train_4k", False),
+            ("internvl2-2b", "train_4k", False),
+            ("hubert-xlarge", "train_4k", False),
+            ("gemma3-1b", "decode_32k", True),
+            ("rwkv6-1.6b", "long_500k", True))
+DR_GNN = (("local", "none", 0), ("halo", "none", 1_048_576),
+          ("halo", "int8", 278_528))
+DR_LIMIT_S = 900         # the DR child's wall limit (it overlaps the rest)
+CARD_GB = 80.0
+# phase DW: the sharded LLCG round on 4 gloo ranks sharing the card,
+# data × model = (2, 2).  An Adam first-step sign flip moves an element by
+# at most 2·(lr·K + slr·S), which these rates make LM_TOL; DW_TOL is the
+# CPU test's elementwise tolerance, a fifth of lr.  On the card rwkv6's
+# first-step gradients, sharded and unsharded, differ by up to 1.2e-3 of a
+# leaf's max (the scan kernels launched on half the heads round otherwise;
+# gemma3's, without a scan, by 2e-6), so elements whose gradient lies
+# below that may flip, beyond the CPU test's floor: the share of elements
+# beyond DW_TOL and the norm of the update's difference bound the flips
+# instead.  A missing all-reduce moves most of a leaf (on the CPU at
+# these rates: 86-89% of its elements beyond DW_TOL, the update off by
+# 1.1-1.3 of its norm, the gradients by 1.3-3.0 of their max)
+DW_MESH = (2, 2)
+DW_BATCH = 4             # a correction step's rows; a group's local step 2
+DW_SEQ = 128
+DW_K, DW_S = 2, 1
+DW_LR, DW_SERVER_LR = 2e-4, 1e-4
+DW_TOL = DW_LR / 5
+DW_GRAD_TOL = 1e-2       # a first-step gradient, of its leaf's max
+DW_FLIP_SHARE = 1e-2     # of a leaf's elements beyond DW_TOL
+DW_UPDATE_TOL = 0.2      # |update - unsharded update| / |unsharded update|
 
 
 class SmokeFailure(Exception):
@@ -1675,7 +1753,7 @@ def _phase_m(card: str) -> dict:
            f"ranks report (params equal, residual equal, inputs equal) "
            f"{out['average']}")
     print(f"phase M: every gate passed in {time.perf_counter() - t0:.1f} s")
-    return counts
+    return counts, out["M2"]["wire"]
 
 
 # --------------------------------------------------------------------------
@@ -3044,18 +3122,18 @@ def _first_layers(lm, params: dict, n: int) -> tuple:
 
 
 def _config_q(kernels, card: str) -> dict:
-    """Config Q: qwen2-moe-a2.7b uncut (24 ``moe`` layers, MHA 16, 60
-    experts top-4 of 1408, 4 fused shared experts, vocab 151,936), 14.32 B
-    random f32 weights drawn a layer at a time on the host into their
-    stacks on the card (``LM.init(seed, "cuda")``: the host never holds
-    the tree).  Q1 serves E's 8 requests through the wave scheduler twice:
-    the same tokens.  Q2 serves them through the slot scheduler, which
-    must pick exact buckets (padding moves an MoE's capacity), against a
-    batch-1 wave (each prefill routed alone, as the slot's): its tokens
-    and every sampled logits row at LM_TOL.  Q3 holds the first
-    MOE_LAYERS layers' prefill of the 192-token wave and 4 decode steps
-    against the CPU, layer by layer, under the routing rule.  Returns the
-    launch counts."""
+    """Config Q: qwen2-moe-a2.7b at full width cut to Q_LAYERS of its 24
+    ``moe`` layers (MHA 16, 60 experts top-4 of 1408, 4 fused shared
+    experts, vocab 151,936), random f32 weights drawn a layer at a time on
+    the host into their stacks on the card (``LM.init(seed, "cuda")``: the
+    host never holds the tree).  Q1 serves E's 8 requests through the wave
+    scheduler twice: the same tokens.  Q2 serves them through the slot
+    scheduler, which must pick exact buckets (padding moves an MoE's
+    capacity), against a batch-1 wave (each prefill routed alone, as the
+    slot's): its tokens and every sampled logits row at LM_TOL.  Q3 holds
+    the first MOE_LAYERS layers' prefill of the 192-token wave and 4
+    decode steps against the CPU, layer by layer, under the routing rule.
+    Returns the launch counts."""
     import gc
     import numpy as np
     import torch
@@ -3065,7 +3143,8 @@ def _config_q(kernels, card: str) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              num_layers=Q_LAYERS)
     lm = LM(cfg)
     t0 = time.perf_counter()
     p_gpu = lm.init(Q_SEED, "cuda")
@@ -3367,7 +3446,7 @@ def _scan_layers(cfg) -> int:
 
 def _t2_model(label: str, cfg, kernels) -> dict:
     """One T2 model: ``LM.loss`` and its gradient, then one LLCG round
-    (G=T3_G, K=T3_K, S=T3_S), on the card against the CPU; the card's scan
+    (G=T3_G, K=T2_K, S=T3_S), on the card against the CPU; the card's scan
     launches exact (one forward and one backward a scan layer a step)."""
     import numpy as np
     import torch
@@ -3417,7 +3496,7 @@ def _t2_model(label: str, cfg, kernels) -> dict:
           f"{counts['linear_scan_chunked_bwd']} scan launches; loss and "
           f"gradient card {grad_ms:.1f} ms (first call), cpu {cpu_ms:.1f} ms")
 
-    g, k, s = T3_G, T3_K, T3_S
+    g, k, s = T3_G, T2_K, T3_S
     local = {"tokens": ints(g, k, 1, T_SEQ), "labels": ints(g, k, 1, T_SEQ)}
     corr = {"tokens": ints(s, 2, T_SEQ), "labels": ints(s, 2, T_SEQ)}
     step_cfg = LLCGStepConfig(num_groups=g, local_steps=k,
@@ -3467,15 +3546,19 @@ def _t2_model(label: str, cfg, kernels) -> dict:
 
 def _config_t2(kernels) -> dict:
     """Config T2: rwkv6-1.6b at full width cut to T2_LAYERS layers, and
-    zamba2-7b at full width cut to its first unit (a shared attention
-    block and 5 Mamba2 blocks, the scalar-decay gradient), each through
+    zamba2-7b at full width cut to one unit of a shared attention block
+    and T2_MAMBA_LAYERS Mamba2 blocks (the scalar-decay gradient), each
+    through
     :func:`_t2_model` in its shipped bfloat16 config, as T3 and T4 train
     it."""
     from repro_torch.configs import get_config
 
     rw = dataclasses.replace(get_config("rwkv6-1.6b"), num_layers=T2_LAYERS)
-    zb = dataclasses.replace(get_config("zamba2-7b"), num_layers=6,
-                             n_units=1, remainder=())
+    zb = dataclasses.replace(get_config("zamba2-7b"),
+                             num_layers=1 + T2_MAMBA_LAYERS, n_units=1,
+                             pattern=(("shared_attn", 1),
+                                      ("mamba2", T2_MAMBA_LAYERS)),
+                             remainder=())
     return {"T2": _t2_model("T2", rw, kernels),
             "T2-zamba2": _t2_model("T2-zamba2", zb, kernels)}
 
@@ -3712,6 +3795,262 @@ def _config_t4(kernels, card: str) -> dict:
     return {"T4": counts, "T4-gemma3": gemma}
 
 
+# --------------------------------------------------------------------------
+# phases DR and DW: the dry run, and the sharded round on real ranks
+# --------------------------------------------------------------------------
+def _dw_configs() -> dict:
+    """DW's models: rwkv6-1.6b at full width cut to T2_LAYERS layers (as
+    T2), gemma3-1b at full width cut to 2 layers (``swa``, ``full``)."""
+    from repro_torch.configs import get_config
+    return {"DW-rwkv6": dataclasses.replace(get_config("rwkv6-1.6b"),
+                                            num_layers=T2_LAYERS),
+            "DW-gemma3": dataclasses.replace(
+                get_config("gemma3-1b"), num_layers=2, n_units=1,
+                remainder=(), pattern=(("swa", 1), ("full", 1)))}
+
+
+def _d_fake_wire() -> dict:
+    """Config D's plan (phase M2's) run by rank 0 of a fake group of
+    M_MACHINES ranks on the CPU: the operand bytes its collectives carry,
+    which need no data (the fake group moves none)."""
+    import torch
+    from repro_torch.core.plan import build_trainer
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import MachineMesh
+    data, plans = _m_plans()
+    model, plan = plans["M2"]
+    with fake_group(M_MACHINES):
+        mesh = MachineMesh(rank=0, size=M_MACHINES,
+                           device=torch.device("cpu"))
+        build_trainer(data, model, plan, backend="shard_map", mesh=mesh,
+                      device="cpu").run()
+    return dict(mesh.wire_bytes)
+
+
+def _dryrun_child() -> dict:
+    """Phase DR's body, in a process of its own on the CPU (the traces
+    allocate nothing and use no card): DR_CASES at full size, the three
+    GNN engine cases, DW's two cases on a fake group of 4, D's plan on a
+    fake group of 4."""
+    import torch
+    from repro_torch.launch import dryrun
+    torch.set_num_threads(1)
+    out = {"cases": [], "gnn": [], "dw": {}}
+    for arch, shape, multi in DR_CASES:
+        t0 = time.perf_counter()
+        res = dryrun.run_case(arch, shape, multi)
+        blob = dataclasses.asdict(res)
+        blob["roofline"] = dryrun.roofline_terms(res, 512 if multi else 256)
+        blob["per_device_gb"] = dryrun.per_device_gb(res)
+        blob["wall_s"] = time.perf_counter() - t0
+        out["cases"].append(blob)
+    for mode, comp, _ in DR_GNN:
+        out["gnn"].append(dataclasses.asdict(dryrun.run_gnn_engine_case(
+            16, mode=mode, halo_compression=comp)))
+    for name, cfg in _dw_configs().items():
+        res = dryrun.run_case(cfg.name, "train_4k", False, cfg_override=cfg,
+                              mesh_shape=DW_MESH, global_batch=DW_BATCH,
+                              seq_len=DW_SEQ, llcg_k=DW_K, llcg_s=DW_S,
+                              remat=False)
+        out["dw"][name] = dataclasses.asdict(res)
+    out["d_fake"] = _d_fake_wire()
+    return out
+
+
+def _start_dr():
+    """Start phase DR's child; its output goes to files beside nothing of
+    the checkout (a temporary directory)."""
+    import tempfile
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-dr-"))
+    out, err = open(tmp / "out", "w"), open(tmp / "err", "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--dryrun"], stdout=out, stderr=err, text=True)
+    return proc, tmp, time.perf_counter()
+
+
+def _phase_dr(started, m2_wire: list, card: str) -> dict:
+    """Phase DR: wait for the child, print every case (per-device GB
+    against the card's 80 GB, TFLOP, inter / intra-group bytes, the three
+    roofline terms) and gate: every case ``ok``, the GNN cases' bytes for
+    one halo exchange (0, 1,048,576, 278,528) equal to the HaloProgram's,
+    D's plan's halo bytes on the fake group equal to phase M2's ranks'.
+    Returns the DW predictions."""
+    import shutil
+    proc, tmp, t0 = started
+    try:
+        proc.wait(timeout=max(1.0, DR_LIMIT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        _check(False, f"phase DR did not finish in {DR_LIMIT_S} s")
+    text = (tmp / "out").read_text()
+    errs = (tmp / "err").read_text()
+    shutil.rmtree(tmp, ignore_errors=True)
+    _check(proc.returncode == 0, f"phase DR child failed: {errs[-3000:]}")
+    out = json.loads(text.strip().splitlines()[-1])
+    for c in out["cases"]:
+        coll, rf, mem = c["collective"], c.get("roofline", {}), c["memory"]
+        print(f"phase DR {c['arch']} {c['shape']} {c['mesh']}: ok "
+              f"{c['ok']}, trace {c['lower_s']:.1f} s, "
+              f"{c['per_device_gb']:.3f} GB per device of {CARD_GB:.0f} "
+              f"(arguments {mem.get('argument_size_in_bytes', 0) / 1e9:.3f}"
+              f", temporaries {mem.get('temp_size_in_bytes', 0) / 1e9:.3f}"
+              f"), "
+              f"{c['flops'] / 1e12:.3f} TFLOP per device, inter-group "
+              f"{coll.get('inter_group', 0):.6e} B, intra-group "
+              f"{coll.get('intra_group', 0):.6e} B, roofline compute "
+              f"{rf.get('compute_s', 0):.4f} s, memory "
+              f"{rf.get('memory_s', 0):.4f} s, collective "
+              f"{rf.get('collective_s', 0):.4f} s (H100 SXM 80 GB datasheet "
+              f"figures; this card: {card}) {c['error'] or ''}")
+    for c in out["cases"]:
+        _check(c["ok"], f"phase DR {c['arch']} {c['shape']} {c['mesh']}: "
+               f"{c['error']}")
+    for (mode, comp, want), g in zip(DR_GNN, out["gnn"]):
+        per = g["meta"].get("all_gather_bytes_per_exchange")
+        print(f"phase DR gnn-engine {mode} {comp}: ok {g['ok']}, "
+              f"all-gather {per} B per exchange (want {want}), collective "
+              f"{ {k: v for k, v in g['collective'].items() if v} }")
+        _check(g["ok"] and per == want, f"phase DR gnn {mode} {comp}: "
+               f"{per} B per exchange, not {want} ({g['error']})")
+        if mode == "halo":
+            _check(g["meta"]["halo_bytes_match"] and per ==
+                   g["meta"]["expected_all_gather_bytes"],
+                   f"phase DR gnn {mode} {comp}: not the HaloProgram's "
+                   f"{g['meta']['expected_all_gather_bytes']}")
+    fake = out["d_fake"]
+    print(f"phase DR config D on a fake group of {M_MACHINES}: rank 0 "
+          f"carries {fake}; phase M2's ranks carried {m2_wire}")
+    for rank, wire in enumerate(m2_wire):
+        _check(wire.get("halo") == fake.get("halo"), f"phase DR: D's halo "
+               f"bytes {fake.get('halo')} on the fake group, "
+               f"{wire.get('halo')} on rank {rank} of phase M2")
+    for name, c in out["dw"].items():
+        _check(c["ok"], f"phase DR {name}: {c['error']}")
+    print(f"phase DR: every gate passed ({len(out['cases'])} LM cases, "
+          f"{len(out['gnn'])} GNN cases, D, and DW's "
+          f"{len(out['dw'])} predictions)")
+    return {name: c["collective"] for name, c in out["dw"].items()}
+
+
+def _dw_rank(machine) -> dict:
+    """One rank of phase DW: both models' sharded rounds
+    (:func:`repro_torch.launch.dryrun.real_round`), each against the
+    unsharded round on the card."""
+    import torch
+    from repro_torch.launch.dryrun import real_round
+    out = {}
+    for name, cfg in _dw_configs().items():
+        t0 = time.perf_counter()
+        out[name] = real_round(machine, cfg, DW_MESH, global_batch=DW_BATCH,
+                               seq_len=DW_SEQ, llcg_k=DW_K, llcg_s=DW_S,
+                               lr=DW_LR, server_lr=DW_SERVER_LR, seed=T_SEED,
+                               device="cuda", tol=DW_TOL, first_grads=True)
+        if out[name] is not None:
+            out[name] = {"ranks": out[name],
+                         "wall_s": time.perf_counter() - t0,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_child() -> dict:
+    from repro_torch.launch.mesh import launch_machines
+    return launch_machines(_dw_rank, 4, device="cuda")
+
+
+def _dw_flaws(info: dict, leaf: str) -> list:
+    """What breaks DW's rule in one leaf's comparison (module docstring):
+    a first-step gradient off, an element beyond the sign-flip bound, too
+    many beyond DW_TOL, or the update off in norm."""
+    bad = []
+    if not info["off"] <= DW_FLIP_SHARE * info["n"]:
+        bad.append(f"{info['off']} of {info['n']} elements beyond DW_TOL")
+    flip = 2 * (DW_LR * DW_K + DW_SERVER_LR * DW_S)
+    if not (math.isfinite(info["err"]) and info["err"] <= flip):
+        bad.append(f"max |sharded - unsharded| {info['err']} > {flip}")
+    if not (math.isfinite(info["update_err"])
+            and info["update_err"] <= DW_UPDATE_TOL):
+        bad.append(f"update off by {info['update_err']} of its norm")
+    gtol = BF16_TOL if leaf in T2_BF16_LEAVES else DW_GRAD_TOL
+    if not (math.isfinite(info["grad_err"]) and info["grad_err"] <= gtol):
+        bad.append(f"first-step gradient {info['grad_err']} of its max > "
+                   f"{gtol}")
+    return bad
+
+
+def _phase_dw(card: str, predicted: dict) -> dict:
+    """Phase DW: the sharded round of each DW model on 4 gloo ranks on the
+    card (a fresh process), gated by :func:`_dw_report`."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--sharded"], capture_output=True, text=True,
+                          timeout=900)
+    _check(proc.returncode == 0, f"phase DW child failed: "
+           f"{proc.stderr[-3000:]}")
+    counts = _dw_report(json.loads(proc.stdout.strip().splitlines()[-1]),
+                        predicted, card)
+    print(f"phase DW: every gate passed in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def _dw_report(out: dict, predicted: dict, card: str) -> dict:
+    """DW's records (:func:`_dw_rank`): every rank's blocks held to the
+    unsharded round's on the card by :func:`_dw_flaws`, its counted bytes
+    equal to DR's trace of the same case (``predicted``), its scan
+    launches exact ((K + S) × scan layers, forward and gradient).  Returns
+    the launch counts."""
+    cfgs = _dw_configs()
+    counts = {}
+    for name, res in out.items():
+        layers = _scan_layers(cfgs[name])
+        want = (DW_K + DW_S) * layers
+        worst = grad_worst = off = upd = 0.0
+        determined = 0
+        for r in res["ranks"]:
+            for leaf, info in r["leaves"].items():
+                worst = max(worst, info["err"])
+                grad_worst = max(grad_worst, info["grad_err"])
+                off = max(off, info["off"] / info["n"])
+                upd = max(upd, info["update_err"])
+                determined += info["off_determined"]
+            print(f"phase {name} rank {r['coord']}: losses {r['losses']} "
+                  f"(unsharded {r['ref_losses']}), collective bytes "
+                  f"{ {k: v for k, v in r['collective'].items() if v} }, "
+                  f"scan launches {r['launches']}")
+        print(f"phase {name}: {len(res['ranks'])} gloo ranks on one card, "
+              f"(data, model) = {DW_MESH}, batch {DW_BATCH} × {DW_SEQ}, "
+              f"K={DW_K}, S={DW_S}, lr {DW_LR} / {DW_SERVER_LR}: max "
+              f"|sharded - unsharded| {worst:.3e} (bound "
+              f"{2 * (DW_LR * DW_K + DW_SERVER_LR * DW_S):.1e}), at most "
+              f"{off:.3e} of a leaf beyond {DW_TOL:.0e} (allowed "
+              f"{DW_FLIP_SHARE:.0e}; {determined} of them, on all ranks, "
+              f"with first-step gradients above dryrun.GRAD_FLOOR), updates "
+              f"within {upd:.3e} of their norm (allowed {DW_UPDATE_TOL}), "
+              f"first-step gradients within {grad_worst:.3e} of their max; "
+              f"{res['wall_s']:.1f} s "
+              f"for both rounds on rank 0, peak {res['peak_gb']:.3f} GB on "
+              f"rank 0 ({card})")
+        for r in res["ranks"]:
+            for leaf, info in r["leaves"].items():
+                bad = _dw_flaws(info, leaf)
+                _check(not bad, f"phase {name} rank {r['coord']} {leaf}: "
+                       f"{'; '.join(bad)}")
+            for key in ("local_loss", "corr_loss"):
+                a, b = r["losses"][key], r["ref_losses"][key]
+                _check(abs(a - b) <= T_LOSS_TOL * abs(b), f"phase {name} "
+                       f"{key}: sharded {a}, unsharded {b}")
+            _check(r["collective"] == predicted[name], f"phase {name} rank "
+                   f"{r['coord']}: counted {r['collective']}, DR predicted "
+                   f"{predicted[name]}")
+            _check(r["launches"] == {"linear_scan_chunked": want,
+                                     "linear_scan_chunked_bwd": want},
+                   f"phase {name} rank {r['coord']}: scan launches "
+                   f"{r['launches']}, not {want} and {want}")
+        counts[name] = res["ranks"][0]["launches"]
+    return counts
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -3726,6 +4065,13 @@ def main(argv) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(json.dumps(_machines_child()))
+        return 0
+    if argv[:1] in (["--dryrun"], ["--sharded"]):    # phases DR / DW
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        body = _dryrun_child if argv[0] == "--dryrun" else _sharded_child
+        print(json.dumps(body()))
         return 0
     if argv[:1] == ["--wrapper-times"]:         # one turn of _compare
         src, cases = argv[1], json.loads(argv[2])
@@ -3771,14 +4117,19 @@ def main(argv) -> int:
     card = smi.stdout.strip()
 
     t_start = time.perf_counter()
+    dr = None
     # the script's time so far after each phase: its limit is shared by all
     mark = lambda phase: print(f"chip_smoke: {phase} done at "
-                               f"{time.perf_counter() - t_start:.1f} s")
+                               f"{time.perf_counter() - t_start:.1f} s of "
+                               f"{SCRIPT_LIMIT_S}")
     try:
         t0 = time.perf_counter()
         libs = build.build(build.sources())
         print(f"built {[p.name for p in libs]} in "
               f"{time.perf_counter() - t0:.1f} s")
+        # phase DR traces on the CPU in a process of its own, beside the
+        # card's phases; read after phase M
+        dr = _start_dr()
 
         data, cfg, plans = _configs()
         from repro_torch.core.plan import RoundSampler
@@ -3937,7 +4288,8 @@ def main(argv) -> int:
         mark("K")
         counts.update(_phase_s(data, cfg, plans, f3, all_kernels))
         mark("S")
-        counts.update(_phase_m(card))
+        m_counts, m2_wire = _phase_m(card)
+        counts.update(m_counts)
         mark("M")
         counts["E"], counts["E3"] = _config_e(all_kernels)
         mark("E")
@@ -3979,6 +4331,11 @@ def main(argv) -> int:
         mark("T3")
         counts.update(_config_t4(all_kernels, card))
         mark("T4")
+        dw_predicted = _phase_dr(dr, m2_wire, card)
+        dr = None
+        mark("DR")
+        counts.update(_phase_dw(card, dw_predicted))
+        mark("DW")
         if baseline is not None:
             _compare(baseline, {
                 "quant": [list(s[:3]) for s in quant_shapes],
@@ -3987,6 +4344,10 @@ def main(argv) -> int:
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if dr is not None and dr[0].poll() is None:   # stop phase DR
+            dr[0].kill()
+            dr[0].wait()
 
     def row(name, route, source, replaces, case, config):
         return {"name": name, "route": route, "source": source,

@@ -3,13 +3,18 @@ architecture registry: ``get_config(arch_id)`` resolves one of the ten
 transformer-family ``ModelConfig``\\ s (copies of the JAX package's data-only
 modules), ``get_long_context_config`` its long-context serving variant
 where one exists, ``get_smoke_config`` its tiny same-family variant for CPU
-tests.
+tests, and ``shape_supported`` which (arch × shape) pairs the dry run
+takes; the shapes and input specs live in :mod:`repro_torch.configs.shapes`.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List, Optional
 
+from repro_torch.configs.shapes import (SHAPES, InputShape, TensorSpec,
+                                        decode_token_specs,
+                                        prefill_batch_specs,
+                                        train_batch_specs)
 from repro_torch.models.transformer.config import ModelConfig, reduced_variant
 
 _MODULES: Dict[str, str] = {
@@ -57,3 +62,16 @@ def get_long_context_config(arch_id: str) -> Optional[ModelConfig]:
 
 def get_smoke_config(arch_id: str, **overrides) -> ModelConfig:
     return reduced_variant(get_config(arch_id), **overrides)
+
+
+def shape_supported(arch_id: str, shape_name: str) -> bool:
+    """Which (arch × shape) pairs run, by the JAX package's skip rules: an
+    encoder-only stack has no decode, and ``long_500k`` needs a
+    long-context variant."""
+    cfg = get_config(arch_id)
+    shp = SHAPES[shape_name]
+    if shp.kind == "decode" and not cfg.supports_decode():
+        return False
+    if shp.name == "long_500k":
+        return get_long_context_config(arch_id) is not None
+    return True

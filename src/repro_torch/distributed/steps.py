@@ -21,6 +21,20 @@ on every leaf.  Gradients are torch autograd of ``LM.loss``
 (:func:`value_and_grad`); ``remat`` recomputes each step's forward in the
 backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
 
+Sharded steps.  Each ``build_*`` function takes an optional ``mesh`` (a
+``torch.distributed.device_mesh.DeviceMesh`` with axes ``data`` × ``model``
+or ``pod`` × ``data`` × ``model``); given one, it returns the per-rank
+program that GSPMD makes of the JAX package's step under the dry run's
+shardings (:mod:`repro_torch.launch.dryrun`): every argument is the rank's
+block of the global array under the rules of
+:mod:`repro_torch.distributed.sharding`, the model's own code runs
+tensor-parallel over ``model`` on those blocks (its entry points given the
+rank's :class:`~repro_torch.distributed.tensor_parallel.ModelShard`),
+gradients are summed over the axes that shard the batch, and the LLCG
+average is a mean over the group axis.  The step's
+:class:`~repro_torch.distributed.tensor_parallel.ShardComm` is its ``comm``
+attribute (the bytes of its collectives).
+
 Memory.  The round step updates ``params_G``, the stacked local optimizer
 state and the server state in place, leaf by leaf (as a donated argument of
 a jitted JAX step would be), and returns them: on top of the states it
@@ -35,6 +49,9 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed.sharding import (batch_pspec, data_axes_for,
+                                              group_axis_for, param_pspecs,
+                                              _axes_of)
 from repro_torch.models.transformer.model import LM
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
@@ -132,10 +149,14 @@ def _with_trees(state: Any, new: Any) -> Any:
 
 
 def build_sync_train_step(model: LM, optimizer: Optimizer,
-                          remat: bool = False) -> Callable:
+                          remat: bool = False, mesh=None) -> Callable:
     """Fully synchronous data-parallel step (the PSGD per-step-sync baseline
     and the §Perf comparison point): ``(params, opt_state, batch) →
-    (params, opt_state, loss)``, functional."""
+    (params, opt_state, loss)``, functional.  With ``mesh``, the per-rank
+    program (module docstring): parameters replicated over the data axes,
+    the batch sharded over them."""
+    if mesh is not None:
+        return _sharded_sync_step(model, optimizer, remat, mesh)
     loss_fn = _loss_fn(model, remat)
 
     def train_step(params, opt_state, batch):
@@ -148,7 +169,7 @@ def build_sync_train_step(model: LM, optimizer: Optimizer,
 
 def build_llcg_round_step(model: LM, local_opt: Optimizer,
                           server_opt: Optimizer,
-                          step_cfg: LLCGStepConfig) -> Callable:
+                          step_cfg: LLCGStepConfig, mesh=None) -> Callable:
     """One LLCG round (K local steps · G machines + averaging + S
     corrections).
 
@@ -163,7 +184,12 @@ def build_llcg_round_step(model: LM, local_opt: Optimizer,
     three updated in place (module docstring); ``metrics`` holds the mean
     ``local_loss`` (over G of each machine's mean over K) and ``corr_loss``
     (over S), 0-d f32 tensors.
+
+    With ``mesh``, the per-rank program (:func:`_sharded_round_step`).
     """
+    if mesh is not None:
+        return _sharded_round_step(model, local_opt, server_opt, step_cfg,
+                                   mesh)
     g_count = step_cfg.num_groups
     loss_fn = _loss_fn(model, step_cfg.remat)
 
@@ -215,14 +241,173 @@ def build_llcg_round_step(model: LM, local_opt: Optimizer,
     return round_step
 
 
-def build_prefill_step(model: LM, max_seq: int) -> Callable:
+def build_prefill_step(model: LM, max_seq: int, mesh=None,
+                       state_specs=None) -> Callable:
+    """``(params, batch) → (logits_last, states)``.  With ``mesh``, the
+    per-rank program: the batch sharded over the data axes, the states
+    laid out by ``state_specs`` (the dry run's state rules)."""
+    if mesh is not None:
+        tp = _shard(model, mesh, _data_axes(mesh), state_specs)
+
+        def sharded_prefill(params, batch):
+            with torch.no_grad():
+                return model.prefill(params, batch, max_seq, tp=tp)
+        sharded_prefill.comm = tp.comm
+        return sharded_prefill
+
     def prefill(params, batch):
         return model.prefill(params, batch, max_seq=max_seq)
     return prefill
 
 
-def build_decode_step(model: LM, max_seq: int) -> Callable:
+def build_decode_step(model: LM, max_seq: int, mesh=None, state_specs=None,
+                      token_sharded: bool = True) -> Callable:
+    """``(params, states, token, position) → (logits, states)``.  With
+    ``mesh``, the per-rank program against states laid out by
+    ``state_specs``; ``token_sharded`` says whether the tokens are split
+    over the data axes (else every rank holds them all)."""
+    if mesh is not None:
+        tp = _shard(model, mesh, _data_axes(mesh) if token_sharded else (),
+                    state_specs)
+
+        def sharded_decode(params, states, token, position):
+            with torch.no_grad():
+                return model.decode_step(params, states, token,
+                                         int(position), max_seq, tp=tp)
+        sharded_decode.comm = tp.comm
+        return sharded_decode
+
     def decode(params, states, token, position):
         return model.decode_step(params, states, token, position,
                                  max_seq=max_seq)
     return decode
+
+
+# --------------------------------------------------------------------------
+# The sharded (per-rank) steps
+# --------------------------------------------------------------------------
+def _data_axes(mesh) -> Tuple[str, ...]:
+    return data_axes_for(mesh, with_group=False)
+
+
+def _shard(model: LM, mesh, batch_axes, state_specs=None, comm=None):
+    """The rank's :class:`~repro_torch.distributed.tensor_parallel.
+    ModelShard` of ``model`` on ``mesh`` (a new ``ShardComm`` unless
+    ``comm`` is given)."""
+    from repro_torch.distributed.tensor_parallel import ModelShard, ShardComm
+    comm = comm or ShardComm(mesh)
+    specs = param_pspecs(model.param_specs(), model.cfg, mesh)
+    return ModelShard.of(comm, specs, state_specs, batch_axes)
+
+
+def _sharded_value_and_grad(model: LM, tp, params: Dict, batch: Dict,
+                            remat: bool) -> Tuple[torch.Tensor, Dict]:
+    """``(loss, grads)`` of the global loss on this rank's shards: the
+    rank's share differentiated, its gradients summed over the axes that
+    shard the batch (``tp.batch_axes``)."""
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+
+    def objective(*ls):
+        return model.loss_terms(tree_unflatten(params, list(ls)), batch,
+                                tp=tp)
+
+    with torch.enable_grad():
+        if remat:
+            nll, aux = torch.utils.checkpoint.checkpoint(
+                objective, *leaves, use_reentrant=False)
+        else:
+            nll, aux = objective(*leaves)
+        grads = torch.autograd.grad(nll + aux, leaves, allow_unused=True)
+    comm, axes = tp.comm, tp.batch_axes
+    grads = [torch.zeros_like(x) if g is None else comm.all_reduce(g, axes)
+             for x, g in zip(leaves, grads)]
+    loss = comm.all_reduce(nll.detach(), axes) + aux.detach()
+    return loss, tree_unflatten(params, grads)
+
+
+def _sharded_sync_step(model: LM, optimizer: Optimizer, remat: bool, mesh
+                       ) -> Callable:
+    tp = _shard(model, mesh, _data_axes(mesh))
+
+    def train_step(params, opt_state, batch):
+        loss, grads = _sharded_value_and_grad(model, tp, params, batch,
+                                              remat)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    train_step.comm = tp.comm
+    return train_step
+
+
+def _sharded_round_step(model: LM, local_opt: Optimizer,
+                        server_opt: Optimizer, step_cfg: LLCGStepConfig,
+                        mesh) -> Callable:
+    """One LLCG round on one rank of ``mesh``.
+
+    Arguments are the rank's blocks of the JAX package's round-step
+    arguments under the dry run's specs: ``params_G`` (1, …) — its group's
+    copy, sharded over ``model``; ``local_opt_G`` its state; the server
+    state sharded as the parameters without the group dim; ``local_batch``
+    (1, K, b, …) — its group's batches, split over the data axes other
+    than the group axis; ``corr_batch`` (S, b, …) — the correction batches
+    split over all the data axes.  The K local steps sum gradients over
+    the group's data axes only; the average is one all-reduce over the
+    group axis (an all-gather of the bf16-cast copies with ``avg_bf16``,
+    whose mean is then the unsharded step's); the S corrections sum over
+    every data axis; every copy then takes the corrected parameters (no
+    traffic: the average is already on every rank).  Updated in place as
+    the unsharded step."""
+    gaxis = group_axis_for(mesh)
+    local_tp = _shard(model, mesh, _axes_of(
+        batch_pspec(mesh, stacked_group=True)[-1]))
+    comm = local_tp.comm
+    corr_tp = _shard(model, mesh, _data_axes(mesh), comm=comm)
+    n_groups = comm.size((gaxis,))
+    remat = step_cfg.remat
+
+    def round_step(params_G, local_opt_G, server_state, local_batch,
+                   corr_batch):
+        p = tree_map(lambda x: x[0], params_G)
+        o = _state_map(local_opt_G, lambda x: x[0])
+        losses = []
+        for i in range(step_cfg.local_steps):
+            batch = {k: v[0, i] for k, v in local_batch.items()}
+            loss, grads = _sharded_value_and_grad(model, local_tp, p, batch,
+                                                  remat)
+            o = _update_in_place(local_opt, grads, o, p)
+            del grads
+            losses.append(loss)
+        new_local = _with_trees(local_opt_G, o)
+        local_loss = comm.all_reduce(torch.stack(losses).mean(),
+                                     (gaxis,)) / n_groups
+
+        with torch.no_grad():
+            if step_cfg.avg_bf16:
+                avg = tree_map(
+                    lambda x: comm.all_gather(x.to(torch.bfloat16), 0,
+                                              (gaxis,)).float().mean(0)
+                    .to(torch.bfloat16).to(x.dtype)
+                    if x.dtype == torch.float32 else
+                    comm.all_reduce(x[0], (gaxis,)) / n_groups, params_G)
+            else:
+                avg = tree_map(lambda x: comm.all_reduce(x, (gaxis,))
+                               / n_groups, p)
+
+        corr_losses = []
+        for s in range(len(next(iter(corr_batch.values())))):
+            batch = {k: v[s] for k, v in corr_batch.items()}
+            loss, grads = _sharded_value_and_grad(model, corr_tp, avg, batch,
+                                                  remat)
+            server_state = _update_in_place(server_opt, grads, server_state,
+                                            avg)
+            del grads
+            corr_losses.append(loss)
+
+        with torch.no_grad():
+            tree_map(lambda x, a: x.copy_(a.expand_as(x)), params_G, avg)
+        metrics = {"local_loss": local_loss,
+                   "corr_loss": torch.stack(corr_losses).mean()}
+        return params_G, new_local, server_state, metrics
+
+    round_step.comm = comm
+    return round_step

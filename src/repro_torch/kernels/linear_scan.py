@@ -117,6 +117,8 @@ def linear_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= chunk <= MAX_DIM or (t % chunk and not ragged):
         raise ValueError(f"chunk must be in [1, {MAX_DIM}] and divide "
                          f"T={t}, got {chunk}")
+    if is_traced(q):
+        return _traced_forward(q, v, chunk, save_states)
     if q.device.type == "cpu":
         if save_states:
             raise ValueError("save_states is for the kernel: on the CPU the "
@@ -196,6 +198,8 @@ def linear_scan_chunked_bwd(q: torch.Tensor, k: torch.Tensor,
     ``h_in`` and ``h_t``.
     """
     u = u if strict else None
+    if is_traced(q):
+        return _traced_backward(q, k, v, log_w, h0, u, chunk)
     if q.device.type == "cpu":
         return linear_scan_vjp_ref(q, k, v, log_w, h0, u, dy, dh_t,
                                    chunk=chunk, strict=strict)
@@ -251,3 +255,89 @@ def linear_scan_chunked_bwd(q: torch.Tensor, k: torch.Tensor,
 #: Kernel launches since the last reset (the plain CPU path never counts).
 linear_scan_chunked.launches = 0
 linear_scan_chunked_bwd.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The dry run's stand-in (fake tensors only)
+# --------------------------------------------------------------------------
+def is_traced(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a fake tensor (the dry run's trace, which allocates
+    and computes nothing)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(x, FakeTensor)
+
+
+_TRACE_OPS = []
+
+
+def _trace_ops():
+    """Two shape-only ops for the dry run, standing in for the kernels on
+    fake tensors: their outputs are the kernels' (the forward's chunk-start
+    states included, which the gradient kernel reads), and
+    ``FlopCounterMode`` counts each as the chunked form's products: per
+    step 2·(chunk·(dk + dv) + 2·dk·dv) FLOPs forward, twice that for the
+    gradient.  Registered on first use; called on real tensors they
+    raise."""
+    if _TRACE_OPS:
+        return _TRACE_OPS
+    from torch.utils.flop_counter import register_flop_formula
+
+    @torch.library.custom_op("repro_torch::scan_trace", mutates_args=())
+    def scan_trace(q: torch.Tensor, v: torch.Tensor, chunk: int,
+                   save: bool) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+        raise RuntimeError("scan_trace stands in for the scan on fake "
+                           "tensors only")
+
+    @scan_trace.register_fake
+    def _(q, v, chunk, save):
+        bh, t, dk = q.shape
+        dv = v.shape[-1]
+        states = (bh, -(-t // chunk), dk, dv) if save else (0,)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        return (q.new_empty((bh, t, dv), **f32),
+                q.new_empty((bh, dk, dv), **f32),
+                q.new_empty(states, **f32))
+
+    @torch.library.custom_op("repro_torch::scan_bwd_trace", mutates_args=())
+    def scan_bwd_trace(q: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
+                       chunk: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor, torch.Tensor]:
+        raise RuntimeError("scan_bwd_trace stands in for the gradient "
+                           "kernel on fake tensors only")
+
+    @scan_bwd_trace.register_fake
+    def _(q, v, log_w, chunk):
+        return (torch.empty_like(q, dtype=torch.float32),
+                torch.empty_like(q, dtype=torch.float32),
+                torch.empty_like(v, dtype=torch.float32),
+                torch.empty_like(log_w, dtype=torch.float32))
+
+    def flops(q_shape, v_shape, chunk):
+        bh, t, dk = q_shape
+        dv = v_shape[-1]
+        return 2 * bh * t * (chunk * (dk + dv) + 2 * dk * dv)
+
+    @register_flop_formula(torch.ops.repro_torch.scan_trace)
+    def _(q_shape, v_shape, chunk, save, *args, **kwargs):
+        return flops(q_shape, v_shape, chunk)
+
+    @register_flop_formula(torch.ops.repro_torch.scan_bwd_trace)
+    def _(q_shape, v_shape, log_w_shape, chunk, *args, **kwargs):
+        return 2 * flops(q_shape, v_shape, chunk)
+
+    _TRACE_OPS.extend([torch.ops.repro_torch.scan_trace,
+                       torch.ops.repro_torch.scan_bwd_trace])
+    return _TRACE_OPS
+
+
+def _traced_forward(q, v, chunk, save_states):
+    y, h_t, states = _trace_ops()[0](q, v, chunk, save_states)
+    return (y, h_t, states) if save_states else (y, h_t)
+
+
+def _traced_backward(q, k, v, log_w, h0, u, chunk):
+    dq, dk, dv, dlw = _trace_ops()[1](q, v, log_w, chunk)
+    return (dq, dk, dv, dlw,
+            None if h0 is None else torch.empty_like(h0, dtype=torch.float32),
+            None if u is None else torch.empty_like(u, dtype=torch.float32))

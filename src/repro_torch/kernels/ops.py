@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels.edge_softmax import edge_softmax
-from repro_torch.kernels.linear_scan import (linear_scan_chunked,
+from repro_torch.kernels.linear_scan import (is_traced, linear_scan_chunked,
                                             linear_scan_chunked_bwd)
 from repro_torch.kernels.quantize import (dequantize_rows,
                                          dequantize_rows_many, quantize_rows)
@@ -152,7 +152,9 @@ class _LinearScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, log_w, h0, u, chunk, strict):
         ctx.set_materialize_grads(False)
-        saved = q.device.type == "cuda"
+        # the kernel saves its chunk-start states (and so does the dry
+        # run's stand-in on fake tensors); the plain version recomputes
+        saved = q.device.type == "cuda" or is_traced(q)
         out = linear_scan_chunked(q, k, v, log_w, h0, u=u, chunk=chunk,
                                   strict=strict, ragged=True,
                                   save_states=saved)

@@ -1,4 +1,5 @@
-"""Machine meshes: one process per machine over ``torch.distributed``.
+"""Machine meshes: one process per machine over ``torch.distributed``, and
+the production meshes of the sharded LM steps.
 
 The counterpart of the JAX package's host mesh for the GNN engine's
 ``shard_map`` backend.  Where the reference binds one device per machine on
@@ -16,6 +17,11 @@ card.  :func:`launch_machines` starts a group: the calling process is rank
 0 and ranks 1..P-1 are spawned processes; the rendezvous is a file
 (``init_method="file://…"``), so concurrent launches never race for a
 port.
+
+:func:`make_production_mesh` builds the JAX package's production meshes,
+(16, 16) ``("data", "model")`` or (2, 16, 16) ``("pod", "data", "model")``,
+as a ``DeviceMesh`` over the default process group (a real one of 256 or
+512 ranks, or the dry run's fake one).
 """
 from __future__ import annotations
 
@@ -242,3 +248,34 @@ def make_host_mesh(model_parallel: int = 1, device="cuda") -> HostMesh:
                          f"model_parallel={model_parallel}")
     return HostMesh(shape={"data": n // model_parallel,
                            "model": model_parallel}, device=dev)
+
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
+    """The production mesh as a ``DeviceMesh`` over the first 256 (or 512)
+    ranks of the default process group; raises, naming the world size it
+    needs, where there is no group or it has too few ranks (as the JAX
+    package's raises where the host has too few devices)."""
+    shape, names = PRODUCTION_SHAPES[multi_pod]
+    return make_device_mesh(shape, names, device_type)
+
+
+def make_device_mesh(shape, names, device_type="cuda"):
+    """A ``DeviceMesh`` of ``shape`` with axes ``names`` over the first
+    ranks of the default process group (rank-major: the last axis
+    fastest)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    need = 1
+    for n in shape:
+        need *= n
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < need:
+        raise RuntimeError(
+            f"a {'×'.join(map(str, shape))} mesh needs a process group of "
+            f"{need} ranks (world size {need}); "
+            + (f"this one has {have}" if have else "none is initialized"))
+    return DeviceMesh(device_type, torch.arange(need).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(names))

@@ -6,9 +6,13 @@ package's ``launch/train.py``.
 local steps on every LLCG machine (K bucketed to powers of two, as the JAX
 package does: the round runs ``k_pow2`` steps), averages, corrects with S
 global steps, checkpoints, and logs the byte accounting the paper reports.
-The machines are the host mesh's ``data`` axis (the cards of the trainer's
-device type, one CPU), every copy on ``device``; the production meshes and
-model parallelism come with the sharded step (ROADMAP.md Queue 1 item 14).
+On the host mesh the machines are its ``data`` axis (the cards of the
+trainer's device type, one CPU), every copy on ``device``, in this one
+process.  On a production mesh (``--mesh production`` or
+``production-multipod``, a ``DeviceMesh`` over a process group of 256 or 512
+ranks that the launcher has started) every rank runs this function and the
+sharded round step (:mod:`repro_torch.distributed.steps`): it holds its
+blocks of its group's copy, tensor-parallel over ``model``.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b
       [--device cpu]
@@ -17,10 +21,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
+import os
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.checkpoint.store import save_checkpoint
@@ -31,11 +38,13 @@ from repro_torch.core.schedules import local_epoch_schedule
 from repro_torch.data.tokens import TokenDataset, synthetic_corpus
 from repro_torch.distributed.steps import (LLCGStepConfig,
                                            build_llcg_round_step)
-from repro_torch.launch.mesh import HostMesh, make_host_mesh
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import (HostMesh, machine_device,
+                                     make_host_mesh, make_production_mesh)
 from repro_torch.models.transformer.model import LM
 from repro_torch.optim import adamw
 from repro_torch.utils.logging import Timer, get_logger
-from repro_torch.utils.pytree import tree_bytes, tree_map
+from repro_torch.utils.pytree import tree_leaves, tree_map
 
 log = get_logger("repro_torch.train")
 
@@ -59,22 +68,22 @@ class TrainConfig:
     model_parallel: int = 1
 
 
-def make_mesh(cfg: TrainConfig, device="cuda") -> HostMesh:
-    """The host mesh (:func:`~repro_torch.launch.mesh.make_host_mesh`);
-    the production meshes and ``model_parallel > 1`` raise: they come with
-    the sharded step, ROADMAP.md Queue 1 item 14."""
+def make_mesh(cfg: TrainConfig, device="cuda"):
+    """The mesh ``cfg.mesh`` names, as the JAX package's: ``host`` — the
+    devices of ``device``'s type split ``data`` × ``model`` by
+    ``cfg.model_parallel`` (:func:`~repro_torch.launch.mesh.
+    make_host_mesh`, which raises where they do not split); ``production``
+    / ``production-multipod`` — the (16, 16) / (2, 16, 16) ``DeviceMesh``
+    over the default process group (:func:`~repro_torch.launch.mesh.
+    make_production_mesh`, which raises, naming the world size it needs,
+    where the group is missing or too small)."""
     if cfg.mesh in ("production", "production-multipod"):
-        raise NotImplementedError(
-            f"mesh={cfg.mesh!r} is not ported: the production meshes come "
-            f"with the sharded step (ROADMAP.md Queue 1 item 14)")
+        return make_production_mesh(
+            multi_pod=cfg.mesh == "production-multipod",
+            device_type=torch.device(device).type)
     if cfg.mesh != "host":
         raise ValueError(f"unknown mesh {cfg.mesh!r}; choose host, "
                          f"production or production-multipod")
-    if cfg.model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={cfg.model_parallel} is not ported: model "
-            f"parallelism comes with the sharded step (ROADMAP.md Queue 1 "
-            f"item 14)")
     return make_host_mesh(model_parallel=cfg.model_parallel, device=device)
 
 
@@ -84,28 +93,63 @@ def train(cfg: TrainConfig, device="cuda"):
     package does: the G copies stacked (G, …) and the last round's
     ``local_loss`` / ``corr_loss``; ``metrics["history"]`` adds one dict a
     round (``round``, ``k``, ``local_loss``, ``corr_loss``, ``seconds``,
-    ``comm_mb``, the numbers of the log line)."""
+    ``comm_mb``, the numbers of the log line).
+
+    On a production mesh every rank of the process group calls it: the
+    rank draws only its blocks of the weights (:meth:`LM.init`'s
+    ``block``), every rank draws the same corpus and batches from
+    ``cfg.seed`` and keeps its blocks of them, and the round is the
+    sharded step; ``params_G`` is then the rank's block (its group's copy,
+    (1, …)), rank 0 logs, and the ranks of group 0 that hold data shard 0
+    checkpoint their blocks of the model under ``ckpt_dir/model<m>``
+    (``m`` their ``model`` coordinate).  On the host mesh, ``model`` only
+    divides the cards into groups, as the JAX package's host mesh does:
+    the copies run unsharded."""
     mesh = make_mesh(cfg, device)
-    device = mesh.device
-    G = mesh.shape["data"]
     mcfg = get_smoke_config(cfg.arch) if cfg.smoke else get_config(cfg.arch)
     model = LM(mcfg)
-    log.info("arch=%s G=%d mesh=%s layers=%d d=%d", mcfg.name, G,
-             dict(mesh.shape), mcfg.num_layers, mcfg.d_model)
+    shapes = model.param_specs()
+    param_mb = sum(math.prod(s.shape) * torch.empty(0, dtype=s.dtype)
+                   .element_size() for s in tree_leaves(shapes)) / 1e6
+    if isinstance(mesh, HostMesh):
+        G, g_held, device = mesh.shape["data"], mesh.shape["data"], \
+            mesh.device
+        rank, block, ckpt_dir, step_mesh = 0, None, cfg.ckpt_dir, None
+        place = lambda batch, spec: batch
+        axes = dict(mesh.shape)
+    else:
+        axes = sharding.axis_sizes(mesh)
+        coord = dict(zip(axes, mesh.get_coordinate()))
+        G, g_held = axes[sharding.group_axis_for(mesh)], 1
+        rank, step_mesh = dist.get_rank(), mesh
+        device = machine_device(device, rank)
+        pspec = sharding.param_pspecs(shapes, mcfg, mesh)
+        block = lambda path, x: sharding.local_shard(
+            x, _at(pspec, path)[_depth(path):], mesh, coord).clone()
+        place = lambda batch, spec: sharding.local_shard(batch, spec, mesh,
+                                                         coord)
+        ckpt_dir = None
+        if cfg.ckpt_dir and all(c == 0 for a, c in coord.items()
+                                if a != "model"):
+            ckpt_dir = os.path.join(cfg.ckpt_dir, f"model{coord['model']}")
+    if rank == 0:
+        log.info("arch=%s G=%d mesh=%s layers=%d d=%d", mcfg.name, G,
+                 axes, mcfg.num_layers, mcfg.d_model)
 
     corpus = synthetic_corpus(mcfg.vocab_size, num_shards=G,
                               tokens_per_shard=max(cfg.seq_len * 64, 20_000),
                               heterogeneity=cfg.heterogeneity, seed=cfg.seed)
     rng = np.random.default_rng(cfg.seed)
 
-    params = model.init(cfg.seed, device)
+    params = model.init(cfg.seed, device, block=block)
     local_opt, server_opt = adamw(cfg.lr), adamw(cfg.server_lr)
-    param_mb = tree_bytes(params) / 1e6
     server_state = server_opt.init(params)
-    params_G = tree_map(lambda x: x.unsqueeze(0).expand(G, *x.shape)
+    params_G = tree_map(lambda x: x.unsqueeze(0).expand(g_held, *x.shape)
                         .clone(), params)
     del params
     opt_G = local_opt.init(params_G)
+    lspec = sharding.batch_pspec(mesh, stacked_group=True, extra_leading=1)
+    cspec = sharding.batch_pspec(mesh, extra_leading=1)
 
     schedule = local_epoch_schedule(cfg.base_k, cfg.rho, cfg.rounds)
     step_cache = {}
@@ -118,28 +162,44 @@ def train(cfg: TrainConfig, device="cuda"):
             step_cache[k_pow2] = build_llcg_round_step(
                 model, local_opt, server_opt,
                 LLCGStepConfig(num_groups=G, local_steps=k_pow2,
-                               correction_steps=cfg.correction_steps))
+                               correction_steps=cfg.correction_steps),
+                mesh=step_mesh)
         round_step = step_cache[k_pow2]
 
-        local = _on(_local_batches(corpus, G, k_pow2, cfg, rng), device)
-        corr = _on(_corr_batches(corpus, cfg, rng), device)
+        local = {k: place(v, lspec) for k, v in
+                 _local_batches(corpus, G, k_pow2, cfg, rng).items()}
+        corr = {k: place(v, cspec) for k, v in
+                _corr_batches(corpus, cfg, rng).items()}
+        local, corr = _on(local, device), _on(corr, device)
         with Timer() as t:
             params_G, opt_G, server_state, metrics = round_step(
                 params_G, opt_G, server_state, local, corr)
             local_loss = float(metrics["local_loss"])
             corr_loss = float(metrics["corr_loss"])
         bytes_cum += 2 * G * param_mb  # up + down, MB
-        log.info("round %2d K=%3d local_loss=%.4f corr_loss=%.4f "
-                 "%.2fs comm=%.1fMB", r, k_pow2, local_loss, corr_loss,
-                 t.elapsed, bytes_cum)
+        if rank == 0:
+            log.info("round %2d K=%3d local_loss=%.4f corr_loss=%.4f "
+                     "%.2fs comm=%.1fMB", r, k_pow2, local_loss, corr_loss,
+                     t.elapsed, bytes_cum)
         history.append({"round": r, "k": k_pow2, "local_loss": local_loss,
                         "corr_loss": corr_loss, "seconds": t.elapsed,
                         "comm_mb": bytes_cum})
-        if cfg.ckpt_dir:
+        if ckpt_dir:
             avg = tree_map(lambda x: x[0], params_G)
-            save_checkpoint(cfg.ckpt_dir, r, avg,
+            save_checkpoint(ckpt_dir, r, avg,
                             extra={"round": r, "comm_mb": bytes_cum})
     return params_G, dict(metrics, history=history)
+
+
+def _at(tree, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _depth(path: str) -> int:
+    """The stacking dims before a leaf's own (``units`` 2, ``rem`` 1)."""
+    return {"units": 2, "rem": 1}.get(path.split("/", 1)[0], 0)
 
 
 def _on(batch: dict, device) -> dict:

@@ -19,6 +19,15 @@ masked with −1e30 and the softmax taken in f32, as in the JAX package.
 (row, slot, head) (:func:`_quantize`, the JAX package's own rounding, not
 the int8 wire codec of ``kernels/quantize.py``).  The JAX attention is
 einsums, not a Pallas kernel, so the port keeps it in torch ops.
+
+Split over ``model`` (``tp``, :mod:`.parallel`): ``wq``/``wk``/``wv`` are
+column-parallel over heads and ``wo`` row-parallel, so a rank attends with
+its own heads.  A head count the axis does not divide keeps its projection
+whole: with the query heads split and the KV heads not, a rank reads the
+KV heads its query heads use; with neither split the attention is
+replicated.  A cache holds the rank's KV heads where they are split, else
+is laid out by the state rules, whose ``head_dim`` split decodes with
+partial scores (:func:`_attend_split_hd`).
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import torch
 
 from repro_torch.models.transformer.config import ModelConfig
 from repro_torch.models.transformer.norms import rms_norm
+from repro_torch.models.transformer.parallel import UNSHARDED
 from repro_torch.models.transformer.rope import apply_rope, rope_angles
 
 _NO_POS = -(10 ** 9)        # a cache slot's position before it is written
@@ -56,22 +66,57 @@ def init_attn_params(cfg: ModelConfig, rng, d_model: Optional[int] = None
     return p
 
 
+def _reads_some_kv(tp) -> bool:
+    """The query heads are split over ``model`` and the KV heads are not:
+    a rank reads the KV heads of its query heads."""
+    return tp.sharded("wq") and not tp.sharded("wk")
+
+
+def _kv_heads_read(n_q: int, cfg: ModelConfig, rank: int) -> slice:
+    """The KV heads that query heads ``rank·n_q …`` read."""
+    per = cfg.num_heads // cfg.num_kv_heads
+    first = rank * n_q
+    return slice(first // per, (first + n_q - 1) // per + 1)
+
+
 def _project_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, tp=UNSHARDED,
+                 every_kv: bool = False):
     """q, k, v of ``x`` (B, S, d); ``positions`` (S,) or, a row each,
-    (B, S)."""
+    (B, S).  Split over ``model``, the rank's heads (module docstring);
+    where a rank reads some KV heads, ``every_kv`` projects all of them
+    (a cache's) instead."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    h, kv = cfg.num_heads, cfg.num_kv_heads
     dt = x.dtype
-    q = (x @ params["wq"].to(dt)).reshape(b, s, h, hd)
-    k = (x @ params["wk"].to(dt)).reshape(b, s, kv, hd)
-    v = (x @ params["wv"].to(dt)).reshape(b, s, kv, hd)
+    xin = tp.col(x, "wq")
+    q = (xin @ params["wq"].to(dt)).reshape(b, s, -1, hd)
+    src, wk, wv = xin, params["wk"], params["wv"]
+    if _reads_some_kv(tp):
+        if every_kv:
+            src = x
+        else:
+            heads = _kv_heads_read(q.shape[2], cfg, tp.rank)
+            cols = torch.arange(heads.start * hd, heads.stop * hd,
+                                device=x.device)
+            wk, wv = tp.take(wk, cols, 1), tp.take(wv, cols, 1)
+    k = (src @ wk.to(dt)).reshape(b, s, -1, hd)
+    v = (src @ wv.to(dt)).reshape(b, s, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, tp.col(params["q_norm"], "wq"), cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"] if every_kv else
+                     tp.col(params["k_norm"], "wq"), cfg.norm_eps)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _read_by_q(k: torch.Tensor, v: torch.Tensor, n_q: int,
+               cfg: ModelConfig, tp):
+    """Of every KV head, those this rank's ``n_q`` query heads read."""
+    if not _reads_some_kv(tp):
+        return k, v
+    heads = _kv_heads_read(n_q, cfg, tp.rank)
+    return k[:, :, heads], v[:, :, heads]
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
@@ -89,39 +134,68 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
 
 
 def _gqa_output(probs: torch.Tensor, v: torch.Tensor, params: Dict,
-                cfg: ModelConfig, b: int, s: int) -> torch.Tensor:
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
-    out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
-    return out @ params["wo"].to(out.dtype)
+                cfg: ModelConfig, b: int, s: int, tp=UNSHARDED
+                ) -> torch.Tensor:
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(b, s, -1)
+    return tp.row(out @ params["wo"].to(out.dtype), "wo")
 
 
 def _attend(params: Dict, q, k, v, valid: torch.Tensor, cfg: ModelConfig,
-            dtype) -> torch.Tensor:
+            dtype, tp=UNSHARDED) -> torch.Tensor:
     """Masked (−1e30) f32 softmax over the keys, then the output
     projection; ``valid`` broadcasts against the (B,Kv,G,S,T) scores."""
     b, s = q.shape[:2]
     scores = _gqa_scores(q, k.to(q.dtype), cfg).masked_fill(~valid, -1e30)
     probs = torch.softmax(scores, dim=-1).to(dtype)
-    return _gqa_output(probs, v.to(dtype), params, cfg, b, s)
+    return _gqa_output(probs, v.to(dtype), params, cfg, b, s, tp)
+
+
+def _attend_split_hd(params: Dict, q, k, v, valid: torch.Tensor,
+                     cfg: ModelConfig, dtype, tp) -> torch.Tensor:
+    """:func:`_attend` against a cache whose ``head_dim`` is split over
+    ``model`` (decode only): every query head (gathered where they are
+    split) contracted over the rank's slice of ``head_dim``, the partial
+    scores summed (one all-reduce), the rank's slice of every head's
+    output gathered, then the output projection of that replicated
+    output."""
+    b, s = q.shape[:2]
+    hd = cfg.resolved_head_dim
+    if tp.sharded("wq"):
+        q = tp.col_out(q, "wq", dim=2)
+    kv = k.shape[2]
+    qs = tp.local_slice(q, -1)
+    qg = qs.reshape(b, s, kv, q.shape[2] // kv, qs.shape[-1])
+    part = torch.einsum("bskgd,btkd->bkgst", qg, k.to(q.dtype)).float()
+    scores = tp.all_reduce(part) / math.sqrt(hd)
+    if cfg.logit_softcap > 0:
+        scores = cfg.logit_softcap * torch.tanh(scores / cfg.logit_softcap)
+    probs = torch.softmax(scores.masked_fill(~valid, -1e30),
+                          dim=-1).to(dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(dtype))
+    out = tp.all_gather(out, -1).reshape(b, s, cfg.num_heads * hd)
+    return tp.row_in(out, params["wo"], "wo")
 
 
 def _causal(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-            window: Optional[int]):
+            window: Optional[int], tp=UNSHARDED, every_kv: bool = False):
     """Causal (optionally windowed) attention's output, and the keys,
-    values and positions it attended to."""
+    values and positions it attended to (every KV head with
+    ``every_kv``, :func:`_project_qkv`)."""
     positions = torch.arange(x.shape[1], device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, tp, every_kv)
     qpos, kpos = positions[:, None], positions[None, :]
     mask = kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
-    return _attend(params, q, k, v, mask, cfg, x.dtype), k, v, positions
+    ka, va = _read_by_q(k, v, q.shape[2], cfg, tp) if every_kv else (k, v)
+    return _attend(params, q, ka, va, mask, cfg, x.dtype, tp), k, v, \
+        positions
 
 
 def attn_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                 window: Optional[int] = None) -> torch.Tensor:
+                 window: Optional[int] = None, tp=UNSHARDED) -> torch.Tensor:
     """Causal (optionally windowed) attention over the full sequence."""
-    return _causal(params, x, cfg, window)[0]
+    return _causal(params, x, cfg, window, tp)[0]
 
 
 # --------------------------------------------------------------------------
@@ -177,15 +251,16 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def attn_prefill(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                 spec: CacheSpec, window: Optional[int] = None
+                 spec: CacheSpec, window: Optional[int] = None, tp=UNSHARDED
                  ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence attention and the cache of its keys and values, in
     ``x``'s dtype (or int8).  A full cache pads to ``spec.length`` slots; a
     ring keeps the last ``min(s, length)`` positions, position ``p`` at
-    slot ``p % length``, the other slots at position −10⁹."""
+    slot ``p % length``, the other slots at position −10⁹.  Split over
+    ``model``, the rank's block of the cache (module docstring)."""
     b, s = x.shape[:2]
     L = spec.length
-    out, k, v, positions = _causal(params, x, cfg, window)
+    out, k, v, positions = _causal(params, x, cfg, window, tp, every_kv=True)
     pos = torch.full((L,), _NO_POS, dtype=torch.int32, device=x.device)
     if spec.kind == "ring":
         take = min(s, L)
@@ -206,14 +281,16 @@ def attn_prefill(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     if _quantized(cfg):
         kq, ks = _quantize(cache_k)
         vq, vs = _quantize(cache_v)
-        return out, {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs,
-                     "pos": pos}
-    return out, {"k": cache_k, "v": cache_v, "pos": pos}
+        cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs, "pos": pos}
+    else:
+        cache = {"k": cache_k, "v": cache_v, "pos": pos}
+    # split KV heads are the rank's block already
+    return out, cache if tp.sharded("wk") else tp.to_state(cache)
 
 
 def attn_decode(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                 cache: Dict, position: Union[int, torch.Tensor],
-                spec: CacheSpec, window: Optional[int] = None
+                spec: CacheSpec, window: Optional[int] = None, tp=UNSHARDED
                 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode.  x: (B, 1, d).  ``position`` is the token's index:
     an int shared by every row (a wave), or a (B,) int tensor, each row's
@@ -222,7 +299,8 @@ def attn_decode(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     ``position`` (``position % L`` in a ring) and attends to the slots
     whose position lies in ``(position − w, position]``, ``w`` the window
     (a ring's length without one).  The cache is not modified: the new
-    one is a copy, as the JAX package's ``dynamic_update_slice``."""
+    one is a copy, as the JAX package's ``dynamic_update_slice``.  Split
+    over ``model``, the cache is the rank's block (module docstring)."""
     b = x.shape[0]
     L = spec.length
     per_row = isinstance(position, torch.Tensor)
@@ -243,16 +321,19 @@ def attn_decode(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         at = (slice(None), slot)
         cur = position
         angles_at = torch.tensor([position], device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, angles_at)
+    q, k, v = _project_qkv(params, x, cfg, angles_at, tp, every_kv=True)
+    split_hd = tp.state_dim("k") == 3
+    mine = (lambda t: tp.local_slice(t, -1)) if split_hd else (lambda t: t)
     new = {name: t.clone() for name, t in cache.items() if name != "pos"}
     if _quantized(cfg):
-        new["k"][at], new["k_scale"][at] = _quantize(k[:, 0])
-        new["v"][at], new["v_scale"][at] = _quantize(v[:, 0])
+        (kq, new["k_scale"][at]), (vq, new["v_scale"][at]) = \
+            _quantize(k[:, 0]), _quantize(v[:, 0])
+        new["k"][at], new["v"][at] = mine(kq), mine(vq)
         cache_k = _dequantize(new["k"], new["k_scale"], x.dtype)
         cache_v = _dequantize(new["v"], new["v_scale"], x.dtype)
     else:
-        new["k"][at] = k[:, 0].to(new["k"].dtype)
-        new["v"][at] = v[:, 0].to(new["v"].dtype)
+        new["k"][at] = mine(k[:, 0]).to(new["k"].dtype)
+        new["v"][at] = mine(v[:, 0]).to(new["v"].dtype)
         cache_k, cache_v = new["k"], new["v"]
     if per_row:
         pos = cache["pos"].expand(b, L).clone()
@@ -267,4 +348,9 @@ def attn_decode(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         valid &= pos > cur - w
     if per_row:
         valid = valid[:, None, None, None, :]
-    return _attend(params, q, cache_k, cache_v, valid, cfg, x.dtype), new
+    if split_hd:
+        return _attend_split_hd(params, q, cache_k, cache_v, valid, cfg,
+                                x.dtype, tp), new
+    cache_k, cache_v = _read_by_q(cache_k, cache_v, q.shape[2], cfg, tp)
+    return _attend(params, q, cache_k, cache_v, valid, cfg, x.dtype,
+                   tp), new

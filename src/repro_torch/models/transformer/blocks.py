@@ -29,6 +29,10 @@ sizes the attention caches and ``position`` (an int, or a (B,) tensor of
 per-row positions) indexes them; the recurrent kinds read neither.  The
 MoE routes a prefill's and an int position's batch as one group, and with
 a (B,) position each row alone (:mod:`.moe`, "Groups").
+
+Every function takes ``tp``, the rank's view of the layer's split over a
+mesh (:mod:`.parallel`; the identity on one device), and hands each part
+its subtree's view; a prefill's state is laid out by the state rules.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from repro_torch.models.transformer import rwkv6 as R6
 from repro_torch.models.transformer.attention import CacheSpec
 from repro_torch.models.transformer.config import ModelConfig
 from repro_torch.models.transformer.norms import rms_norm
+from repro_torch.models.transformer.parallel import UNSHARDED
 
 _MOE = ("moe", "moe_swa")
 _ATTN = ("full", "swa") + _MOE
@@ -85,64 +90,66 @@ def _shared_attn_in(params: Dict, h: torch.Tensor, emb0: torch.Tensor,
     return rms_norm(torch.cat([h, emb0], dim=-1), params["ln"], cfg.norm_eps)
 
 
-def _mlp_out(params: Dict, h: torch.Tensor,
-             cfg: ModelConfig) -> torch.Tensor:
+def _mlp_out(params: Dict, h: torch.Tensor, cfg: ModelConfig,
+             tp=UNSHARDED) -> torch.Tensor:
     """``h`` plus the pre-norm (``ln2``) MLP of it: the second half of the
     dense and shared blocks."""
     x2 = rms_norm(h, params["ln2"], cfg.norm_eps)
-    return h + FF.mlp_forward(params["mlp"], x2, cfg)
+    return h + FF.mlp_forward(params["mlp"], x2, cfg, tp["mlp"])
 
 
 def _ffn_out(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
-             groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+             groups: int = 1, tp=UNSHARDED
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The second half of an attention block: ``h`` plus its pre-norm MLP,
     or its pre-norm MoE routed in ``groups`` groups, and the MoE's aux
     (zero for the MLP)."""
     if kind not in _MOE:
-        return (_mlp_out(params, h, cfg),
+        return (_mlp_out(params, h, cfg, tp),
                 torch.zeros((), dtype=torch.float32, device=h.device))
     x2 = rms_norm(h, params["ln2"], cfg.norm_eps)
-    y, aux = MOE.moe_forward(params["moe"], x2, cfg, groups)
+    y, aux = MOE.moe_forward(params["moe"], x2, cfg, groups, tp["moe"])
     return h + y, aux
 
 
-def _encoder_attn(params: Dict, x: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+def _encoder_attn(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                  tp=UNSHARDED) -> torch.Tensor:
     """Bidirectional attention: no mask and no window, RoPE at
     ``arange(s)``, the f32 softmax cast back to ``x``'s dtype."""
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)
-    q, k, v = A._project_qkv(params, x, cfg, positions)
+    q, k, v = A._project_qkv(params, x, cfg, positions, tp)
     probs = torch.softmax(A._gqa_scores(q, k, cfg), dim=-1).to(x.dtype)
-    return A._gqa_output(probs, v, params, cfg, b, s)
+    return A._gqa_output(probs, v, params, cfg, b, s, tp)
 
 
 def block_forward(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
-                  emb0: Optional[torch.Tensor] = None, causal: bool = True
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  emb0: Optional[torch.Tensor] = None, causal: bool = True,
+                  tp=UNSHARDED) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind in _ATTN:
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
         if causal:
             att = A.attn_forward(params["attn"], x, cfg,
-                                 window=_window(kind, cfg))
+                                 window=_window(kind, cfg), tp=tp["attn"])
         else:
-            att = _encoder_attn(params["attn"], x, cfg)
-        return _ffn_out(kind, params, h + att, cfg)
+            att = _encoder_attn(params["attn"], x, cfg, tp["attn"])
+        return _ffn_out(kind, params, h + att, cfg, tp=tp)
     if kind == "rwkv6":
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
-        att, _, _ = R6.rwkv6_time_mix(params, x, cfg)
+        att, _, _ = R6.rwkv6_time_mix(params, x, cfg, tp=tp)
         h = h + att
         x = rms_norm(h, params["ln2"], cfg.norm_eps)
-        ffn, _ = R6.rwkv6_channel_mix(params, x)
+        ffn, _ = R6.rwkv6_channel_mix(params, x, tp=tp)
         return h + ffn, aux
     if kind == "mamba2":
         x = rms_norm(h, params["ln"], cfg.norm_eps)
-        return h + M2.mamba2_forward(params["mamba"], x, cfg), aux
+        return h + M2.mamba2_forward(params["mamba"], x, cfg,
+                                     tp["mamba"]), aux
     if kind == "shared_attn":
         x = _shared_attn_in(params, h, emb0, cfg)
-        h = h + A.attn_forward(params["attn"], x, cfg)
-        return _mlp_out(params, h, cfg), aux
+        h = h + A.attn_forward(params["attn"], x, cfg, tp=tp["attn"])
+        return _mlp_out(params, h, cfg, tp), aux
     raise _unknown(kind)
 
 
@@ -169,39 +176,45 @@ def init_block_state(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def block_prefill(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
-                  max_seq: int, emb0: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+                  max_seq: int, emb0: Optional[torch.Tensor] = None,
+                  tp=UNSHARDED) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Forward + state construction.  Returns (h, state, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind in _ATTN:
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
         att, cache = A.attn_prefill(params["attn"], x, cfg,
                                     cache_spec_for(kind, cfg, max_seq),
-                                    window=_window(kind, cfg))
-        h, aux = _ffn_out(kind, params, h + att, cfg)
+                                    window=_window(kind, cfg), tp=tp["attn"])
+        h, aux = _ffn_out(kind, params, h + att, cfg, tp=tp)
         return h, cache, aux
     if kind == "rwkv6":
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
-        att, x_att, h_t = R6.rwkv6_time_mix(params, x, cfg)
+        att, x_att, h_t = R6.rwkv6_time_mix(params, x, cfg, tp=tp)
         h = h + att
         x2 = rms_norm(h, params["ln2"], cfg.norm_eps)
-        ffn, x_ffn = R6.rwkv6_channel_mix(params, x2)
-        return h + ffn, {"x_att": x_att, "x_ffn": x_ffn, "h": h_t}, aux
+        ffn, x_ffn = R6.rwkv6_channel_mix(params, x2, tp=tp)
+        # the state of every head, then the rank's block of it
+        hs = h_t.shape[-1]
+        h_t = tp.gather(h_t.reshape(h.shape[0], -1, hs, hs), 1,
+                        "w_r").reshape(-1, hs, hs)
+        return h + ffn, tp.to_state({"x_att": x_att, "x_ffn": x_ffn,
+                                     "h": h_t}), aux
     if kind == "mamba2":
         x = rms_norm(h, params["ln"], cfg.norm_eps)
-        y, state = M2.mamba2_prefill(params["mamba"], x, cfg)
-        return h + y, state, aux
+        y, state = M2.mamba2_prefill(params["mamba"], x, cfg, tp["mamba"])
+        return h + y, tp.to_state(state), aux
     if kind == "shared_attn":
         x = _shared_attn_in(params, h, emb0, cfg)
         att, cache = A.attn_prefill(params["attn"], x, cfg,
-                                    cache_spec_for(kind, cfg, max_seq))
-        return _mlp_out(params, h + att, cfg), cache, aux
+                                    cache_spec_for(kind, cfg, max_seq),
+                                    tp=tp["attn"])
+        return _mlp_out(params, h + att, cfg, tp), cache, aux
     raise _unknown(kind)
 
 
 def block_decode(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
                  state: Dict, position, max_seq: int,
-                 emb0: Optional[torch.Tensor] = None
+                 emb0: Optional[torch.Tensor] = None, tp=UNSHARDED
                  ) -> Tuple[torch.Tensor, Dict]:
     """One-token step.  h: (B, 1, d); ``position`` an int or a (B,) int
     tensor (:func:`attention.attn_decode`), with which the MoE routes
@@ -210,23 +223,27 @@ def block_decode(kind: str, params: Dict, h: torch.Tensor, cfg: ModelConfig,
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
         att, cache = A.attn_decode(params["attn"], x, cfg, state, position,
                                    cache_spec_for(kind, cfg, max_seq),
-                                   window=_window(kind, cfg))
+                                   window=_window(kind, cfg), tp=tp["attn"])
         groups = h.shape[0] if isinstance(position, torch.Tensor) else 1
-        return _ffn_out(kind, params, h + att, cfg, groups)[0], cache
+        return _ffn_out(kind, params, h + att, cfg, groups, tp)[0], cache
     if kind == "rwkv6":
         x = rms_norm(h, params["ln1"], cfg.norm_eps)
-        att, x_att, h_t = R6.rwkv6_decode_time_mix(params, x, cfg, state)
+        att, x_att, h_t = R6.rwkv6_decode_time_mix(params, x, cfg, state,
+                                                   tp)
         h = h + att
         x2 = rms_norm(h, params["ln2"], cfg.norm_eps)
-        ffn, _ = R6.rwkv6_channel_mix(params, x2, state["x_ffn"])
-        return h + ffn, {"x_att": x_att, "x_ffn": x2, "h": h_t}
+        ffn, _ = R6.rwkv6_channel_mix(params, x2, state["x_ffn"], tp)
+        return h + ffn, {"x_att": x_att, "x_ffn": x2,
+                         "h": tp.to_state({"h": h_t})["h"]}
     if kind == "mamba2":
         x = rms_norm(h, params["ln"], cfg.norm_eps)
-        y, state = M2.mamba2_decode(params["mamba"], x, cfg, state)
-        return h + y, state
+        y, state = M2.mamba2_decode(params["mamba"], x, cfg, state,
+                                    tp["mamba"])
+        return h + y, tp.to_state(state)
     if kind == "shared_attn":
         x = _shared_attn_in(params, h, emb0, cfg)
         att, cache = A.attn_decode(params["attn"], x, cfg, state, position,
-                                   cache_spec_for(kind, cfg, max_seq))
-        return _mlp_out(params, h + att, cfg), cache
+                                   cache_spec_for(kind, cfg, max_seq),
+                                   tp=tp["attn"])
+        return _mlp_out(params, h + att, cfg, tp), cache
     raise _unknown(kind)

@@ -1,6 +1,8 @@
 """Dense feed-forward blocks, as the JAX package's
 ``models/transformer/mlp.py``: the SiLU-GLU (``act="silu"``), else the
-non-gated GELU (starcoder2, the encoders)."""
+non-gated GELU (starcoder2, the encoders).  Split over ``model``
+(:mod:`.parallel`), ``w_gate``/``w_up`` are column-parallel and ``w_down``
+row-parallel: one all-reduce completes the output."""
 from __future__ import annotations
 
 import math
@@ -10,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.transformer.config import ModelConfig
+from repro_torch.models.transformer.parallel import UNSHARDED
 
 
 def init_mlp_params(cfg: ModelConfig, rng) -> Dict[str, torch.Tensor]:
@@ -26,13 +29,14 @@ def init_mlp_params(cfg: ModelConfig, rng) -> Dict[str, torch.Tensor]:
     return {"w_up": dense((d, f)), "w_down": dense((f, d))}
 
 
-def mlp_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig
-                ) -> torch.Tensor:
+def mlp_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                tp=UNSHARDED) -> torch.Tensor:
     dt = x.dtype
+    xin = tp.col(x, "w_up")
     if "w_gate" in params:
-        g = F.silu(x @ params["w_gate"].to(dt))
-        u = x @ params["w_up"].to(dt)
-        return (g * u) @ params["w_down"].to(dt)
+        g = F.silu(xin @ params["w_gate"].to(dt))
+        u = xin @ params["w_up"].to(dt)
+        return tp.row((g * u) @ params["w_down"].to(dt), "w_down")
     # jax.nn.gelu's default is the tanh approximation; torch's is erf
-    h = F.gelu(x @ params["w_up"].to(dt), approximate="tanh")
-    return h @ params["w_down"].to(dt)
+    h = F.gelu(xin @ params["w_up"].to(dt), approximate="tanh")
+    return tp.row(h @ params["w_down"].to(dt), "w_down")

@@ -23,6 +23,8 @@ Entry points:
   init(seed, device)                → params (drawn on the CPU a layer at a
                                       time, each copied into its stack on
                                       ``device``)
+  param_specs()                     → the parameter tree's shapes and
+                                      dtypes, nothing drawn or allocated
   forward(params, batch)            → (logits, aux)
   prefill(params, batch, max_seq)   → (logits_last, states)
   decode_step(params, states, token, position, max_seq) → (logits, states)
@@ -50,6 +52,13 @@ The batch holds ``tokens``, and per frontend:
 ``forward`` is differentiable by autograd; the recurrent kinds' scans run
 the hand-written gradient kernel on the card
 (:func:`repro_torch.kernels.ops.linear_scan`).
+
+Every entry point takes ``tp``, the rank's view of a split over a mesh
+(:mod:`.parallel`; the identity by default): given
+:class:`repro_torch.distributed.tensor_parallel.ModelShard`, the same code
+runs one rank's shards of the parameters, batch and states — the
+vocab-sharded embedding looked up on the rank's rows, the logits the
+rank's vocab slice, ``loss_terms`` the rank's share of the loss.
 """
 from __future__ import annotations
 
@@ -67,6 +76,7 @@ from repro_torch.models.transformer import blocks as B
 from repro_torch.models.transformer.config import ModelConfig
 from repro_torch.models.transformer.initutils import TorchRng
 from repro_torch.models.transformer.norms import rms_norm
+from repro_torch.models.transformer.parallel import UNSHARDED
 from repro_torch.utils.pytree import map_with_paths, tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -144,7 +154,7 @@ class LM:
         return self._index(params[group][key], idx)
 
     # ------------------------------------------------------------------ init
-    def init(self, seed: int, device="cuda") -> Dict:
+    def init(self, seed: int, device="cuda", block=None) -> Dict:
         """Random f32 weights from ``seed``: drawn on the CPU generator, so
         the same seed gives the same weights on every device.  Each layer
         is drawn on the CPU from its own generator and copied into its
@@ -152,7 +162,22 @@ class LM:
         passes another): the host holds at most ``_INIT_WORKERS`` layers
         at a time, drawn in parallel.  The stream's order is the JAX
         package's: embeddings, the frontend, the pattern's entries, the
-        shared set, the remainder's entries."""
+        shared set, the remainder's entries.
+
+        ``block(path, x)``, given, keeps a block of every leaf (a rank's,
+        under the sharding rules): ``path`` is the leaf's ``/``-joined key
+        in the returned tree and ``x`` the whole tensor of one layer; the
+        stacks are allocated at the blocks' shapes, so ``device`` holds
+        only the blocks."""
+        keep = block or (lambda path, x: x)
+
+        def placed(tree, path: str, to=None):
+            if isinstance(tree, dict):
+                return {k: placed(v, f"{path}/{k}" if path else k, to)
+                        for k, v in tree.items()}
+            x = keep(path, tree)
+            return x if to is None else x.to(to)
+
         cfg = self.cfg
         rng = TorchRng(seed)
         d = cfg.d_model
@@ -172,19 +197,20 @@ class LM:
             params["frontend"] = {
                 "proj1": rng.standard_normal((fd, d)) / math.sqrt(fd),
                 "proj2": rng.standard_normal((d, d)) / math.sqrt(d)}
-        params = tree_map(lambda x: x.to(device), params)
+        params = placed(params, "", device)
 
-        def stack_init(kind: str, dims: Tuple[int, ...]) -> Dict:
+        def stack_init(kind: str, dims: Tuple[int, ...], path: str) -> Dict:
             base = rng.fork()
             # each layer's generator forked in layer order: the draws
             # themselves are independent and run on _INIT_WORKERS threads
             rngs = [base.fork() for _ in range(math.prod(dims))]
-            first = B.init_block_params(kind, cfg, rngs[0])
+            first = placed(B.init_block_params(kind, cfg, rngs[0]), path)
             stacks = tree_map(lambda x: torch.empty(
                 (len(rngs), *x.shape), dtype=x.dtype, device=device), first)
 
             def fill(n, layer=None):
-                layer = layer or B.init_block_params(kind, cfg, rngs[n])
+                layer = layer or placed(
+                    B.init_block_params(kind, cfg, rngs[n]), path)
                 tree_map(lambda s, x: s[n].copy_(x), stacks, layer)
             fill(0, first)
             del first
@@ -194,28 +220,65 @@ class LM:
                             stacks)
 
         entries = self._entries()
-        params["units"] = {key: stack_init(kind, dims)
+        params["units"] = {key: stack_init(kind, dims, f"units/{key}")
                            for group, key, kind, dims in entries
                            if group == "units" and kind != "shared_attn"}
         if any(kind == "shared_attn" for _, _, kind, _ in entries):
-            params["shared"] = tree_map(
-                lambda x: x.to(device),
-                B.init_block_params("shared_attn", cfg, rng.fork()))
-        params["rem"] = {key: stack_init(kind, dims)
+            params["shared"] = placed(
+                B.init_block_params("shared_attn", cfg, rng.fork()),
+                "shared", device)
+        params["rem"] = {key: stack_init(kind, dims, f"rem/{key}")
+                         for group, key, kind, dims in entries
+                         if group == "rem"}
+        return params
+
+    def param_specs(self) -> Dict:
+        """The tree :meth:`init` returns, as
+        :class:`~repro_torch.configs.shapes.TensorSpec` records (the JAX
+        package's ``jax.eval_shape(model.init, …)``): one layer of each
+        kind is drawn under a fake-tensor mode, which allocates nothing."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from repro_torch.configs.shapes import TensorSpec
+        cfg = self.cfg
+        d = cfg.d_model
+        spec = lambda x, lead=(): TensorSpec((*lead, *x.shape), x.dtype)
+        f32 = lambda *shape: TensorSpec(shape, torch.float32)
+        params: Dict[str, Any] = {"embed": f32(cfg.vocab_size, d),
+                                  "final_norm": f32(d)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = f32(d, cfg.vocab_size)
+        fd = cfg.frontend_dim
+        if cfg.frontend == "audio":
+            params["frontend"] = {"proj": f32(fd, d), "mask_emb": f32(d)}
+        elif cfg.frontend == "vision":
+            params["frontend"] = {"proj1": f32(fd, d), "proj2": f32(d, d)}
+        with FakeTensorMode():
+            layer = {kind: B.init_block_params(kind, cfg, TorchRng(0))
+                     for _, _, kind, _ in self._entries()}
+        entries = self._entries()
+        params["units"] = {key: tree_map(lambda x, n=dims: spec(x, n),
+                                         layer[kind])
+                           for group, key, kind, dims in entries
+                           if group == "units" and kind != "shared_attn"}
+        if "shared_attn" in layer:
+            params["shared"] = tree_map(spec, layer["shared_attn"])
+        params["rem"] = {key: tree_map(lambda x, n=dims: spec(x, n),
+                                       layer[kind])
                          for group, key, kind, dims in entries
                          if group == "rem"}
         return params
 
     # -------------------------------------------------------------- helpers
-    def _embed_tokens(self, params: Dict, tokens: torch.Tensor
-                      ) -> torch.Tensor:
+    def _embed_tokens(self, params: Dict, tokens: torch.Tensor,
+                      tp=UNSHARDED) -> torch.Tensor:
         # as the JAX package: rows rounded to cfg.dtype, then scaled by a
         # numpy float64, which promotes the stream to float32 — every layer
         # after this computes in f32 whatever cfg.dtype says
-        return params["embed"][tokens].to(self.dtype).float() * \
+        return tp.lookup(params["embed"], tokens).to(self.dtype).float() * \
             math.sqrt(self.cfg.d_model)
 
-    def _embed(self, params: Dict, batch: Dict) -> torch.Tensor:
+    def _embed(self, params: Dict, batch: Dict, tp=UNSHARDED) -> torch.Tensor:
         """The layer stack's input: the frontend's rows (module
         docstring), else the scaled token embeddings."""
         dt = self.dtype
@@ -226,18 +289,19 @@ class LM:
                 m = batch["mask_positions"][..., None].to(dt)
                 h = h * (1 - m) + fr["mask_emb"].to(dt) * m
             return h
-        toks = self._embed_tokens(params, batch["tokens"])
+        toks = self._embed_tokens(params, batch["tokens"], tp)
         if self.cfg.frontend == "vision":
             p = F.gelu(batch["patches"].to(dt) @ fr["proj1"].to(dt),
                        approximate="tanh") @ fr["proj2"].to(dt)
             return torch.cat([p.to(toks.dtype), toks], dim=1)
         return toks
 
-    def _head(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
+    def _head(self, params: Dict, h: torch.Tensor,
+              tp=UNSHARDED) -> torch.Tensor:
         h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
-        head = (params["embed"].T if self.cfg.tie_embeddings
-                else params["lm_head"])
-        return h @ head.to(h.dtype)
+        name = "embed" if self.cfg.tie_embeddings else "lm_head"
+        head = params["embed"].T if name == "embed" else params["lm_head"]
+        return tp.col(h, name) @ head.to(h.dtype)
 
     def _stacked_states(self, per_layer: List[Dict]) -> Dict:
         """Per-layer states in :meth:`_layers` order → the stacked tree."""
@@ -254,24 +318,25 @@ class LM:
         return tree_map(lambda x: x[idx], tree)
 
     # ---------------------------------------------------------------- forward
-    def forward(self, params: Dict, batch: Dict
+    def forward(self, params: Dict, batch: Dict, tp=UNSHARDED
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
-        h = self._embed(params, batch)
+        h = self._embed(params, batch, tp)
         emb0 = h
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for group, key, kind, idx in self._layers():
             h, a = B.block_forward(
                 kind, self._layer_params(params, group, key, idx), h, cfg,
-                emb0=emb0, causal=not cfg.encoder_only)
+                emb0=emb0, causal=not cfg.encoder_only,
+                tp=tp.layer(group, key, len(idx)))
             aux = aux + a
         if cfg.frontend == "vision":
             h = h[:, cfg.num_prefix_tokens:]
-        return self._head(params, h), aux
+        return self._head(params, h, tp), aux
 
     # ------------------------------------------------------------------ loss
     def loss(self, params: Dict, batch: Dict,
-             efficient_ce: bool = True) -> torch.Tensor:
+             efficient_ce: bool = True, tp=UNSHARDED) -> torch.Tensor:
         """Next-token / masked-prediction cross entropy, plus the MoE
         load-balance term ``aux``.
 
@@ -280,11 +345,23 @@ class LM:
         one-hot contraction; ``False`` takes ``log_softmax`` and gathers
         the label's entry.  Logits are taken in f32.
         """
+        nll, aux = self.loss_terms(params, batch, efficient_ce, tp)
+        return nll + aux
+
+    def loss_terms(self, params: Dict, batch: Dict, efficient_ce: bool = True,
+                   tp=UNSHARDED) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(nll, aux)``, the loss their sum.  Split over a mesh, ``nll``
+        is the rank's share (the global one is its sum over the data
+        shards, whose gradients then sum to the global gradient) and
+        ``aux`` the global term; vocab-sharded logits take the cross
+        entropy on the rank's slice (``tp.vocab_nll``)."""
         cfg = self.cfg
-        logits, aux = self.forward(params, batch)
+        logits, aux = self.forward(params, batch, tp)
         labels = batch["labels"].long()
         logits32 = logits.float()
-        if efficient_ce:
+        if tp.vocab_sharded:
+            nll = tp.vocab_nll(logits32, labels)
+        elif efficient_ce:
             lse = torch.logsumexp(logits32, dim=-1)
             onehot = labels[..., None] == torch.arange(
                 cfg.vocab_size, device=labels.device)[None, None, :]
@@ -297,29 +374,30 @@ class LM:
             nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
         if cfg.encoder_only and "mask_positions" in batch:
             m = batch["mask_positions"].float()
-            return (nll * m).sum() / m.sum().clamp_min(1.0) + aux
-        return nll.mean() + aux
+            return (nll * m).sum() / tp.batch_sum(m.sum()).clamp_min(1.0), aux
+        return nll.mean() / tp.batch_shards, aux
 
     # --------------------------------------------------------------- prefill
     def prefill(self, params: Dict, batch: Dict, max_seq: int,
-                last_index: Optional[int] = None
+                last_index: Optional[int] = None, tp=UNSHARDED
                 ) -> Tuple[torch.Tensor, Dict]:
         """``last_index`` selects which row's logits (and ``emb0_last``) to
         return instead of the final row, counting a vision prefix's rows.
         ``max_seq`` sizes the attention caches (the recurrent kinds have
         none)."""
-        h = self._embed(params, batch)
+        h = self._embed(params, batch, tp)
         emb0 = h
         per_layer = []
         for group, key, kind, idx in self._layers():
             h, st, _ = B.block_prefill(
                 kind, self._layer_params(params, group, key, idx), h,
-                self.cfg, max_seq, emb0=emb0)
+                self.cfg, max_seq, emb0=emb0,
+                tp=tp.layer(group, key, len(idx)))
             per_layer.append(st)
         states = self._stacked_states(per_layer)
         row = -1 if last_index is None else int(last_index)
         states["emb0_last"] = emb0[:, row][:, None]
-        return self._head(params, h[:, row]), states
+        return self._head(params, h[:, row], tp), states
 
     def init_states(self, params: Dict, batch: int, max_seq: int) -> Dict:
         """Zero decode states (no prefill)."""
@@ -334,20 +412,20 @@ class LM:
 
     # ------------------------------------------------------------ decode step
     def decode_step(self, params: Dict, states: Dict, token: torch.Tensor,
-                    position: Union[int, torch.Tensor], max_seq: int
-                    ) -> Tuple[torch.Tensor, Dict]:
+                    position: Union[int, torch.Tensor], max_seq: int,
+                    tp=UNSHARDED) -> Tuple[torch.Tensor, Dict]:
         """token: (B,) int; ``position``: the token's index in the
         sequence, an int for every row or a (B,) int tensor, a row each
         (the recurrent kinds read neither)."""
-        h = self._embed_tokens(params, token)[:, None]
+        h = self._embed_tokens(params, token, tp)[:, None]
         emb0 = h
         per_layer = []
         for group, key, kind, idx in self._layers():
             h, st = B.block_decode(
                 kind, self._layer_params(params, group, key, idx), h,
                 self.cfg, self._index(states[group][key], idx), position,
-                max_seq, emb0=emb0)
+                max_seq, emb0=emb0, tp=tp.layer(group, key, len(idx)))
             per_layer.append(st)
         new_states = self._stacked_states(per_layer)
         new_states["emb0_last"] = emb0
-        return self._head(params, h[:, 0]), new_states
+        return self._head(params, h[:, 0], tp), new_states

@@ -28,11 +28,24 @@ token rows through an index table written once per kept slot; each
 token's k contributions are gathered and summed in a fixed order.  Every
 shape is fixed by ``x`` and the config, and nothing syncs the host.
 
-The reference's ``with_sharding_constraint`` calls on the dispatch buffer
-and the expert output (its expert-axis hint, set only by its dry run) have
-no numerical effect; on one card nothing is sharded, so the port has
-neither the hints nor the constraints.  The JAX package computes the MoE
-as einsums outside any Pallas kernel, so the port keeps it in torch ops.
+**Split over a mesh** (``tp``, :mod:`.parallel`).  The experts sit on
+``model`` when their count divides it (a rank computes its block of
+experts' rows of the dispatch buffer) and are otherwise split over
+``d_ff`` (a rank computes its columns of every expert); either way one
+all-reduce over the expert axis (the dry run's hint, ``model``) completes
+the output, the shared experts' row-parallel sum with it.  A batch split
+over data shards is routed as the global batch: each token's position in
+its expert continues over the shards before its own (an all-gather of the
+per-shard counts), the capacity is the global token count's and the
+load-balance term takes the global means.  Each shard then computes the
+whole buffer at the global capacity, its own tokens' rows filled and the
+others' zero: per-device expert work and the buffer do not shrink with
+the data shards (handing each shard its share of the rows and gathering
+the outputs back is exact, but moves the whole buffer across the shards
+every layer: ROADMAP Queue 1b item 15).  The reference's
+``with_sharding_constraint`` calls on the buffer have no numerical effect
+and have no counterpart here.  The JAX package computes the MoE as einsums
+outside any Pallas kernel, so the port keeps it in torch ops.
 """
 from __future__ import annotations
 
@@ -43,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.transformer.config import ModelConfig
+from repro_torch.models.transformer.parallel import UNSHARDED
 
 
 def init_moe_params(cfg: ModelConfig, rng) -> Dict:
@@ -90,9 +104,10 @@ class Routing(NamedTuple):
 
 
 def route(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-          groups: int = 1) -> Routing:
+          groups: int = 1, tp=UNSHARDED) -> Routing:
     """The routing of ``x`` (B, S, d) in ``groups`` groups of consecutive
-    tokens."""
+    tokens; with the batch split over data shards, the global batch's
+    (one group; ``counts`` the global ones)."""
     moe = cfg.moe
     k, e = moe.top_k, moe.num_experts
     t = x.shape[0] * x.shape[1] // groups
@@ -111,7 +126,13 @@ def route(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     counts.scatter_add_(1, se, torch.ones_like(se))
     starts = torch.cumsum(counts, dim=-1) - counts
     pos = torch.arange(t * k, device=x.device) - starts.gather(-1, se)
-    cap = capacity(t, cfg)
+    if tp.batch_shards > 1:
+        if groups != 1:
+            raise ValueError("a batch split over data shards routes as one "
+                             "group")
+        before, counts = tp.counts_before(counts)
+        pos = pos + before.gather(-1, se)
+    cap = capacity(t * tp.batch_shards, cfg)
     slot = (se * cap + pos).clamp(0, e * cap - 1)
     # back to the (T, k) order of the assignments (``order`` is a
     # permutation: each entry written once)
@@ -124,53 +145,70 @@ def route(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def moe_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) → (y, aux); ``groups`` as in the module docstring.
-    ``aux`` is the load-balance loss, averaged over the groups."""
+                groups: int = 1, tp=UNSHARDED
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) → (y, aux); ``groups`` and ``tp`` as in the module
+    docstring.  ``aux`` is the load-balance loss, averaged over the
+    groups."""
     moe = cfg.moe
     b, s, d = x.shape
     t = b * s // groups
-    e = moe.num_experts
+    e, k = moe.num_experts, moe.top_k
     dt = x.dtype
     xt = x.reshape(groups, t, d)
-    r = route(params, x, cfg, groups)
+    r = route(params, x, cfg, groups, tp)
     cap = r.capacity
+    # the rank's experts: a block of them (expert parallel), else all
+    e_loc = params["w_gate"].shape[0]
+    e0 = tp.rank * e_loc if e_loc < e else 0
+    mine = r.keep & (r.top_i >= e0) & (r.top_i < e0 + e_loc)
+    sink = e_loc * cap
+    slot = torch.where(mine, r.slot - e0 * cap, sink)   # dropped: the sink
 
     # ---- dispatch: each kept (expert, slot) row takes its one token; the
     # empty ones read the zero row appended at index t; dropped
     # assignments write their index to a sink column that is cut off
-    sink = e * cap
     src = torch.full((groups, sink + 1), t, dtype=torch.long, device=x.device)
-    tok = torch.arange(t, device=x.device)[None, :, None].expand_as(r.slot)
-    src.scatter_(1, torch.where(r.keep, r.slot, sink).reshape(groups, -1),
-                 tok.reshape(groups, -1))
-    x_pad = torch.cat([xt, xt.new_zeros((groups, 1, d))], dim=1)
+    tok = torch.arange(t, device=x.device)[None, :, None].expand_as(slot)
+    src.scatter_(1, slot.reshape(groups, -1), tok.reshape(groups, -1))
+    xin = tp.col(xt, "w_gate")
+    x_pad = torch.cat([xin, xin.new_zeros((groups, 1, d))], dim=1)
     buf = x_pad.gather(1, src[:, :sink, None].expand(-1, -1, d))
-    buf = buf.reshape(groups, e, cap, d)
+    buf = buf.reshape(groups, e_loc, cap, d)
 
     # ---- expert compute: one batched GLU over the expert axis
     g = F.silu(torch.einsum("gecd,edf->gecf", buf, params["w_gate"].to(dt)))
     u = torch.einsum("gecd,edf->gecf", buf, params["w_up"].to(dt))
     out = torch.einsum("gecf,efd->gecd", g * u, params["w_down"].to(dt))
     out = out.reshape(groups, sink, d)
+    out = torch.cat([out, out.new_zeros((groups, 1, d))], dim=1)
 
     # ---- combine: each token's k contributions gathered and summed in
-    # the order of its top-k
-    k = moe.top_k
-    rows = out.gather(1, r.slot.reshape(groups, t * k, 1).expand(-1, -1, d))
-    w = (r.top_w * r.keep).to(dt)
+    # the order of its top-k (a dropped one reads the zero row)
+    rows = out.gather(1, slot.reshape(groups, t * k, 1).expand(-1, -1, d))
+    w = tp.col(r.top_w * r.keep, "w_gate").to(dt)
     y = (rows.reshape(groups, t, k, d) * w[..., None]).sum(dim=2)
+    partial = tp.sharded("w_gate")          # a sum over the expert axis
 
     # ---- shared experts (always on)
     if "shared" in params:
-        sh = params["shared"]
-        gsh = F.silu(xt @ sh["w_gate"].to(dt)) * (xt @ sh["w_up"].to(dt))
-        gate = torch.sigmoid((xt @ sh["gate"].to(dt)).float())
-        y = y + (gsh @ sh["w_down"].to(dt)) * gate.to(dt)
+        sh, tsh = params["shared"], tp["shared"]
+        xs = tsh.col(xt, "w_up")
+        gsh = F.silu(xs @ sh["w_gate"].to(dt)) * (xs @ sh["w_up"].to(dt))
+        gate = tsh.col(torch.sigmoid((xt @ sh["gate"].to(dt)).float()),
+                       "w_down")
+        ysh = (gsh @ sh["w_down"].to(dt)) * gate.to(dt)
+        if tsh.sharded("w_down") != partial:    # complete the partial one
+            y, ysh = (tp.expert_sum(y), ysh) if partial else \
+                (y, tp.expert_sum(ysh))
+            partial = False
+        y = y + ysh
+    if partial:
+        y = tp.expert_sum(y)
 
     # ---- Switch-style load-balance aux, per group
-    frac = r.counts.float() / (t * k)
-    aux = moe.router_aux_loss * e * (frac * r.probs.mean(dim=1)).sum(-1)
+    frac = r.counts.float() / (t * tp.batch_shards * k)
+    aux = moe.router_aux_loss * e * (frac * tp.batch_mean(r.probs, 1)).sum(-1)
     return y.reshape(b, s, d), aux.mean()
 
 

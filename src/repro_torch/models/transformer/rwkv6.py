@@ -22,6 +22,13 @@ no reachable decay overflows; in chunks of 64, training rwkv6-1.6b at lr
 3e-4 passes that sum within a few steps (``chip_smoke.py`` T4 prints it)
 and the scan goes NaN.  Where the chunk-64 form is finite the chunk
 changes only the order of f32 sums.
+
+Split over ``model`` (``tp``, :mod:`.parallel`): ``w_r``/``w_k``/``w_v``/
+``w_g`` and ``w_ck`` are column-parallel, ``w_o`` and ``w_cv``
+row-parallel, so a rank's time mix runs the scan on its own heads (its
+channels of the decay, the bonus and the group norm's scale) and one
+all-reduce completes each mix.  Decode steps a replicated state: the
+column-parallel outputs are gathered, the output is row-parallel.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.transformer.config import ModelConfig
 from repro_torch.models.transformer.norms import group_norm
+from repro_torch.models.transformer.parallel import UNSHARDED
 from repro_torch.models.transformer.scan_common import scan_decode_step
 
 _HEAD = 64          # RWKV6 head size
@@ -93,46 +101,53 @@ def _time_mix_inputs(params, x, xx):
             lerp(params["mu_g"]), lerp(params["mu_w"]))
 
 
-def _bonus(params, b: int, nh: int) -> torch.Tensor:
-    return params["u_bonus"].reshape(1, nh, _HEAD).expand(b, nh, _HEAD) \
-        .reshape(b * nh, _HEAD)
+def _bonus(u: torch.Tensor, b: int, nh: int) -> torch.Tensor:
+    return u.reshape(1, nh, _HEAD).expand(b, nh, _HEAD).reshape(b * nh, _HEAD)
 
 
 def rwkv6_time_mix(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                   x_prev=None, h0=None):
-    """x: (B,T,d).  Returns (out (B,T,d), x[:, -1:], h_T (B·nh, 64, 64))."""
+                   x_prev=None, h0=None, tp=UNSHARDED):
+    """x: (B,T,d).  Returns (out (B,T,d), x[:, -1:], h_T (B·nh, 64, 64));
+    split over ``model``, h_T holds the rank's heads."""
     b, t, d = x.shape
-    nh = _nheads(cfg)
     dt = x.dtype
     xx = _token_shift(x, x_prev)
     xr, xk, xv, xg, xw = _time_mix_inputs(params, x, xx)
-    r = xr @ params["w_r"].to(dt)
-    k = xk @ params["w_k"].to(dt)
-    v = xv @ params["w_v"].to(dt)
-    g = F.silu(xg @ params["w_g"].to(dt))
-    log_w = _decay(params, xw)                           # (B,T,d) f32
+    r = tp.col(xr, "w_r") @ params["w_r"].to(dt)
+    k = tp.col(xk, "w_k") @ params["w_k"].to(dt)
+    v = tp.col(xv, "w_v") @ params["w_v"].to(dt)
+    g = F.silu(tp.col(xg, "w_g") @ params["w_g"].to(dt))
+    c = r.shape[-1]                                      # the rank's channels
+    if c % _HEAD:
+        raise ValueError(f"rwkv6: {_nheads(cfg)} heads do not split over "
+                         f"the model axis")
+    nh = c // _HEAD
+    log_w = tp.pick(_decay(params, xw), "w_r")           # (B,T,c) f32
 
     def heads(arr):                                      # (B,T,d)→(B·nh,T,hd)
         return arr.reshape(b, t, nh, _HEAD).transpose(1, 2) \
                   .reshape(b * nh, t, _HEAD)
 
+    u = _bonus(tp.pick(params["u_bonus"], "w_r"), b, nh)
     y, h_t = ops.linear_scan(heads(r).float(), heads(k).float(),
                              heads(v).float(), heads(log_w), h0=h0, chunk=_CHUNK,
-                             strict=True, u=_bonus(params, b, nh))
-    y = y.reshape(b, nh, t, _HEAD).transpose(1, 2).reshape(b, t, d)
-    y = group_norm(y.to(dt), params["gn_scale"], nh, cfg.norm_eps)
-    out = (y * g) @ params["w_o"].to(dt)
+                             strict=True, u=u)
+    y = y.reshape(b, nh, t, _HEAD).transpose(1, 2).reshape(b, t, c)
+    y = group_norm(y.to(dt), tp.pick(params["gn_scale"], "w_r"), nh,
+                   cfg.norm_eps)
+    out = tp.row((y * g) @ params["w_o"].to(dt), "w_o")
     return out, x[:, -1:], h_t
 
 
-def rwkv6_channel_mix(params: Dict, x: torch.Tensor, x_prev=None):
+def rwkv6_channel_mix(params: Dict, x: torch.Tensor, x_prev=None,
+                      tp=UNSHARDED):
     dt = x.dtype
     xx = _token_shift(x, x_prev)
     lerp = lambda mu: x + (xx - x) * mu[None, None].to(dt)
     xk, xr = lerp(params["mu_ck"]), lerp(params["mu_cr"])
-    kk = torch.square(F.relu(xk @ params["w_ck"].to(dt)))
+    kk = torch.square(F.relu(tp.col(xk, "w_ck") @ params["w_ck"].to(dt)))
     rr = torch.sigmoid(xr @ params["w_cr"].to(dt))
-    return rr * (kk @ params["w_cv"].to(dt)), x[:, -1:]
+    return rr * tp.row(kk @ params["w_cv"].to(dt), "w_cv"), x[:, -1:]
 
 
 def init_rwkv6_state(cfg: ModelConfig, batch: int, dtype,
@@ -149,24 +164,26 @@ def init_rwkv6_state(cfg: ModelConfig, batch: int, dtype,
 
 
 def rwkv6_decode_time_mix(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                          state: Dict):
-    """x: (B,1,d).  Returns (out (B,1,d), new x_att, new h)."""
+                          state: Dict, tp=UNSHARDED):
+    """x: (B,1,d).  Returns (out (B,1,d), new x_att, new h); split over
+    ``model``, ``state["h"]`` is the rank's block and the new h whole."""
     b, _, d = x.shape
     nh = _nheads(cfg)
     dt = x.dtype
     xx = state["x_att"]
     xr, xk, xv, xg, xw = _time_mix_inputs(params, x, xx)
-    r = (xr @ params["w_r"].to(dt))[:, 0]
-    k = (xk @ params["w_k"].to(dt))[:, 0]
-    v = (xv @ params["w_v"].to(dt))[:, 0]
-    g = F.silu((xg @ params["w_g"].to(dt))[:, 0])
+    r = tp.col_out(xr @ params["w_r"].to(dt), "w_r")[:, 0]
+    k = tp.col_out(xk @ params["w_k"].to(dt), "w_k")[:, 0]
+    v = tp.col_out(xv @ params["w_v"].to(dt), "w_v")[:, 0]
+    g = F.silu(tp.col_out(xg @ params["w_g"].to(dt), "w_g")[:, 0])
     log_w = _decay(params, xw)[:, 0]                     # (B,d)
 
     hshape = lambda arr: arr.reshape(b * nh, _HEAD)
     y, h = scan_decode_step(hshape(r).float(), hshape(k).float(),
-                            hshape(v).float(), hshape(log_w), state["h"],
-                            strict=True, u=_bonus(params, b, nh))
+                            hshape(v).float(), hshape(log_w),
+                            tp.from_state(state["h"], "h"), strict=True,
+                            u=_bonus(params["u_bonus"], b, nh))
     y = y.reshape(b, 1, d).to(dt)
     y = group_norm(y, params["gn_scale"], nh, cfg.norm_eps)
-    out = (y * g[:, None]) @ params["w_o"].to(dt)
+    out = tp.row_in(y * g[:, None], params["w_o"], "w_o")
     return out, x, h

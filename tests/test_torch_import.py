@@ -63,12 +63,17 @@ def test_every_module_imports_without_jax(probe):
                 "repro_torch.models.transformer.moe",
                 "repro_torch.models.transformer.blocks",
                 "repro_torch.models.transformer.model",
+                "repro_torch.models.transformer.parallel",
                 "repro_torch.serving.core", "repro_torch.serving.engine",
                 "repro_torch.serving.gnn", "repro_torch.checkpoint.store",
                 "repro_torch.checkpoint.manager",
                 "repro_torch.checkpoint.chaos", "repro_torch.launch.train",
                 "repro_torch.launch.mesh", "repro_torch.data.tokens",
-                "repro_torch.utils.logging", "repro_torch.distributed.steps"}
+                "repro_torch.utils.logging", "repro_torch.distributed.steps",
+                "repro_torch.configs.shapes", "repro_torch.distributed.hints",
+                "repro_torch.distributed.sharding",
+                "repro_torch.distributed.tensor_parallel",
+                "repro_torch.launch.dryrun"}
     assert expected <= set(probe["modules"])
 
 

@@ -283,15 +283,18 @@ def test_main_parses_every_train_config_field():
         server_lr=0.02, heterogeneity=0.25, seed=7, ckpt_dir="/ck",
         mesh="production", model_parallel=2)
     assert ttrain.parse_args([])[0] == ttrain.TrainConfig()
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(RuntimeError, match="256 ranks"):
         ttrain.main(argv)
 
 
-@pytest.mark.parametrize("override", [{"mesh": "production"},
-                                      {"mesh": "production-multipod"},
-                                      {"model_parallel": 2}])
-def test_unported_meshes_raise(override):
-    with pytest.raises(NotImplementedError, match="item 14"):
+@pytest.mark.parametrize("override,error,match", [
+    ({"mesh": "production"}, RuntimeError, "256 ranks"),
+    ({"mesh": "production-multipod"}, RuntimeError, "512 ranks"),
+    ({"model_parallel": 2}, ValueError, "model_parallel=2")])
+def test_unported_meshes_raise(override, error, match):
+    """Without a process group the production meshes raise, naming the
+    world size they need; one CPU does not split over model_parallel=2."""
+    with pytest.raises(error, match=match):
         ttrain.make_mesh(ttrain.TrainConfig(**override), device="cpu")
 
 
