@@ -69,6 +69,7 @@ from repro_torch.core.machine import (halo_fill, make_local_round,
 from repro_torch.core.schedules import KBucketing
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
                                           masked_update)
+from repro_torch.utils.logging import Timer
 from repro_torch.utils.pytree import (map_with_paths, tree_leaves, tree_map,
                                       tree_unflatten)
 
@@ -351,10 +352,11 @@ class RoundProgram:
     def _round_local(self, state: EngineState, feats, labels,
                      inputs: RoundInputs, svalid):
         """K local steps per machine, then the (compressed) average."""
-        p_new, o_new, losses = self._local_round(
-            state.params, state.local_opt_state, feats, labels,
-            inputs.tables, inputs.masks, inputs.batches, inputs.bmasks,
-            svalid)
+        with Timer("round.local"):
+            p_new, o_new, losses = self._local_round(
+                state.params, state.local_opt_state, feats, labels,
+                inputs.tables, inputs.masks, inputs.batches, inputs.bmasks,
+                svalid)
         with torch.no_grad():
             loss = self._round_loss(losses, svalid)
             params, residual = self.average(state, p_new)
@@ -375,7 +377,7 @@ class RoundProgram:
         the same bits from the same ``p_new``.
         """
         mesh, residual = self.mesh, state.comm_residual
-        with torch.no_grad():
+        with Timer("round.average"), torch.no_grad():
             if self._comp == "none":
                 if mesh is None:
                     return tree_map(lambda x: x.mean(dim=0), p_new), residual
@@ -454,27 +456,29 @@ class RoundProgram:
                                            else None, self._halo_comp)
         p, o = state.params, state.local_opt_state
         losses = []
-        for k, valid in enumerate(svalid):
-            step_feats = feats
-            if halo:
-                step_feats = halo_fill(feats, exchange(), recv_idx, dest_idx,
-                                       recv_valid)
-            with torch.no_grad():
-                stacked = tree_map(
-                    lambda x: x[None].repeat(P, *([1] * x.dim())), p)
-            loss, grads = value_and_grad(
-                self._loss_fn, stacked, step_feats, inputs.tables[:, k],
-                inputs.masks[:, k], inputs.batches[:, k], labels,
-                inputs.bmasks[:, k])
-            with torch.no_grad():
-                if mesh is None:
-                    g = tree_map(lambda x: x.mean(dim=0), grads)
-                else:
-                    g = tree_unflatten(grads, mesh.all_reduce_mean(
-                        [x[0] for x in tree_leaves(grads)], "gradients"))
-            upd, o = masked_update(self.local_opt, g, o, p, valid)
-            p = apply_updates(p, upd)
-            losses.append(loss)
+        with Timer("round.local"):
+            for k, valid in enumerate(svalid):
+                step_feats = feats
+                if halo:
+                    step_feats = halo_fill(feats, exchange(), recv_idx,
+                                           dest_idx, recv_valid)
+                with torch.no_grad():
+                    stacked = tree_map(
+                        lambda x: x[None].repeat(P, *([1] * x.dim())), p)
+                loss, grads = value_and_grad(
+                    self._loss_fn, stacked, step_feats, inputs.tables[:, k],
+                    inputs.masks[:, k], inputs.batches[:, k], labels,
+                    inputs.bmasks[:, k])
+                with torch.no_grad():
+                    if mesh is None:
+                        g = tree_map(lambda x: x.mean(dim=0), grads)
+                    else:
+                        g = tree_unflatten(grads, mesh.all_reduce_mean(
+                            [x[0] for x in tree_leaves(grads)], "gradients"))
+                with Timer("step.optimizer"):
+                    upd, o = masked_update(self.local_opt, g, o, p, valid)
+                    p = apply_updates(p, upd)
+                losses.append(loss)
         with torch.no_grad():
             per_step = torch.stack(losses)                  # (K, held)
             if mesh is not None:
@@ -502,9 +506,10 @@ class RoundProgram:
                 inputs.corr_batches[s][None], labels,
                 inputs.corr_bmasks[s][None], agg=inputs.corr_agg)
             grads = tree_map(lambda g: g[0], grads)
-            upd, server_state = self.server_opt.update(grads, server_state,
-                                                       params)
-            params = apply_updates(params, upd)
+            with Timer("step.optimizer"):
+                upd, server_state = self.server_opt.update(
+                    grads, server_state, params)
+                params = apply_updates(params, upd)
             losses.append(loss[0])
         return params, server_state, torch.stack(losses).mean()
 
@@ -546,8 +551,9 @@ class RoundProgram:
                         else inputs.corr_agg.layout,)))
             correct = (self._correction if self.mesh is None
                        else self._lead_correction)
-            params, server_state, closs = correct(params, server_state,
-                                                  inputs)
+            with Timer("round.correction"):
+                params, server_state, closs = correct(params, server_state,
+                                                      inputs)
             metrics["corr_loss"] = closs
         return EngineState(params=params, local_opt_state=opt_state,
                            server_opt_state=server_state,
@@ -626,8 +632,10 @@ def _prefetcher(sample_fn, bucketing: Optional[KBucketing], prefetch: bool,
 
     def draw(r, k):
         if side is None:
-            return sample(r, k)
-        with torch.cuda.stream(side):
+            with Timer("round.draw"):
+                return sample(r, k)
+        # the span opens on the side stream, so its events time the draw
+        with torch.cuda.stream(side), Timer("round.draw"):
             return sample(r, k)
 
     def take(inputs):
@@ -714,35 +722,38 @@ def run_schedule(program, init_params, feats, labels,
     for r, k in enumerate(schedule, start=1):
         if r < start:
             continue
-        inputs = take(pending) if prefetch else draw(r, k)
-        state, metrics = program.run_round(state, feats, labels, inputs)
-        if checkpoint_hook is not None:
-            # BEFORE the prefetch draw: the snapshot must hold the RNG
-            # streams at "rounds 1..r drawn, nothing beyond"
-            checkpoint_hook.after_round(r, state)
-        if prefetch:
-            # round r is enqueued and nothing has blocked on it yet
-            pending = draw(r + 1, schedule[r]) if r < len(schedule) else None
-        hist.meta["local_loss"].append(float(metrics["local_loss"]))
-        if "corr_loss" in metrics:
-            hist.meta["corr_loss"].append(float(metrics["corr_loss"]))
-            hist.meta["corr_rounds"].append(r)
-        bytes_cum += bytes_per_round(r, k)
-        steps_cum += steps_per_round(r, k)
-        loss, score = evaluate(state.params)
-        hist.rounds.append(r)
-        hist.steps_cum.append(steps_cum)
-        hist.val_score.append(score)
-        hist.train_loss.append(loss)
-        hist.bytes_cum.append(bytes_cum)
-        if checkpoint_dir:
-            from repro_torch.checkpoint.store import save_checkpoint
-            save_checkpoint(checkpoint_dir, r, state.params,
-                            extra={"strategy": name, "round": r,
-                                   "val_score": score},
-                            keep=checkpoint_keep)
-        if checkpoint_hook is not None:
-            checkpoint_hook.commit(r, state, hist)
+        with Timer("round", round=r):
+            inputs = take(pending) if prefetch else draw(r, k)
+            state, metrics = program.run_round(state, feats, labels, inputs)
+            if checkpoint_hook is not None:
+                # BEFORE the prefetch draw: the snapshot must hold the RNG
+                # streams at "rounds 1..r drawn, nothing beyond"
+                checkpoint_hook.after_round(r, state)
+            if prefetch:
+                # round r is enqueued and nothing has blocked on it yet
+                pending = (draw(r + 1, schedule[r]) if r < len(schedule)
+                           else None)
+            hist.meta["local_loss"].append(float(metrics["local_loss"]))
+            if "corr_loss" in metrics:
+                hist.meta["corr_loss"].append(float(metrics["corr_loss"]))
+                hist.meta["corr_rounds"].append(r)
+            bytes_cum += bytes_per_round(r, k)
+            steps_cum += steps_per_round(r, k)
+            with Timer("round.evaluate"):
+                loss, score = evaluate(state.params)
+            hist.rounds.append(r)
+            hist.steps_cum.append(steps_cum)
+            hist.val_score.append(score)
+            hist.train_loss.append(loss)
+            hist.bytes_cum.append(bytes_cum)
+            if checkpoint_dir:
+                from repro_torch.checkpoint.store import save_checkpoint
+                save_checkpoint(checkpoint_dir, r, state.params,
+                                extra={"strategy": name, "round": r,
+                                       "val_score": score},
+                                keep=checkpoint_keep)
+            if checkpoint_hook is not None:
+                checkpoint_hook.commit(r, state, hist)
     hist.meta["final_params"] = state.params
     hist.meta["num_retraces"] = program.num_retraces
     hist.meta["num_corr_retraces"] = getattr(program, "num_corr_retraces", 0)

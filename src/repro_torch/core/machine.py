@@ -26,6 +26,7 @@ from repro_torch.models.gnn.model import (GNNModel, cross_entropy_on_batch,
                                           f1_micro)
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
                                           masked_update)
+from repro_torch.utils.logging import Timer
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -67,8 +68,10 @@ def value_and_grad(loss_fn: Callable, params, *args, **kw):
     """``(losses, grads)``: the ``(B,)`` losses and the gradient of their
     sum with respect to every leaf of ``params``."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    losses = loss_fn(tree_unflatten(params, leaves), *args, **kw)
-    grads = torch.autograd.grad(losses.sum(), leaves)
+    with Timer("step.forward"):
+        losses = loss_fn(tree_unflatten(params, leaves), *args, **kw)
+    with Timer("step.backward"):
+        grads = torch.autograd.grad(losses.sum(), leaves)
     return losses.detach(), tree_unflatten(params, list(grads))
 
 
@@ -105,8 +108,9 @@ def make_local_round(model: GNNModel, optimizer: Optimizer,
             loss, grads = value_and_grad(
                 loss_fn, p, feats, tables[:, k], masks[:, k], batches[:, k],
                 labels, bmasks[:, k])
-            upd, o = masked_update(optimizer, grads, o, p, valid)
-            p = apply_updates(p, upd)
+            with Timer("step.optimizer"):
+                upd, o = masked_update(optimizer, grads, o, p, valid)
+                p = apply_updates(p, upd)
             losses.append(loss * valid)
         return p, o, torch.stack(losses)
 
@@ -136,8 +140,9 @@ def make_machine_step(model: GNNModel, optimizer: Optimizer) -> MachineStep:
                    bmask):
         loss, grads = loss_and_grad(params, feats, table, mask, batch,
                                     labels, bmask)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        return apply_updates(params, updates), opt_state, loss
+        with Timer("step.optimizer"):
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            return apply_updates(params, updates), opt_state, loss
 
     return MachineStep(local_step=local_step, loss_and_grad=loss_and_grad)
 

@@ -171,7 +171,7 @@ def train(cfg: TrainConfig, device="cuda"):
         corr = {k: place(v, cspec) for k, v in
                 _corr_batches(corpus, cfg, rng).items()}
         local, corr = _on(local, device), _on(corr, device)
-        with Timer() as t:
+        with Timer("lm.round") as t:
             params_G, opt_G, server_state, metrics = round_step(
                 params_G, opt_G, server_state, local, corr)
             local_loss = float(metrics["local_loss"])
