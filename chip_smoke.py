@@ -461,23 +461,51 @@ def _bound(nbytes: float, ops: float) -> tuple:
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
+def _spmm_plain(indptr, indices, values, h, max_floats: int = 2**28):
+    """The plain SpMM over blocks of rows, each gathering at most
+    ``max_floats`` floats (one block at the small shapes), so the plain
+    version fits the card at the benchmark graph's size."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ref import spmm_csr_ref
+
+    ptr = indptr.cpu().numpy().astype(np.int64)
+    n, d = h.shape
+    per_block = max(1, max_floats // max(1, d))
+    blocks, r0 = [], 0
+    while r0 < n:
+        r1 = max(r0 + 1, int(np.searchsorted(ptr, ptr[r0] + per_block,
+                                              "right")) - 1)
+        r1 = min(r1, n)
+        lo, hi = int(ptr[r0]), int(ptr[r1])
+        blocks.append(spmm_csr_ref(indptr[r0:r1 + 1] - lo, indices[lo:hi],
+                                   values[lo:hi], h))
+        r0 = r1
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks)
+
+
 def _spmm_case(graph, d: int, label: str, seed: int) -> dict:
     """The CSR SpMM against its plain version and ``torch.sparse.mm`` on
-    the unnormalized adjacency of ``graph`` at width ``d``."""
+    the unnormalized adjacency of ``graph`` at width ``d``, under the
+    column split :func:`slab_plan` picks (its passes counted)."""
     import numpy as np
     import torch
     from repro_torch.kernels.ops import csr_device_operands
-    from repro_torch.kernels.ref import spmm_csr_ref
-    from repro_torch.kernels.spmm import spmm_csr
+    from repro_torch.kernels.spmm import slab_plan, spmm_csr
 
     indptr, indices, values, items = csr_device_operands(
         graph, "cuda", normalization="none")
     n, nnz = graph.num_nodes, graph.num_edges
     h = torch.from_numpy(np.random.default_rng(seed).standard_normal(
         (n, d)).astype(np.float32)).cuda()
+    plan = slab_plan(n, d, h.data_ptr())
     kernel = lambda: spmm_csr(indptr, indices, values, h, items)
-    plain = lambda: spmm_csr_ref(indptr, indices, values, h)
+    plain = lambda: _spmm_plain(indptr, indices, values, h)
+    passes = spmm_csr.slab_passes
     out, ref = kernel(), plain()
+    _check(spmm_csr.slab_passes - passes == plan.slabs,
+           f"spmm_csr {label} D={d}: {spmm_csr.slab_passes - passes} slab "
+           f"passes counted, the plan makes {plan.slabs}")
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     tol = SPMM_TOL * max(1.0, float(ref.abs().max()))
@@ -489,6 +517,7 @@ def _spmm_case(graph, d: int, label: str, seed: int) -> dict:
     library = lambda: torch.sparse.mm(a, h)
     lib_err = float((library() - ref).abs().max())
     _check(lib_err <= tol, f"library yardstick disagrees: {lib_err}")
+    del out, ref
     try:                    # the yardstick's device time, where it captures
         library_device_ms = _graph_ms(library)
         library_device = "CUDA-graph replay"
@@ -503,6 +532,7 @@ def _spmm_case(graph, d: int, label: str, seed: int) -> dict:
     return {"label": label, "shape": f"N {n}, nnz {nnz}, D {d}, max degree "
             f"{int(deg.max())}, work items "
             f"{n if items is None else items.shape[1]}",
+            "plan": plan._asdict(),
             "max_abs_err": err, "tol": tol,
             "ms": _time_ms(kernel), "device_ms": _graph_ms(kernel),
             "plain_ms": _time_ms(plain, iters=5, warmup=1),
@@ -510,7 +540,47 @@ def _spmm_case(graph, d: int, label: str, seed: int) -> dict:
             "library_device_ms": library_device_ms,
             "library_device": library_device,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes_gathered_from_l2": 4 * nnz * d}
+            "bytes_gathered": 4 * nnz * d}
+
+
+def _cell_graph():
+    """The LLCG benchmark cell's graph (``llcg_bench/configs/
+    reddit-sage.json``: 232,965 rows, ~23.2 M stored entries, a few rows
+    above the row split), drawn on the card."""
+    import numpy as np
+    from llcg_bench.sbm import sbm
+    from repro_torch.graph.csr import CSRGraph
+
+    g = json.loads((ROOT / "llcg_bench" / "configs" / "reddit-sage.json")
+                   .read_text())["graph"]
+    cell = sbm(g["num_nodes"], g["num_classes"], 1, g["avg_degree"],
+               g["homophily"], g["feature_snr"], g["structure_seed"], "cuda")
+    return CSRGraph(cell.indptr.astype(np.int32),
+                    cell.indices.astype(np.int32), cell.num_nodes)
+
+
+def _pack_case(n: int, d: int, seed: int) -> dict:
+    """The SpMM's pack kernel (H into its slab-major copy) against its
+    plain version, bit for bit, at (n, d)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ref import pack_slabs_ref
+    from repro_torch.kernels.spmm import SLAB_WIDTH, pack_slabs
+
+    h = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, d)).astype(np.float32)).cuda()
+    slabs = -(-d // SLAB_WIDTH)
+    kernel = lambda: pack_slabs(h, slabs)
+    plain = lambda: pack_slabs_ref(h, SLAB_WIDTH, slabs)
+    _check(torch.equal(kernel(), plain()),
+           f"spmm_csr pack ({n}, {d}) differs from its plain version")
+    nbytes = 4 * n * d + 4 * n * slabs * SLAB_WIDTH     # H read, copy written
+    bound_ms, bound_by = _bound(nbytes, 0.0)
+    return {"label": "cell pack", "shape": f"N {n}, D {d}, slabs {slabs}",
+            "bit_equal": True, "ms": _time_ms(kernel),
+            "device_ms": _graph_ms(kernel),
+            "plain_ms": _time_ms(plain, iters=5, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def _hub_graph(base, hubs: int = 16, fan: int = 4096, seed: int = 2):
@@ -1064,6 +1134,7 @@ def _drive(name: str, data, model, plan, kernels) -> tuple:
 
     import torch
     from repro_torch.core.plan import RoundSampler, build_trainer, lower_plan
+    from repro_torch.kernels.spmm import spmm_csr
 
     one_round = dataclasses.replace(
         plan, schedule=dataclasses.replace(plan.schedule, rounds=1))
@@ -1080,12 +1151,14 @@ def _drive(name: str, data, model, plan, kernels) -> tuple:
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
+    spmm_csr.slab_passes = 0
     t0 = time.perf_counter()
     trainer = build_trainer(data, model, plan)        # device "cuda"
     hist = trainer.run()
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     counts = {k.__name__: k.launches for k in kernels}
+    slab_passes = spmm_csr.slab_passes
     # steady round time: (least 3-round wall − least 1-round wall) / 2, so
     # set-up (partition, sampling plans, operand builds) drops out
     walls += [timed(plan) for _ in range(TIMING_REPS - 1)]
@@ -1113,7 +1186,7 @@ def _drive(name: str, data, model, plan, kernels) -> tuple:
           f"{wall1:.4f} s for 1; all: {[round(w, 4) for w in walls]}, "
           f"{[round(w, 4) for w in walls1]}), of which "
           f"sampling (host draw + copy, or the device draw) {sample_ms:.3f} "
-          f"ms; launches {counts}; "
+          f"ms; launches {counts}; spmm_csr slab passes {slab_passes}; "
           f"device busy {busy} of a profiled run")
 
     # what comes out: finite, exact accounting, and the CPU run's numbers
@@ -4147,6 +4220,14 @@ def main(argv) -> int:
         # degree skew: 16 hubs of 4,096 neighbors each on the large graph
         spmm_cases.append(_spmm_case(_hub_graph(big.graph), 64, "large hubs",
                                      12))
+        # the LLCG benchmark's graph, past half of the L2: one-line slabs
+        # straight from H at D 256 and from the slab-major copy at D 602,
+        # and the pack alone
+        cell = _cell_graph()
+        spmm_cases += [_spmm_case(cell, d, "cell", 13 + s)
+                       for s, d in enumerate((256, 602))]
+        pack_case = _pack_case(cell.num_nodes, 602, 15)
+        del cell
         # phase S1's serving shapes: P stacked extended graphs of config
         # B's 2-hop inference halo, at the full and the fanout-10 width
         # buckets; its halo send buffer
@@ -4229,6 +4310,7 @@ def main(argv) -> int:
                        scalar_decay=3.0)]
         for c in spmm_cases:
             print(f"spmm_csr {json.dumps(c)}")
+        print(f"spmm_csr {json.dumps(pack_case)}")
         for c in esm_cases:
             print(f"edge_softmax {json.dumps(c)}")
         for pair in quant_cases:
@@ -4380,6 +4462,13 @@ def main(argv) -> int:
             "none: the JAX package differentiates its jnp chunked scan",
             bwd_cases[0], "T3"),
     ]
+    # the SpMM at the benchmark cell's shape: its slab passes and the pack
+    kernels[0]["at_the_cell_shape"] = [
+        {k: c[k] for k in ("label", "shape", "device_ms", "bound_ms",
+                           "bound_by") if k in c} | {"plan": c.get("plan")}
+        for c in spmm_cases if c["label"] == "cell"] + [
+        {k: pack_case[k] for k in ("label", "shape", "device_ms", "bound_ms",
+                                   "bound_by")}]
     # the paths on which no hand-written kernel launched (the dense and MoE
     # stacks, the frontends): each was gated at 0 where it ran
     zero = sorted(path for path, c in counts.items() if not any(c.values()))

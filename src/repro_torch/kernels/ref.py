@@ -30,6 +30,16 @@ def spmm_csr_ref(indptr: torch.Tensor, indices: torch.Tensor,
     return out.index_add_(0, rows, values.float()[:, None] * gathered)
 
 
+def pack_slabs_ref(h: torch.Tensor, width: int, slabs: int) -> torch.Tensor:
+    """H (N, D) as ``slabs`` column slabs of ``width``, slab-major:
+    ``out[s, r, c] = h[r, s·width + c]``, zeros past D.  Returns
+    (slabs, N, width)."""
+    n, d = h.shape
+    padded = h.new_zeros((n, slabs * width))
+    padded[:, :d] = h
+    return padded.view(n, slabs, width).transpose(0, 1).contiguous()
+
+
 def spmm_bcsr_ref(tile_cols: torch.Tensor, tile_vals: torch.Tensor,
                   h: torch.Tensor) -> torch.Tensor:
     """BCSR reference: the TPU kernel's tile layout, contracted naively.

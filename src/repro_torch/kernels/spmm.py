@@ -15,7 +15,20 @@ The kernel (``csrc/spmm_csr.cu``) gives each row a group of lanes that
 gathers the rows of H its nonzeros name, with 16-byte loads, in the row's
 order; rows above ``SEGMENT`` nonzeros are split into work items
 (:func:`row_split`) so a hub does not hold one group for thousands of
-gathers.  On a CPU tensor the wrapper runs the plain version
+gathers.  Each nonzero reads a row of H, so what bounds the kernel is
+where those gathers come from: at the LLCG benchmark's 232,965 rows H is
+238 MB (D = 256) or 561 MB (D = 602), beyond the H100's 50 MB of L2, and
+gathered across all of D at once most of it comes from HBM.
+:func:`slab_plan` therefore splits D into column slabs of one 128-byte
+line (32 floats), and the launch passes over all rows slab after slab
+(packing H slab-major first where a row is no whole number of lines), so a
+pass gathers whole lines from 29.8 MB of H at that size, which L2 holds.
+Where H fits half of L2 and its rows are whole float4s, one pass gathers
+straight from it: there the slabs save no HBM traffic, and the index
+stream read once a slab costs time at narrow D and on skewed rows.  The
+plan follows from N and D alone; the sums do not depend on it.
+
+On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.spmm_csr_ref`); on a CUDA tensor it
 launches the kernel or raises.
 
@@ -26,17 +39,34 @@ The JAX package's tile format stays reachable from the tests:
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import spmm_csr_ref
+from repro_torch.kernels.ref import pack_slabs_ref, spmm_csr_ref
 
 #: Nonzeros per work item of a split row (``kSeg`` of the CUDA source).
 SEGMENT = 128
+
+#: The H100's L2 cache.
+L2_BYTES = 50 * 2**20
+#: Where all of H fits this, one pass gathers straight from H: half of the
+#: L2, as it is two partitions and a line read from both may sit in both.
+#: Measured on the H100 (PERF.md): below it the lane split is within 4% of
+#: one-line slabs at D 32-256 and 8-26% faster at D 16, with hubs and
+#: where slabs need the pack; above it slabs are 3% slower at 65,536 rows
+#: (H 34 and 67 MB), 14-28% faster from 100,000 rows (51-154 MB) and 1.7x
+#: at the LLCG benchmark's 232,965.
+SINGLE_PASS_BYTES = L2_BYTES // 2
+#: Bytes of an L2 line.
+LINE = 128
+#: Floats of a column slab where H does not fit: one line of every row,
+#: whole-line gathers (narrower slabs, which fit half of the L2 at larger
+#: N, were measured slower at every N tried; PERF.md).
+SLAB_WIDTH = LINE // 4
 
 
 def _edge_values(graph: CSRGraph, src: np.ndarray, dst: np.ndarray,
@@ -105,6 +135,44 @@ def row_split(indptr: np.ndarray) -> Optional[np.ndarray]:
     return np.stack([rows, indptr[rows] + within * SEGMENT]).astype(np.int32)
 
 
+# --------------------------------------------------------------------------
+# Column slabs
+# --------------------------------------------------------------------------
+class SlabPlan(NamedTuple):
+    """How one launch covers the D columns of H: ``lanes`` lanes share a
+    row, each loading a float4, so a pass covers ``width`` = 4 · lanes
+    columns of every row; ``slabs`` passes cover D, one after another; with
+    ``packed`` they gather from the slab-major copy of H
+    (:func:`pack_slabs`)."""
+    lanes: int
+    slabs: int
+    packed: bool
+
+    @property
+    def width(self) -> int:
+        return 4 * self.lanes
+
+
+def slab_plan(n: int, d: int, h_ptr: int = 0) -> SlabPlan:
+    """The column split of a launch over an (n, d) H at address ``h_ptr``,
+    decided from the shape alone.
+
+    Where all of H fits :data:`SINGLE_PASS_BYTES` and its rows are whole
+    float4s (D % 4 == 0, H 16-byte aligned), the passes gather straight
+    from H with as many lanes as D needs up to 32: one pass up to 128
+    columns.  Otherwise a pass covers a slab of :data:`SLAB_WIDTH` floats,
+    one line of every row, slab after slab; straight from H where its rows
+    are whole lines (D % 32 == 0, H line-aligned), else from the slab-major
+    copy."""
+    if 4 * n * d <= SINGLE_PASS_BYTES and d % 4 == 0 and h_ptr % 16 == 0:
+        lanes = 1
+        while 4 * lanes < d and lanes < 32:
+            lanes *= 2
+        return SlabPlan(lanes, -(-d // (4 * lanes)), False)
+    direct = d % SLAB_WIDTH == 0 and h_ptr % LINE == 0
+    return SlabPlan(SLAB_WIDTH // 4, -(-d // SLAB_WIDTH), not direct)
+
+
 def build_bcsr(graph: CSRGraph, block_m: int = 8, block_n: int = 128,
                normalization: str = "mean") -> Tuple[np.ndarray, np.ndarray, int]:
     """Build the JAX package's (tile_cols, tile_vals, n_padded) from a CSR
@@ -153,17 +221,19 @@ _ENTRY = []
 
 
 def _kernel():
-    """The ctypes entries of ``csrc/spmm_csr.cu``, built at first use."""
+    """The ctypes entries of ``csrc/spmm_csr.cu`` (the SpMM and the pack),
+    built at first use."""
     if not _ENTRY:
         lib = build.load("spmm_csr")
         fn = lib.spmm_csr_f32
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + \
-            [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + \
+            [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        slabs = lib.spmm_csr_slabs
-        slabs.argtypes = [ctypes.c_int, ctypes.c_int]
-        slabs.restype = ctypes.c_int
-        _ENTRY.extend((fn, slabs))
+        pack = lib.spmm_csr_pack_f32
+        pack.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p]
+        pack.restype = ctypes.c_int
+        _ENTRY.extend((fn, pack))
     return _ENTRY
 
 
@@ -175,7 +245,8 @@ def spmm_csr(indptr: torch.Tensor, indices: torch.Tensor,
     ``items`` is :func:`row_split` of ``indptr`` on the same device (or
     ``None``: one group of lanes per row, whatever its length); the plain
     version ignores it.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel, counted in ``spmm_csr.launches``.
+    launch the kernel under :func:`slab_plan`, counted in
+    ``spmm_csr.launches`` and its passes in ``spmm_csr.slab_passes``.
     """
     if indptr.dim() != 1 or indptr.shape[0] < 1:
         raise ValueError(f"indptr must be (N+1,), got {tuple(indptr.shape)}")
@@ -211,31 +282,64 @@ def spmm_csr(indptr: torch.Tensor, indices: torch.Tensor,
             and values.is_contiguous() and h.is_contiguous()):
         indptr, indices, values, h = (x.contiguous()
                                       for x in (indptr, indices, values, h))
-    out = torch.empty_like(h)
-    d = h.shape[1]
-    if n == 0 or d == 0:
-        return out
-    fn, slabs = _kernel()
-    h_ptr = h.data_ptr()
-    vec4 = int(d % 4 == 0 and h_ptr % 16 == 0)
-    partial = arrivals = None
-    n_items = n
+    if n == 0 or h.shape[1] == 0:
+        return torch.empty_like(h)
     if items is not None:
         items = items.contiguous()
-        n_items = items.shape[1]
-        if n_items > n:               # a split row: its scratch
-            partial = h.new_empty((n_items, d))
-            arrivals = indptr.new_zeros(n * slabs(d, vec4))
+    return _launch(slab_plan(n, h.shape[1], h.data_ptr()), indptr, indices,
+                   values, h, items)
+
+
+def pack_slabs(h: torch.Tensor, slabs: int) -> torch.Tensor:
+    """The slab-major copy of a contiguous f32 H that a packed plan gathers
+    from: ``(slabs, N, SLAB_WIDTH)``, zeros past D.  A CUDA tensor takes
+    the pack kernel, a CPU tensor
+    :func:`repro_torch.kernels.ref.pack_slabs_ref`."""
+    if not h.is_cuda:
+        return pack_slabs_ref(h, SLAB_WIDTH, slabs)
+    if h.dim() != 2 or h.dtype is not torch.float32 or not h.is_contiguous():
+        raise ValueError(f"pack_slabs takes a contiguous (N, D) float32 h, "
+                         f"got {tuple(h.shape)} {h.dtype}")
+    n, d = h.shape
+    packed = h.new_empty((slabs, n, SLAB_WIDTH))
+    err = build.launch_on(h.get_device(), _kernel()[1], h.data_ptr(),
+                          packed.data_ptr(), n, d, slabs)
+    if err != 0:
+        raise RuntimeError(f"spmm_csr pack launch failed (cudaError {err})")
+    return packed
+
+
+def _launch(plan: SlabPlan, indptr: torch.Tensor, indices: torch.Tensor,
+            values: torch.Tensor, h: torch.Tensor,
+            items: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of the kernel under ``plan`` on checked, contiguous CUDA
+    operands (the pack first where ``plan.packed``); counted."""
+    fn, _ = _kernel()
+    dev = h.get_device()
+    n, d = h.shape
+    out = torch.empty_like(h)
+    src, h_row, h_slab = h, d, plan.width
+    if plan.packed:
+        src = pack_slabs(h, plan.slabs)
+        h_row, h_slab = plan.width, n * plan.width
+    partial = arrivals = None
+    n_items = n if items is None else items.shape[1]
+    if n_items > n:                   # split rows: their scratch
+        partial = h.new_empty((2 * (n_items - n), plan.slabs * plan.width))
+        arrivals = indptr.new_zeros((n_items - n) * plan.slabs)
     ptr = lambda x: None if x is None else x.data_ptr()
     err = build.launch_on(dev, fn, indptr.data_ptr(), indices.data_ptr(),
-                          values.data_ptr(), ptr(items), h_ptr,
+                          values.data_ptr(), ptr(items), src.data_ptr(),
                           out.data_ptr(), ptr(partial), ptr(arrivals),
-                          n_items, d, vec4)
+                          n_items, d, h_row, h_slab, plan.lanes, plan.slabs)
     if err != 0:
         raise RuntimeError(f"spmm_csr kernel launch failed (cudaError {err})")
     spmm_csr.launches += 1
+    spmm_csr.slab_passes += plan.slabs
     return out
 
 
 #: Kernel launches since the last reset (the plain CPU path never counts).
 spmm_csr.launches = 0
+#: Column-slab passes of those launches (each reads the index stream once).
+spmm_csr.slab_passes = 0

@@ -19,7 +19,9 @@ from repro_torch.kernels.edge_softmax import edge_softmax
 from repro_torch.kernels.linear_scan import linear_scan_chunked
 from repro_torch.kernels.quantize import dequantize_rows, quantize_rows
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.kernels.spmm import SEGMENT, spmm_csr
+from repro_torch.kernels.spmm import (SEGMENT, SlabPlan, _launch,
+                                      pack_slabs, row_split, slab_plan,
+                                      spmm_csr)
 
 # edge softmax: weights ≤ 1 on unit-scale values, f32 sums over ≤ F slots
 ESM_TOL = 1e-5
@@ -70,9 +72,9 @@ def _esm_inputs(n, f, d, seed):
 @pytest.mark.parametrize("which", ["slice", "hub"])
 @pytest.mark.parametrize("d", [8, 30, 64, 100, 128, 256])
 def test_spmm_kernel_matches_plain_on_card(graph, hub_graph, cuda, d, which):
-    """The CSR kernel at float4 (D % 4 == 0) and scalar widths, one and two
-    column slabs, on a graph with empty rows and one whose hubs take the
-    row split."""
+    """The CSR kernel straight from H (D % 4 == 0) and from its slab-major
+    copy (D % 4 != 0), one and two column slabs, on a graph with empty rows
+    and one whose hubs take the row split."""
     g = graph if which == "slice" else hub_graph
     indptr, indices, values, items = ops.csr_device_operands(
         g, cuda, normalization="none")
@@ -89,6 +91,67 @@ def test_spmm_kernel_matches_plain_on_card(graph, hub_graph, cuda, d, which):
     if items is not None:         # one group per row gives the same result
         torch.testing.assert_close(spmm_csr(indptr, indices, values, h),
                                    plain, rtol=1e-5, atol=1e-4)
+
+
+def _slab_operands(n: int, seed: int, device):
+    """CSR operands of an n-row matrix: ~4 nonzeros a row at random
+    columns, three hubs past the row split (129, 300 and 700 nonzeros),
+    every 17th row empty; values unit-scale."""
+    rng = np.random.default_rng(seed)
+    deg = rng.poisson(4, n)
+    deg[::17] = 0
+    deg[[1, n // 2, n - 1]] = [129, 300, 700]
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nnz = int(indptr[-1])
+    rows = np.repeat(np.arange(n), deg)
+    cols = rng.integers(0, n, nnz).astype(np.int32)
+    cols = cols[np.lexsort((cols, rows))]
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    items = row_split(indptr)
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (indptr, cols, vals, items))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [256, 602])
+@pytest.mark.parametrize("n", [120_000, 240_000, 500_000])
+def test_spmm_column_slabs_match_plain_on_card(cuda, n, d):
+    """Past half of the L2 the launch makes one pass per 32-float slab,
+    from the slab-major copy where a row is no whole number of lines: it
+    matches the plain version, with split and empty rows, and its sums
+    equal bit for bit those of the lane split (one pass straight from H, as
+    where H fits) and of the packed slabs on the same columns."""
+    indptr, indices, values, items = _slab_operands(n, n + d, cuda)
+    h = torch.randn(n, d, device=cuda)
+    plan = slab_plan(n, d, h.data_ptr())
+    assert plan.width == 32 and plan.slabs == -(-d // 32)
+    assert plan.packed == (d % 32 != 0)
+    before = spmm_csr.launches, spmm_csr.slab_passes
+    out = spmm_csr(indptr, indices, values, h, items)
+    assert (spmm_csr.launches, spmm_csr.slab_passes) == \
+        (before[0] + 1, before[1] + plan.slabs)
+    plain = ref.spmm_csr_ref(indptr, indices, values, h)
+    torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-4)
+    w = d - d % 4                   # the columns the lane split can take
+    lanes = _launch(SlabPlan(32, -(-w // 128), False), indptr, indices,
+                    values, h[:, :w].contiguous(), items)
+    assert torch.equal(out[:, :w], lanes)
+    packed = SlabPlan(8, plan.slabs, True)
+    assert torch.equal(out, _launch(packed, indptr, indices, values, h,
+                                    items))
+    assert torch.equal(out, spmm_csr(indptr, indices, values, h, items))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", [(7, 602), (1000, 37), (5000, 256),
+                                 (240_000, 602)])
+def test_pack_kernel_equals_plain_on_card(cuda, n, d):
+    """The pack kernel writes the plain version's slab-major copy, zeros
+    past D."""
+    h = torch.randn(n, d, device=cuda)
+    slabs = -(-d // 32)
+    assert torch.equal(pack_slabs(h, slabs),
+                       pack_slabs(h.cpu(), slabs).to(cuda))
 
 
 @pytest.mark.gpu

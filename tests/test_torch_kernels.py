@@ -31,8 +31,11 @@ from repro_torch.graph.datasets import rmat_graph
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as port_ref
 from repro_torch.kernels.edge_softmax import edge_softmax
-from repro_torch.kernels.spmm import (SEGMENT, bcsr_to_csr, build_bcsr,
-                                      build_csr, row_split, spmm_csr)
+from repro_torch.kernels.spmm import (L2_BYTES, LINE, SEGMENT,
+                                      SINGLE_PASS_BYTES, SLAB_WIDTH, SlabPlan,
+                                      bcsr_to_csr, build_bcsr, build_csr,
+                                      pack_slabs, row_split, slab_plan,
+                                      spmm_csr)
 from repro_torch.models.gnn import agg
 
 TOL = 1e-5
@@ -146,11 +149,85 @@ def test_row_split_covers_each_row_in_segments(hub_graphs):
         np.testing.assert_array_equal(mine, want)
 
 
+#: The LLCG benchmark graph's rows (``llcg_bench/configs/reddit-sage.json``).
+REDDIT_N = 232_965
+
+
+@pytest.mark.parametrize("n,d", [(150, 12), (3000, 100), (16384, 64),
+                                 (16384, 256), (REDDIT_N, 8)])
+def test_slab_plan_keeps_the_lane_split_where_h_fits(n, d):
+    """Where all of H fits half of the L2 and its rows are whole float4s
+    the launch is the lane split it always was: straight from H, one pass
+    up to 128 columns."""
+    assert 4 * n * d <= SINGLE_PASS_BYTES
+    plan = slab_plan(n, d)
+    lanes = min(32, 1 << (-(-d // 4) - 1).bit_length())
+    assert plan == SlabPlan(lanes, -(-d // (4 * lanes)), False)
+    assert (plan.slabs == 1) == (d <= 128)
+    # not 16-byte aligned: float4 loads from the slab-major copy
+    assert slab_plan(n, d, h_ptr=4) == SlabPlan(8, -(-d // 32), True)
+
+
+@pytest.mark.parametrize("n,d", [(800, 10), (16384, 41), (7, 602),
+                                 (3000, 30)])
+def test_slab_plan_packs_rows_of_no_whole_float4(n, d):
+    """Where D % 4 != 0 the kernel has no load to take a row with, however
+    small H is: one-line slabs from the slab-major copy."""
+    assert slab_plan(n, d) == SlabPlan(8, -(-d // 32), True)
+
+
+@pytest.mark.parametrize("d,slabs,packed", [(256, 8, False), (602, 19, True),
+                                            (64, 2, False), (100, 4, True)])
+def test_slab_plan_takes_several_passes_at_the_benchmark_shape(d, slabs,
+                                                              packed):
+    """At the benchmark's 232,965 rows H (59.6–561 MB) is past half of the
+    L2: passes of one line (32 floats) covering D, from the slab-major copy
+    where a row is no whole number of lines, and wherever H is not
+    line-aligned."""
+    assert 4 * REDDIT_N * d > SINGLE_PASS_BYTES
+    plan = slab_plan(REDDIT_N, d)
+    assert plan == SlabPlan(SLAB_WIDTH // 4, slabs, packed)
+    assert plan.slabs > 1 and plan.slabs * plan.width >= d
+    assert slab_plan(REDDIT_N, d, h_ptr=64).packed
+
+
+@pytest.mark.parametrize("n,d", [(REDDIT_N, 256), (REDDIT_N, 602),
+                                 (120_000, 256), (120_000, 602),
+                                 (200_000, 256), (390_000, 602),
+                                 (16384, 602), (2_000_000, 100)])
+def test_slab_footprint_counted_in_lines_stays_in_l2(n, d):
+    """A pass's footprint, counted in whole 128-byte lines, is one line a
+    row: the slab is one line wide, and packed or straight from rows of
+    whole lines it starts on a line.  That is inside the L2 up to 409,600
+    rows (the benchmark's: 29.8 MB)."""
+    plan = slab_plan(n, d)
+    assert 4 * plan.width == LINE
+    assert plan.packed or 4 * d % LINE == 0
+    if n <= 390_000:
+        assert n * LINE <= L2_BYTES
+
+
+@pytest.mark.parametrize("n,d", [(7, 602), (5, 37), (9, 256), (3, 6),
+                                 (4, 64)])
+def test_pack_slabs_then_unpack_is_identity(n, d):
+    """The slab-major copy: packed[s, r, c] = h[r, 32·s + c], zeros past D,
+    contiguous, as the kernel's strides (32·N a slab, 32 a row) take it."""
+    h = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (n, d)).astype(np.float32))
+    slabs = -(-d // SLAB_WIDTH)
+    packed = pack_slabs(h, slabs)
+    assert packed.shape == (slabs, n, SLAB_WIDTH)
+    assert packed.is_contiguous()
+    flat = packed.transpose(0, 1).reshape(n, slabs * SLAB_WIDTH)
+    assert torch.equal(flat[:, :d], h)
+    assert not flat[:, d:].any()
+
+
 def test_spmm_counts_no_launch_on_cpu(graphs):
     _, pg = graphs
-    before = spmm_csr.launches
+    before = spmm_csr.launches, spmm_csr.slab_passes
     ops.spmm_aggregate(pg.graph, torch.ones(pg.num_nodes, 4))
-    assert spmm_csr.launches == before
+    assert (spmm_csr.launches, spmm_csr.slab_passes) == before
 
 
 def test_spmm_autograd_matches_jax_grad(graphs):
