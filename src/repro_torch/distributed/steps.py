@@ -18,8 +18,22 @@ The LLCG round step is the paper's Algorithm 2:
 Parameters and optimizer states are nested dicts of tensors
 (:mod:`repro_torch.utils.pytree`); a stacked tree has a leading (G, …) axis
 on every leaf.  Gradients are torch autograd of ``LM.loss``
-(:func:`value_and_grad`); ``remat`` recomputes each step's forward in the
-backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
+(:func:`value_and_grad`); ``remat`` recomputes each block of the forward
+in the backward (``torch.utils.checkpoint``, :meth:`LM.forward`), so a
+step holds every block's input and one block's activations at a time.
+
+Spans and a counter.  A round opens the tracer's spans
+(:class:`~repro_torch.utils.logging.Timer`) ``round`` and its phases
+``round.local``, ``round.average`` (the mean and the broadcast) and
+``round.correction``, as the GNN round engine does; every step opens
+``step.forward``, ``step.backward`` and ``step.optimizer``.  The round
+step counts the bytes its exchanges carry in ``round_step.wire_bytes``
+(cumulative): each copy up to the mean and the corrected model back, at
+the wire format (bfloat16 for the float32 leaves under ``avg_bf16``).  The
+unsharded step adds up the tensors :func:`average` and :func:`broadcast`
+handle; a rank of the sharded step, which holds only its block of a copy,
+counts the whole model's bytes from its global shapes
+(:func:`wire_bytes_per_round`), 2 · G · the parameters' bytes a round.
 
 Sharded steps.  Each ``build_*`` function takes an optional ``mesh`` (a
 ``torch.distributed.device_mesh.DeviceMesh`` with axes ``data`` × ``model``
@@ -44,16 +58,18 @@ Callers that keep the inputs pass copies.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Callable, Dict, Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.distributed.sharding import (batch_pspec, data_axes_for,
                                               group_axis_for, param_pspecs,
                                               _axes_of)
 from repro_torch.models.transformer.model import LM
 from repro_torch.optim.optimizers import Optimizer, apply_updates
+from repro_torch.utils.logging import Timer
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -62,19 +78,27 @@ class LLCGStepConfig:
     num_groups: int          # G = P local machines
     local_steps: int = 1     # K for this round
     correction_steps: int = 1  # S
-    remat: bool = False      # recompute the forward in the backward pass
+    remat: bool = False      # recompute each block in the backward pass
     avg_bf16: bool = False   # average bf16-cast params (halves the
                              # inter-group bytes; beyond-paper §Perf lever)
 
 
 def _loss_fn(model: LM, remat: bool) -> Callable:
-    if not remat:
-        return model.loss
+    return functools.partial(model.loss, remat=True) if remat else model.loss
 
-    def loss(params, batch):
-        return torch.utils.checkpoint.checkpoint(model.loss, params, batch,
-                                                 use_reentrant=False)
-    return loss
+
+def wire_bytes_per_round(model: LM, num_groups: int,
+                         avg_bf16: bool = False) -> int:
+    """The bytes a round's exchanges carry: 2 · G · the parameters' bytes
+    at the wire format (bfloat16 for the float32 leaves under
+    ``avg_bf16``), from the model's global shapes."""
+    total = 0
+    for spec in tree_leaves(model.param_specs()):
+        dtype = (torch.bfloat16 if avg_bf16 and spec.dtype == torch.float32
+                 else spec.dtype)
+        total += math.prod(spec.shape) * torch.empty(
+            0, dtype=dtype).element_size()
+    return 2 * num_groups * total
 
 
 def value_and_grad(loss_fn: Callable, params: Dict, batch: Dict
@@ -84,8 +108,10 @@ def value_and_grad(loss_fn: Callable, params: Dict, batch: Dict
     loss does not read), the loss detached."""
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
     with torch.enable_grad():
-        loss = loss_fn(tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with Timer("step.forward"):
+            loss = loss_fn(tree_unflatten(params, leaves), batch)
+        with Timer("step.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)
@@ -123,13 +149,14 @@ def _update_in_place(optimizer: Optimizer, grads: Dict, state: Any,
     p_leaves = tree_leaves(params)
     g_leaves = tree_leaves(grads)
     new = state
-    for i, (p, g) in enumerate(zip(p_leaves, g_leaves)):
-        sub = _state_leaf(state, i)
-        upd, new_sub = optimizer.update({"x": g}, sub, {"x": p})
-        with torch.no_grad():
-            p.copy_(apply_updates({"x": p}, upd)["x"])
-            _copy_state(sub, new_sub)
-        new = new_sub
+    with Timer("step.optimizer"):
+        for i, (p, g) in enumerate(zip(p_leaves, g_leaves)):
+            sub = _state_leaf(state, i)
+            upd, new_sub = optimizer.update({"x": g}, sub, {"x": p})
+            with torch.no_grad():
+                p.copy_(apply_updates({"x": p}, upd)["x"])
+                _copy_state(sub, new_sub)
+            new = new_sub
     return _with_trees(state, new)
 
 
@@ -167,6 +194,44 @@ def build_sync_train_step(model: LM, optimizer: Optimizer,
     return train_step
 
 
+def _wire(x: torch.Tensor, avg_bf16: bool) -> torch.Tensor:
+    """``x`` at the wire format: bfloat16 for a float32 leaf under
+    ``avg_bf16``, else as it is."""
+    return x.to(torch.bfloat16) if avg_bf16 and x.dtype == torch.float32 \
+        else x
+
+
+def average(params_G: Dict, avg_bf16: bool = False) -> Tuple[Dict, int]:
+    """The mean over the G stacked copies (Alg. 2, line 12), in f32, or of
+    the bf16-cast copies with ``avg_bf16``, and the bytes of the copies it
+    took in at the wire format."""
+    carried = 0
+
+    def mean(x):
+        nonlocal carried
+        sent = _wire(x, avg_bf16)
+        carried += sent.numel() * sent.element_size()
+        if sent is x:
+            return x.mean(0)
+        return sent.float().mean(0).to(torch.bfloat16).to(x.dtype)
+
+    with torch.no_grad():
+        return tree_map(mean, params_G), carried
+
+
+def broadcast(params_G: Dict, avg: Dict, avg_bf16: bool = False) -> int:
+    """Every copy of ``params_G`` takes ``avg`` (line 3 of the next round);
+    the bytes of the copies written, at the wire format (under
+    ``avg_bf16`` the mean's float32 leaves are bfloat16 values already)."""
+    carried = 0
+    with torch.no_grad():
+        for x, a in zip(tree_leaves(params_G), tree_leaves(avg)):
+            sent = _wire(a, avg_bf16)
+            x.copy_(sent.expand_as(x))
+            carried += x.numel() * sent.element_size()
+    return carried
+
+
 def build_llcg_round_step(model: LM, local_opt: Optimizer,
                           server_opt: Optimizer,
                           step_cfg: LLCGStepConfig, mesh=None) -> Callable:
@@ -195,49 +260,50 @@ def build_llcg_round_step(model: LM, local_opt: Optimizer,
 
     def round_step(params_G, local_opt_G, server_state, local_batch,
                    corr_batch):
-        # 1. local training, machine by machine (no inter-group traffic)
-        local_losses = []
-        new_local = local_opt_G
-        for g in range(g_count):
-            p = tree_map(lambda x: x[g], params_G)
-            o = _state_map(local_opt_G, lambda x: x[g])
-            losses = []
-            for i in range(step_cfg.local_steps):
-                batch = {k: v[g, i] for k, v in local_batch.items()}
-                loss, grads = value_and_grad(loss_fn, p, batch)
-                o = _update_in_place(local_opt, grads, o, p)
-                del grads
-                losses.append(loss)
-            local_losses.append(torch.stack(losses).mean())
-            new_local = _with_trees(local_opt_G, o)
+        round_step.rounds += 1
+        with Timer("round", round=round_step.rounds):
+            # 1. local training, machine by machine (no inter-group traffic)
+            local_losses = []
+            new_local = local_opt_G
+            with Timer("round.local"):
+                for g in range(g_count):
+                    p = tree_map(lambda x: x[g], params_G)
+                    o = _state_map(local_opt_G, lambda x: x[g])
+                    losses = []
+                    for i in range(step_cfg.local_steps):
+                        batch = {k: v[g, i] for k, v in local_batch.items()}
+                        loss, grads = value_and_grad(loss_fn, p, batch)
+                        o = _update_in_place(local_opt, grads, o, p)
+                        del grads
+                        losses.append(loss)
+                    local_losses.append(torch.stack(losses).mean())
+                    new_local = _with_trees(local_opt_G, o)
 
-        # 2. parameter averaging across the machines (Alg. 2, line 12)
-        with torch.no_grad():
-            if step_cfg.avg_bf16:
-                avg = tree_map(lambda x: x.to(torch.bfloat16).float().mean(0)
-                               .to(torch.bfloat16).to(x.dtype)
-                               if x.dtype == torch.float32 else x.mean(0),
-                               params_G)
-            else:
-                avg = tree_map(lambda x: x.mean(0), params_G)
+            # 2. parameter averaging across the machines (Alg. 2, line 12)
+            with Timer("round.average"):
+                avg, carried = average(params_G, step_cfg.avg_bf16)
 
-        # 3. server correction: S global synchronous steps (lines 13-18)
-        corr_losses = []
-        for s in range(len(next(iter(corr_batch.values())))):
-            batch = {k: v[s] for k, v in corr_batch.items()}
-            loss, grads = value_and_grad(loss_fn, avg, batch)
-            server_state = _update_in_place(server_opt, grads, server_state,
-                                            avg)
-            del grads
-            corr_losses.append(loss)
+            # 3. server correction: S global synchronous steps (lines 13-18)
+            corr_losses = []
+            with Timer("round.correction"):
+                for s in range(len(next(iter(corr_batch.values())))):
+                    batch = {k: v[s] for k, v in corr_batch.items()}
+                    loss, grads = value_and_grad(loss_fn, avg, batch)
+                    server_state = _update_in_place(server_opt, grads,
+                                                    server_state, avg)
+                    del grads
+                    corr_losses.append(loss)
 
-        # 4. broadcast the corrected model to every machine (line 3)
-        with torch.no_grad():
-            tree_map(lambda x, a: x.copy_(a.expand_as(x)), params_G, avg)
-        metrics = {"local_loss": torch.stack(local_losses).mean(),
-                   "corr_loss": torch.stack(corr_losses).mean()}
+            # 4. broadcast the corrected model to every machine (line 3)
+            with Timer("round.average"):
+                carried += broadcast(params_G, avg, step_cfg.avg_bf16)
+            metrics = {"local_loss": torch.stack(local_losses).mean(),
+                       "corr_loss": torch.stack(corr_losses).mean()}
+        round_step.wire_bytes += carried
         return params_G, new_local, server_state, metrics
 
+    round_step.rounds = 0
+    round_step.wire_bytes = 0
     return round_step
 
 
@@ -306,18 +372,12 @@ def _sharded_value_and_grad(model: LM, tp, params: Dict, batch: Dict,
     rank's share differentiated, its gradients summed over the axes that
     shard the batch (``tp.batch_axes``)."""
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
-
-    def objective(*ls):
-        return model.loss_terms(tree_unflatten(params, list(ls)), batch,
-                                tp=tp)
-
     with torch.enable_grad():
-        if remat:
-            nll, aux = torch.utils.checkpoint.checkpoint(
-                objective, *leaves, use_reentrant=False)
-        else:
-            nll, aux = objective(*leaves)
-        grads = torch.autograd.grad(nll + aux, leaves, allow_unused=True)
+        with Timer("step.forward"):
+            nll, aux = model.loss_terms(tree_unflatten(params, leaves), batch,
+                                        tp=tp, remat=remat)
+        with Timer("step.backward"):
+            grads = torch.autograd.grad(nll + aux, leaves, allow_unused=True)
     comm, axes = tp.comm, tp.batch_axes
     grads = [torch.zeros_like(x) if g is None else comm.all_reduce(g, axes)
              for x, g in zip(leaves, grads)]
@@ -365,49 +425,58 @@ def _sharded_round_step(model: LM, local_opt: Optimizer,
     n_groups = comm.size((gaxis,))
     remat = step_cfg.remat
 
+    wire = wire_bytes_per_round(model, n_groups, step_cfg.avg_bf16)
+
     def round_step(params_G, local_opt_G, server_state, local_batch,
                    corr_batch):
-        p = tree_map(lambda x: x[0], params_G)
-        o = _state_map(local_opt_G, lambda x: x[0])
-        losses = []
-        for i in range(step_cfg.local_steps):
-            batch = {k: v[0, i] for k, v in local_batch.items()}
-            loss, grads = _sharded_value_and_grad(model, local_tp, p, batch,
-                                                  remat)
-            o = _update_in_place(local_opt, grads, o, p)
-            del grads
-            losses.append(loss)
-        new_local = _with_trees(local_opt_G, o)
-        local_loss = comm.all_reduce(torch.stack(losses).mean(),
-                                     (gaxis,)) / n_groups
+        round_step.rounds += 1
+        with Timer("round", round=round_step.rounds):
+            p = tree_map(lambda x: x[0], params_G)
+            o = _state_map(local_opt_G, lambda x: x[0])
+            losses = []
+            with Timer("round.local"):
+                for i in range(step_cfg.local_steps):
+                    batch = {k: v[0, i] for k, v in local_batch.items()}
+                    loss, grads = _sharded_value_and_grad(
+                        model, local_tp, p, batch, remat)
+                    o = _update_in_place(local_opt, grads, o, p)
+                    del grads
+                    losses.append(loss)
+            new_local = _with_trees(local_opt_G, o)
+            local_loss = comm.all_reduce(torch.stack(losses).mean(),
+                                         (gaxis,)) / n_groups
 
-        with torch.no_grad():
-            if step_cfg.avg_bf16:
-                avg = tree_map(
-                    lambda x: comm.all_gather(x.to(torch.bfloat16), 0,
-                                              (gaxis,)).float().mean(0)
-                    .to(torch.bfloat16).to(x.dtype)
-                    if x.dtype == torch.float32 else
-                    comm.all_reduce(x[0], (gaxis,)) / n_groups, params_G)
-            else:
-                avg = tree_map(lambda x: comm.all_reduce(x, (gaxis,))
-                               / n_groups, p)
+            with Timer("round.average"), torch.no_grad():
+                if step_cfg.avg_bf16:
+                    avg = tree_map(
+                        lambda x: comm.all_gather(x.to(torch.bfloat16), 0,
+                                                  (gaxis,)).float().mean(0)
+                        .to(torch.bfloat16).to(x.dtype)
+                        if x.dtype == torch.float32 else
+                        comm.all_reduce(x[0], (gaxis,)) / n_groups, params_G)
+                else:
+                    avg = tree_map(lambda x: comm.all_reduce(x, (gaxis,))
+                                   / n_groups, p)
 
-        corr_losses = []
-        for s in range(len(next(iter(corr_batch.values())))):
-            batch = {k: v[s] for k, v in corr_batch.items()}
-            loss, grads = _sharded_value_and_grad(model, corr_tp, avg, batch,
-                                                  remat)
-            server_state = _update_in_place(server_opt, grads, server_state,
-                                            avg)
-            del grads
-            corr_losses.append(loss)
+            corr_losses = []
+            with Timer("round.correction"):
+                for s in range(len(next(iter(corr_batch.values())))):
+                    batch = {k: v[s] for k, v in corr_batch.items()}
+                    loss, grads = _sharded_value_and_grad(
+                        model, corr_tp, avg, batch, remat)
+                    server_state = _update_in_place(server_opt, grads,
+                                                    server_state, avg)
+                    del grads
+                    corr_losses.append(loss)
 
-        with torch.no_grad():
-            tree_map(lambda x, a: x.copy_(a.expand_as(x)), params_G, avg)
-        metrics = {"local_loss": local_loss,
-                   "corr_loss": torch.stack(corr_losses).mean()}
+            with Timer("round.average"), torch.no_grad():
+                tree_map(lambda x, a: x.copy_(a.expand_as(x)), params_G, avg)
+            metrics = {"local_loss": local_loss,
+                       "corr_loss": torch.stack(corr_losses).mean()}
+        round_step.wire_bytes += wire
         return params_G, new_local, server_state, metrics
 
+    round_step.rounds = 0
+    round_step.wire_bytes = 0
     round_step.comm = comm
     return round_step

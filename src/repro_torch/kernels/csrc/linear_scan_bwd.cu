@@ -10,12 +10,15 @@
 //   dQ~    = dA K~ + dY h_in^T,          dq = dQ~ (*) P   (P_{t-1} strict)
 //   dK~    = dA^T Q~ + P_L (*) (V dh_out^T), dk = dK~ (*) P^-1
 //   dh_in  = Q~^T dY + diag(P_L) dh_out
-// and the decay's gradient is a reverse cumulative sum over the whole
-// sequence: d log_w_t = sum_{s >= t} (q_s (*) dq_s - k_s (*) dk_s), where
-// q (*) dq = Q~ (*) dQ~ and k (*) dk = K~ (*) dK~; strict, q_s (*) dq_s counts
-// toward step s - 1 (Q~ reads P_{s-1}); the last step adds
-// sum_c h_T (*) dh_T.  dq and dk there leave out the bonus's terms, which do
-// not depend on the decay.  The bonus (strict, u given), with
+// and the decay's gradient is a reverse cumulative sum inside each chunk:
+// d log_w_t = sum_c h_out (*) dh_out + sum_{s >= t} (q_s (*) dq_s - k_s (*)
+// dk_s) over the chunk's steps s, where h_out is the chunk's end state (the
+// next chunk's saved start state, or h_T), q (*) dq = Q~ (*) dQ~ and
+// k (*) dk = K~ (*) dK~; strict, q_s (*) dq_s counts toward step s - 1 (Q~
+// reads P_{s-1}).  (The sum over every later step of the sequence is the
+// same number, but its terms grow with the sequence and cancel: in float32
+// it lost ~30x the accuracy at 4,096 steps.)  dq and dk there leave out the
+// bonus's terms, which do not depend on the decay.  The bonus (strict, u given), with
 // g_t = dy_t . v_t and b_t = q_t . (u (*) k_t):
 //   du = sum_t g_t q_t (*) k_t,  dq_t += g_t u (*) k_t,  dk_t += g_t u (*) q_t,
 //   dv_t += b_t dy_t.
@@ -51,7 +54,8 @@ constexpr int kThreads = 256;
 constexpr int kPer = kMax * kMax / kThreads;   // tile entries a thread
 // q~, k~, v, dy, P (or unused), A then dA, h_in, dh, q (*) dq, k (*) dk
 constexpr int kTiles = 10;
-// P_L, c, exp(c), exp(c_L - c), b, g, u, the log_w carry, du partials (4)
+// P_L, c, exp(c), exp(c_L - c), b, g, u, the chunk's h_out (*) dh_out,
+// du partials (4)
 constexpr int kVecs = 12;
 constexpr int kSmemFloats = kTiles * kTile + kVecs * kMax;
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
@@ -97,7 +101,7 @@ linear_scan_bwd_kernel(const Args a) {
   float* sb = sd + kMax;              // b_t, the bonus; row sums (scalar)
   float* sg = sb + kMax;              // g_t = dy_t . v_t
   float* su = sg + kMax;              // u
-  float* carry = su + kMax;           // d log_w carried across chunks
+  float* carry = su + kMax;           // sum_c h_out (*) dh_out per key
   float* dup = carry + kMax;          // [4][kMax] du partials
 
   const int tid = threadIdx.x;
@@ -107,7 +111,7 @@ linear_scan_bwd_kernel(const Args a) {
   const bool bonus = kStrict && a.u != nullptr;
   const int jt = tid & (kMax - 1);    // the thread's column in (t, j) loops
 
-  // dh_T (zeros without one) and the carry's h_T (*) dh_T term
+  // dh_T (zeros without one) and the last chunk's h_T (*) dh_T term
   for (int e = tid; e < kMax * kMax; e += kThreads) {
     const int j = e / kMax, c = e % kMax;
     sdh[j * kS + c] = (a.dh_t != nullptr && j < DK && c < DV)
@@ -134,6 +138,24 @@ linear_scan_bwd_kernel(const Args a) {
   for (int ci = nch - 1; ci >= 0; --ci) {
     const int c0 = ci * L;
     const int n = min(L, T - c0);
+    if (ci < nch - 1) {
+      // the chunk's end state is the next chunk's start state, still in sh,
+      // and dh its cotangent: four threads a key column
+      const int j = tid >> 2, part = tid & 3;
+      float s = 0.f;
+      if (j < DK) {
+        for (int c = part; c < DV; c += 4) s += sh[j * kS + c] * sdh[j * kS + c];
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (part == 0) carry[j] = s;
+      __syncthreads();
+      if (kScalar && tid == 0) {
+        float t = 0.f;
+        for (int k = 0; k < DK; ++k) t += carry[k];
+        carry[0] = t;
+      }
+    }
     // ---- the chunk's tiles; zeros past its steps and widths
     for (int e = tid; e < kMax * kMax; e += kThreads) {
       const int t = e / kMax, x = e % kMax;
@@ -318,7 +340,6 @@ linear_scan_bwd_kernel(const Args a) {
           run += sb[t];
           if (t < n) a.dlw[bh * T + c0 + t] = run;
         }
-        carry[0] = run;
       }
     } else if (tid < DK) {
       float run = carry[tid];
@@ -332,7 +353,6 @@ linear_scan_bwd_kernel(const Args a) {
           if (t < n) a.dlw[(bh * T + c0 + t) * DK + tid] = run;
         }
       }
-      carry[tid] = run;
     }
     __syncthreads();
   }

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import math
 import os
 from typing import Optional
 
@@ -44,7 +43,7 @@ from repro_torch.launch.mesh import (HostMesh, machine_device,
 from repro_torch.models.transformer.model import LM
 from repro_torch.optim import adamw
 from repro_torch.utils.logging import Timer, get_logger
-from repro_torch.utils.pytree import tree_leaves, tree_map
+from repro_torch.utils.pytree import tree_map
 
 log = get_logger("repro_torch.train")
 
@@ -66,6 +65,7 @@ class TrainConfig:
     ckpt_dir: Optional[str] = None
     mesh: str = "host"               # host | production | production-multipod
     model_parallel: int = 1
+    remat: bool = False              # recompute each block in the backward
 
 
 def make_mesh(cfg: TrainConfig, device="cuda"):
@@ -109,8 +109,6 @@ def train(cfg: TrainConfig, device="cuda"):
     mcfg = get_smoke_config(cfg.arch) if cfg.smoke else get_config(cfg.arch)
     model = LM(mcfg)
     shapes = model.param_specs()
-    param_mb = sum(math.prod(s.shape) * torch.empty(0, dtype=s.dtype)
-                   .element_size() for s in tree_leaves(shapes)) / 1e6
     if isinstance(mesh, HostMesh):
         G, g_held, device = mesh.shape["data"], mesh.shape["data"], \
             mesh.device
@@ -162,7 +160,8 @@ def train(cfg: TrainConfig, device="cuda"):
             step_cache[k_pow2] = build_llcg_round_step(
                 model, local_opt, server_opt,
                 LLCGStepConfig(num_groups=G, local_steps=k_pow2,
-                               correction_steps=cfg.correction_steps),
+                               correction_steps=cfg.correction_steps,
+                               remat=cfg.remat),
                 mesh=step_mesh)
         round_step = step_cache[k_pow2]
 
@@ -171,12 +170,13 @@ def train(cfg: TrainConfig, device="cuda"):
         corr = {k: place(v, cspec) for k, v in
                 _corr_batches(corpus, cfg, rng).items()}
         local, corr = _on(local, device), _on(corr, device)
+        wire_before = round_step.wire_bytes
         with Timer("lm.round") as t:
             params_G, opt_G, server_state, metrics = round_step(
                 params_G, opt_G, server_state, local, corr)
             local_loss = float(metrics["local_loss"])
             corr_loss = float(metrics["corr_loss"])
-        bytes_cum += 2 * G * param_mb  # up + down, MB
+        bytes_cum += (round_step.wire_bytes - wire_before) / 1e6  # MB
         if rank == 0:
             log.info("round %2d K=%3d local_loss=%.4f corr_loss=%.4f "
                      "%.2fs comm=%.1fMB", r, k_pow2, local_loss, corr_loss,

@@ -25,10 +25,11 @@ Entry points:
                                       ``device``)
   param_specs()                     → the parameter tree's shapes and
                                       dtypes, nothing drawn or allocated
-  forward(params, batch)            → (logits, aux)
+  forward(params, batch, remat)     → (logits, aux)
   prefill(params, batch, max_seq)   → (logits_last, states)
   decode_step(params, states, token, position, max_seq) → (logits, states)
-  loss(params, batch, efficient_ce)  → the training loss (scalar f32)
+  loss(params, batch, efficient_ce, remat) → the training loss (scalar
+                                      f32)
 
 ``position`` is an int shared by the batch (a wave), or a (B,) tensor, each
 row at its own (a slot pool, whose states carry the per-row layout of
@@ -71,6 +72,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models.transformer import blocks as B
 from repro_torch.models.transformer.config import ModelConfig
@@ -318,17 +320,26 @@ class LM:
         return tree_map(lambda x: x[idx], tree)
 
     # ---------------------------------------------------------------- forward
-    def forward(self, params: Dict, batch: Dict, tp=UNSHARDED
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, params: Dict, batch: Dict, tp=UNSHARDED,
+                remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``remat`` recomputes each block's forward in the backward
+        (``torch.utils.checkpoint``, non-reentrant): the backward then
+        holds every block's input and one block's activations at a time.
+        The embedding and the head are not recomputed."""
         cfg = self.cfg
         h = self._embed(params, batch, tp)
         emb0 = h
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for group, key, kind, idx in self._layers():
-            h, a = B.block_forward(
-                kind, self._layer_params(params, group, key, idx), h, cfg,
-                emb0=emb0, causal=not cfg.encoder_only,
-                tp=tp.layer(group, key, len(idx)))
+            args = (kind, self._layer_params(params, group, key, idx), h,
+                    cfg)
+            kw = dict(emb0=emb0, causal=not cfg.encoder_only,
+                      tp=tp.layer(group, key, len(idx)))
+            if remat:
+                h, a = torch.utils.checkpoint.checkpoint(
+                    B.block_forward, *args, use_reentrant=False, **kw)
+            else:
+                h, a = B.block_forward(*args, **kw)
             aux = aux + a
         if cfg.frontend == "vision":
             h = h[:, cfg.num_prefix_tokens:]
@@ -336,27 +347,30 @@ class LM:
 
     # ------------------------------------------------------------------ loss
     def loss(self, params: Dict, batch: Dict,
-             efficient_ce: bool = True, tp=UNSHARDED) -> torch.Tensor:
+             efficient_ce: bool = True, tp=UNSHARDED,
+             remat: bool = False) -> torch.Tensor:
         """Next-token / masked-prediction cross entropy, plus the MoE
         load-balance term ``aux``.
 
         ``efficient_ce=True`` (default) computes it as the JAX package
         does, without a gather over the vocab axis: logsumexp minus a
         one-hot contraction; ``False`` takes ``log_softmax`` and gathers
-        the label's entry.  Logits are taken in f32.
+        the label's entry.  Logits are taken in f32.  ``remat``
+        recomputes block by block (:meth:`forward`).
         """
-        nll, aux = self.loss_terms(params, batch, efficient_ce, tp)
+        nll, aux = self.loss_terms(params, batch, efficient_ce, tp, remat)
         return nll + aux
 
     def loss_terms(self, params: Dict, batch: Dict, efficient_ce: bool = True,
-                   tp=UNSHARDED) -> Tuple[torch.Tensor, torch.Tensor]:
+                   tp=UNSHARDED, remat: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(nll, aux)``, the loss their sum.  Split over a mesh, ``nll``
         is the rank's share (the global one is its sum over the data
         shards, whose gradients then sum to the global gradient) and
         ``aux`` the global term; vocab-sharded logits take the cross
         entropy on the rank's slice (``tp.vocab_nll``)."""
         cfg = self.cfg
-        logits, aux = self.forward(params, batch, tp)
+        logits, aux = self.forward(params, batch, tp, remat)
         labels = batch["labels"].long()
         logits32 = logits.float()
         if tp.vocab_sharded:

@@ -274,14 +274,14 @@ def test_main_parses_every_train_config_field():
             "--batch-per-group", "6", "--seq-len", "33", "--lr", "0.01",
             "--server-lr", "0.02", "--heterogeneity", "0.25", "--seed", "7",
             "--ckpt-dir", "/ck", "--mesh", "production",
-            "--model-parallel", "2", "--device", "cpu"]
+            "--model-parallel", "2", "--remat", "true", "--device", "cpu"]
     cfg, device = ttrain.parse_args(argv)
     assert device == "cpu"
     assert dataclasses.asdict(cfg) == dict(
         arch="rwkv6-1.6b", smoke=False, rounds=3, base_k=5, rho=1.7,
         correction_steps=2, batch_per_group=6, seq_len=33, lr=0.01,
         server_lr=0.02, heterogeneity=0.25, seed=7, ckpt_dir="/ck",
-        mesh="production", model_parallel=2)
+        mesh="production", model_parallel=2, remat=True)
     assert ttrain.parse_args([])[0] == ttrain.TrainConfig()
     with pytest.raises(RuntimeError, match="256 ranks"):
         ttrain.main(argv)

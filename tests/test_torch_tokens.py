@@ -81,7 +81,8 @@ def test_local_and_correction_batches_equal_jax(g, k, s_steps, bpg):
     corpus, jcorpus = _corpora(512, g, 0.6, 5, n=2000)
     cfg = ttrain.TrainConfig(batch_per_group=bpg, seq_len=32,
                              correction_steps=s_steps)
-    jcfg = jtrain.TrainConfig(**dataclasses.asdict(cfg))
+    jcfg = jtrain.TrainConfig(**{k: v for k, v in dataclasses.asdict(cfg)
+                                 .items() if k != "remat"})
     rng, jrng = np.random.default_rng(9), np.random.default_rng(9)
     for _ in range(2):                    # the generator carries across rounds
         local = ttrain._local_batches(corpus, g, k, cfg, rng)
@@ -96,9 +97,11 @@ def test_local_and_correction_batches_equal_jax(g, k, s_steps, bpg):
 
 
 def test_train_config_fields_equal_jax():
+    """The JAX package's fields and defaults, in its order, and the port's
+    one more: ``remat`` (per-block recomputation, off by default)."""
     got = [(f.name, f.default) for f in dataclasses.fields(ttrain.TrainConfig)]
     want = [(f.name, f.default) for f in dataclasses.fields(jtrain.TrainConfig)]
-    assert got == want
+    assert got == want + [("remat", False)]
 
 
 @pytest.mark.parametrize("base_k,rho,rounds", [(2, 1.3, 3), (1, 1.0, 4),
