@@ -12,7 +12,12 @@ weights and states compare leaf for leaf:
 
 Where the JAX package ``lax.scan``\\ s over units and layers, the port loops
 over the stacked axes in Python; each layer's parameters are views into the
-stacks.  Every block gets ``emb0``, the layer stack's input embeddings (the
+stacks.  ``forward`` takes them with one ``unbind`` per stacked leaf (its
+layer axes flattened), so a backward writes each stack's gradient once, a
+``stack`` of its layers' gradients: indexing each layer instead would have
+autograd zero-fill a gradient of the whole stack for every layer and add
+them up.  ``prefill`` and ``decode_step`` take no gradients and index each
+layer.  Every block gets ``emb0``, the layer stack's input embeddings (the
 prompt's in prefill, the current token's in decode), which the shared block
 concatenates to its input.  Weights stay f32 and are cast to the stream's
 dtype at use.  As in the JAX package, the embedding scale promotes the
@@ -154,6 +159,27 @@ class LM:
         if key.startswith("s"):
             return params["shared"]
         return self._index(params[group][key], idx)
+
+    def _unbound_layers(self, params: Dict):
+        """``(group, key, kind, index, parameters)`` of every layer in
+        :meth:`_layers` order, each stacked leaf's layers taken by one
+        ``unbind`` of its flattened layer axes, whose backward is one
+        ``stack``.  Expert axes inside a layer stay inside its piece."""
+        pieces = {(group, key): tree_map(
+            lambda x, n=len(dims): x.flatten(0, n - 1).unbind(0),
+            params[group][key])
+            for group, key, _, dims in self._entries()
+            if not key.startswith("s")}
+        dims = {(group, key): d for group, key, _, d in self._entries()}
+        for group, key, kind, idx in self._layers():
+            if key.startswith("s"):
+                yield group, key, kind, idx, params["shared"]
+                continue
+            flat = 0
+            for i, n in zip(idx, dims[group, key]):
+                flat = flat * n + i
+            yield group, key, kind, idx, tree_map(
+                lambda t: t[flat], pieces[group, key])
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int, device="cuda", block=None) -> Dict:
@@ -330,9 +356,8 @@ class LM:
         h = self._embed(params, batch, tp)
         emb0 = h
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for group, key, kind, idx in self._layers():
-            args = (kind, self._layer_params(params, group, key, idx), h,
-                    cfg)
+        for group, key, kind, idx, layer in self._unbound_layers(params):
+            args = (kind, layer, h, cfg)
             kw = dict(emb0=emb0, causal=not cfg.encoder_only,
                       tp=tp.layer(group, key, len(idx)))
             if remat:

@@ -1169,3 +1169,42 @@ def test_rwkv6_24_layers_at_4096_tokens_against_float64(cuda, seed):
     median, worst = rel[len(rel) // 2][0], rel[-1]
     assert nll_gap < 1e-5 and median < 0.1 and worst[0] < 1.0, (
         nll_gap, median, worst)
+
+
+@pytest.mark.gpu
+def test_rwkv6_unbound_layers_equal_indexed_on_card(cuda):
+    """rwkv6-1.6b at its widths with 4 layers, one sequence of 4,096 tokens
+    and per-block recomputation: ``LM.loss``'s gradients through one
+    ``unbind`` per stacked leaf equal those through per-layer ``x[idx]``
+    views (``tests/lm_indexed.py``) bit for bit, and the peak of allocated
+    memory over one ``value_and_grad`` is no higher."""
+    import dataclasses
+
+    from lm_indexed import IndexedLM
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.steps import value_and_grad
+    from repro_torch.models.transformer.model import LM
+    from repro_torch.utils.pytree import flatten_with_paths
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), num_layers=4)
+    model = LM(cfg)
+    params = model.init(11, cuda)
+    gen = torch.Generator().manual_seed(11)
+    batch = {k: torch.randint(0, 256, (1, 4096), generator=gen).mul_(256)
+             .to(cuda) for k in ("tokens", "labels")}
+
+    def run(lm):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = value_and_grad(
+            lambda p, b: lm.loss(p, b, remat=True), params, batch)
+        torch.cuda.synchronize()
+        return loss, grads, torch.cuda.max_memory_allocated() - base
+
+    loss_i, grads_i, peak_i = run(IndexedLM(cfg))
+    loss, grads, peak = run(model)
+    assert torch.equal(loss, loss_i)
+    for (k, g), (_, w) in zip(flatten_with_paths(grads),
+                              flatten_with_paths(grads_i)):
+        assert torch.equal(g, w), k
+    assert peak <= peak_i, (peak, peak_i)

@@ -16,11 +16,21 @@
   all be finite.
 * RWKV6's chunk of 8 finite where the JAX package's chunk of 64
   overflows.
+* ``LM.forward`` takes each stack's layers with one ``unbind``: on
+  models whose stacks hold several layers (rwkv6, gemma3's units and
+  remainder, zamba2 with its shared block), ``LM.loss``'s gradients equal
+  those through per-layer ``x[idx]`` views (``tests/lm_indexed.py``) bit
+  for bit, with and without per-block recomputation, and the backward runs
+  no ``select_backward`` and one ``stack`` per stacked leaf (the plain
+  scan gradient, the CPU's stand-in for the card's kernel, is autograd of
+  its own and not counted).
 
 The LLCG round step and the trainer: ``tests/test_torch_llcg_steps.py``.
 """
+import collections
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -38,7 +48,8 @@ from repro_torch.convert import lm_params_from_jax
 from repro_torch.distributed import steps
 from repro_torch.kernels import ops
 from repro_torch.models.transformer.model import LM
-from repro_torch.utils.pytree import flatten_with_paths
+from repro_torch.utils.pytree import (flatten_with_paths, tree_leaves,
+                                      tree_unflatten)
 
 SCAN_TOL = 2e-4
 LOSS_RTOL = 1e-5
@@ -239,3 +250,72 @@ def test_rwkv6_scan_stays_finite_where_the_jax_form_overflows():
         assert torch.isfinite(g).all()
         torch.testing.assert_close(
             g, w, rtol=0, atol=SCAN_TOL * max(1.0, float(w.abs().max())))
+
+
+# --------------------------------------------------------------------------
+# Each stack's layers taken by one unbind
+# --------------------------------------------------------------------------
+DEEP = {
+    # arch: overrides giving stacks of several layers
+    "rwkv6-1.6b": dict(pattern=(("rwkv6", 1),), remainder=(), n_units=3,
+                       num_layers=3),
+    "gemma3-1b": dict(pattern=(("swa", 2), ("full", 1)),
+                      remainder=(("swa", 2),), n_units=2, num_layers=8),
+    "zamba2-7b": dict(pattern=(("shared_attn", 1), ("mamba2", 2)),
+                      remainder=(("mamba2", 1),), n_units=2, num_layers=7),
+}
+
+
+def _deep_setting(arch, seq=21, seed=5):
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), **DEEP[arch])
+    lm = LM(cfg)
+    params = lm.init(seed, "cpu")
+    gen = torch.Generator().manual_seed(seed)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, seq), generator=gen)
+             for k in ("tokens", "labels")}
+    return lm, params, batch
+
+
+def _loss_and_leaves(lm, params, batch, remat):
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    return lm.loss(tree_unflatten(params, leaves), batch, remat=remat), leaves
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", sorted(DEEP))
+def test_unbound_layers_give_the_indexed_gradients(arch, remat):
+    from lm_indexed import IndexedLM
+    lm, params, batch = _deep_setting(arch)
+    assert any(math.prod(d) > 1 for _, _, _, d in lm._entries())
+    loss, leaves = _loss_and_leaves(lm, params, batch, remat)
+    grads = torch.autograd.grad(loss, leaves)
+    loss_i, leaves_i = _loss_and_leaves(IndexedLM(lm.cfg), params, batch,
+                                        remat)
+    grads_i = torch.autograd.grad(loss_i, leaves_i)
+    assert torch.equal(loss, loss_i)
+    paths = [k for k, _ in flatten_with_paths(params)]
+    for k, g, w in zip(paths, grads, grads_i):
+        assert torch.equal(g, w), k
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_backward_writes_each_stack_once(remat):
+    lm, params, batch = _deep_setting("rwkv6-1.6b")
+    stacked = len(tree_leaves(params["units"])) + len(
+        tree_leaves(params["rem"]))
+    loss, leaves = _loss_and_leaves(lm, params, batch, remat)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        torch.autograd.grad(loss, leaves)
+
+    def in_scan_grad(e):
+        while e is not None:
+            if e.name == "_LinearScanBackward":
+                return True
+            e = e.cpu_parent
+        return False
+
+    ops_run = collections.Counter(e.name for e in prof.events()
+                                  if not in_scan_grad(e))
+    assert ops_run["aten::select_backward"] == 0
+    assert 0 < ops_run["aten::stack"] <= stacked
